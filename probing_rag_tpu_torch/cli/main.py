@@ -1,0 +1,197 @@
+"""Command-line entry points of the port: ``index-build`` and ``rag-run``.
+
+Port of the BM25 path of ``probing_rag_tpu/cli/main.py``:
+
+    python -m probing_rag_tpu_torch.cli index-build --dataset nq --fixture corpus.txt --out artifacts/nq
+    python -m probing_rag_tpu_torch.cli rag-run --retr-method probing --dataset nq \\
+        --fixture-qa qa.json --index artifacts/nq --device cuda
+
+Without a checkpoint (loading one is not ported yet) ``rag-run`` uses the
+random-init tiny model and the byte tokenizer — the JAX CLI's smoke mode —
+and a random prober gate unless ``--probers`` names a ``save_pytree``
+checkpoint.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+
+def _load_model(args):
+    from probing_rag_tpu_torch.models.gemma import GemmaConfig, init_params
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+
+    print(
+        "[probing-rag-tpu-torch] no checkpoint loader yet: using random-init tiny "
+        "model (smoke-test mode; outputs are not meaningful)",
+        file=sys.stderr,
+    )
+    cfg = dataclasses.replace(GemmaConfig.tiny(), compute_dtype=torch.float32)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    params = init_params(cfg, gen, device=args.device)
+    return params, cfg, ByteTokenizer(cfg.vocab_size)
+
+
+def _load_probers(args, cfg):
+    from probing_rag_tpu_torch.prober.train import ProberTrainConfig, init_prober_stack
+    from probing_rag_tpu_torch.utils.checkpoint import load_pytree
+    from probing_rag_tpu_torch.weights import probers_from_jax
+
+    tc = ProberTrainConfig(layers=cfg.probe_layers, positions=(args.position,))
+    gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
+    template = init_prober_stack(tc, cfg.d_model, gen, device=args.device)
+    if not args.probers:
+        print("[probing-rag-tpu-torch] no --probers: random gate (smoke only)", file=sys.stderr)
+        return template
+    probers, meta = load_pytree(Path(args.probers))
+    # checkpoints trained over both positions carry 2x the gate's sites:
+    # select the gate's rows by the manifest's site order
+    saved = [tuple(s) for s in meta.get("sites", [])]
+    if saved and saved != list(tc.sites):
+        missing = [s for s in tc.sites if s not in saved]
+        if missing:
+            raise SystemExit(f"--probers checkpoint sites {saved} do not cover the gate's sites {tc.sites}")
+        rows = torch.as_tensor([saved.index(s) for s in tc.sites])
+        probers = {m: {k: v[rows] for k, v in sub.items()} for m, sub in probers.items()}
+    probers = probers_from_jax(probers, device=args.device)
+    got = {(m, k): tuple(v.shape) for m, sub in probers.items() for k, v in sub.items()}
+    want = {(m, k): tuple(v.shape) for m, sub in template.items() for k, v in sub.items()}
+    if got != want:
+        raise SystemExit(
+            f"--probers checkpoint does not match the gate's prober stack: got {got}, "
+            f"expected {want} (d_model={cfg.d_model}, sites={tc.sites})"
+        )
+    return probers
+
+
+def cmd_index_build(args):
+    from probing_rag_tpu.data.corpus import DocStore, make_documents
+    from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
+
+    if args.fixture:
+        texts = [line for line in Path(args.fixture).read_text().splitlines() if line.strip()]
+        ids = [str(i) for i in range(len(texts))]
+    else:
+        texts, ids = make_documents(args.dataset, Path(args.raw_dir))
+    out = Path(args.out)
+    DocStore.from_texts(texts, ids).save(out / "docstore.json")
+    t0 = time.time()
+    BM25Index.build(texts, BM25Config()).save(out / "bm25")
+    print(f"built sparse index over {len(texts)} docs in {time.time() - t0:.1f}s")
+    print(f"index written to {out}")
+
+
+def _load_questions(args):
+    from probing_rag_tpu.data.qa import load_qa_dataset
+
+    if args.fixture_qa:
+        import json
+
+        data = json.loads(Path(args.fixture_qa).read_text())
+        return [d["question"] for d in data], [d["answers"] for d in data]
+    examples = load_qa_dataset(Path(args.raw_dir), args.dataset, args.split)
+    examples = examples[: args.steps_limit + 1]
+    return [e.question for e in examples], [e.answers for e in examples]
+
+
+def cmd_rag_run(args):
+    from probing_rag_tpu.data.corpus import DocStore
+    from probing_rag_tpu.eval.evaluator import evaluate_predictions
+    from probing_rag_tpu.eval.metrics import EmF1Metric, SupportEmF1Metric
+    from probing_rag_tpu.eval.results import RunRecord, result_filename, save_run
+    from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+    from probing_rag_tpu_torch.retrieval.bm25_index import BM25Index
+
+    # f32 matmuls in full f32, as the JAX reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params, cfg, tok = _load_model(args)
+    index_dir = Path(args.index)
+    store = DocStore.load(index_dir / "docstore.json")
+    engine = BM25Engine(BM25Index.load(index_dir / "bm25"), device=args.device)
+    probers = _load_probers(args, cfg) if args.retr_method == "probing" else None
+    rag = RAGConfig(
+        retr_method=args.retr_method,
+        threshold=args.threshold,
+        ablation=args.ablation,
+        top_k=args.top_k,
+        max_new_tokens=args.max_new_tokens,
+        batch_size=args.batch_size,
+        position=args.position,
+    )
+    pipeline = AdaptiveRAGPipeline(params, cfg, tok, engine, store, probers, rag)
+    questions, answers = _load_questions(args)
+    t0 = time.time()
+    result = pipeline.run(questions)
+    elapsed = time.time() - t0
+    multihop = args.dataset in ("hotpotqa", "2wikimultihopqa", "musique", "iirc")
+    metric = SupportEmF1Metric() if multihop else EmF1Metric()
+    acc, metric, _ = evaluate_predictions(
+        result.pred_list, answers, metric,
+        dataset_name=args.dataset, retr_method=args.retr_method,
+    )
+    record = RunRecord(
+        retr_method=args.retr_method,
+        dataset_name=args.dataset,
+        elapsed_s=elapsed,
+        acc=acc,
+        metric_out=metric.get_metric(),
+        retr_count_list=result.retr_count_list if args.retr_method == "probing" else None,
+        config={k: v for k, v in vars(args).items() if k != "fn"},
+    )
+    fname = result_filename(
+        args.ablation, "torch", "sparse", args.dataset,
+        args.threshold, args.retr_method, "cot", args.split, args.steps_limit,
+    )
+    path = save_run(record, Path(args.results_dir), fname)
+    em, f1 = record.em_f1()
+    print(f"acc={record.accuracy:.4f} em={em} f1={f1} time={elapsed:.1f}s -> {path}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="probing-rag-tpu-torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("index-build")
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--raw-dir", default="raw_data")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--fixture", default=None, help="plain-text corpus file (one doc/line)")
+    sp.set_defaults(fn=cmd_index_build)
+
+    sp = sub.add_parser("rag-run")
+    sp.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
+    sp.add_argument("--seed", type=int, default=42)
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--split", default="dev")
+    sp.add_argument("--raw-dir", default="raw_data")
+    sp.add_argument("--fixture-qa", default=None, help="JSON [{question, answers}]")
+    sp.add_argument("--index", required=True)
+    sp.add_argument("--probers", default=None)
+    sp.add_argument("--threshold", type=float, default=0.0)
+    sp.add_argument("--ablation", type=int, default=0)
+    sp.add_argument("--top-k", type=int, default=5)
+    sp.add_argument("--max-new-tokens", type=int, default=150)
+    sp.add_argument("--batch-size", type=int, default=8)
+    sp.add_argument("--position", default="resid_post")
+    sp.add_argument("--steps-limit", type=int, default=500)
+    sp.add_argument("--results-dir", default="result")
+    sp.add_argument("--retr-method", default="probing", choices=["probing", "none", "simple"])
+    sp.set_defaults(fn=cmd_rag_run)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

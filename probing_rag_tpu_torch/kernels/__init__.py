@@ -1,0 +1,127 @@
+"""Build and load layer for the hand-written CUDA kernels in ``csrc/``.
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, into ``_build/`` beside this file, and is reused while
+a hash of the sources and flags is unchanged. Nothing is built or imported
+when this module is imported, so the CPU tests can import every module.
+
+Every C entry returns ``cudaGetLastError()`` after its launches;
+:func:`check` turns a non-zero code into an exception.
+
+``LAUNCHES`` counts, per kernel, the wrapper calls that launched it. A run
+resets the counts with :func:`reset_launches` and reads them afterwards to
+show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+LAUNCHES: Dict[str, int] = {
+    "bm25_gather": 0,
+    "bitonic_sort": 0,
+    "bitonic_sort_wide": 0,
+    "segment_topk": 0,
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "bm25_gather": [_P] * 15 + [_I, _I, _LL, _I, _I, _P, _P, _P],
+    "bitonic_sort_pairs": [_P, _P, _P, _P, _I, _LL, _LL, _P],
+    "segment_topk": [_P, _P, _I, _LL, _I, _I, _P, _P, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into ``_build/libprobing_kernels_<hash>.so``
+    unless that file exists. Returns its path. With ``verbose``, prints the
+    build time and ``ptxas`` resource usage (registers, shared memory,
+    spills) of each kernel."""
+    cu, cuh = _sources()
+    digest = hashlib.sha256()
+    for f in (*cu, *cuh):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"libprobing_kernels_{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    if verbose:
+        print(f"built {so.name} in {time.time() - t0:.1f}s")
+        print(proc.stderr.strip())
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if code != 0:
+        msg = library().kernel_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, for the C entries. The
+    caller launches with ``device`` current (``torch.cuda.device``)."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

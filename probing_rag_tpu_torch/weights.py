@@ -1,0 +1,58 @@
+"""Conversion of the JAX package's parameters into the port's.
+
+The port keeps the JAX layouts (linear weights ``[in, out]``, layer leaves
+stacked ``[L, ...]``), so conversion is a copy: each numpy (or CPU torch)
+leaf becomes a tensor on ``device``. Shapes are checked against the config.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from probing_rag_tpu_torch.models.gemma import GemmaConfig
+
+
+def _tensor(x, device, dtype) -> torch.Tensor:
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_jax(tree: Dict[str, Any], cfg: GemmaConfig, device="cpu",
+                       dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """LM params (``models/gemma.py::init_params`` / ``hf_loader`` tree, as
+    numpy arrays) -> the port's dict of tensors on ``device`` in ``dtype``."""
+    d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    L = cfg.n_layers
+    want = {
+        "attn_norm": (L, d), "wq": (L, d, h * hd), "wk": (L, d, kv * hd),
+        "wv": (L, d, kv * hd), "wo": (L, h * hd, d), "mlp_norm": (L, d),
+        "w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d),
+    }
+    layers = tree["layers"]
+    if set(layers) != set(want):
+        raise ValueError(f"layer leaves {sorted(layers)} != {sorted(want)}")
+    out: Dict[str, Any] = {"layers": {}}
+    for name, shape in want.items():
+        if tuple(layers[name].shape) != shape:
+            raise ValueError(f"layers/{name}: shape {tuple(layers[name].shape)} != {shape}")
+        out["layers"][name] = _tensor(layers[name], device, dtype)
+    top = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
+    if not cfg.tied_head:
+        top["lm_head"] = (d, cfg.vocab_size)
+    for name, shape in top.items():
+        if tuple(tree[name].shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(tree[name].shape)} != {shape}")
+        out[name] = _tensor(tree[name], device, dtype)
+    return out
+
+
+def probers_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """Stacked prober params (``prober/train.py::init_prober_stack`` tree or
+    a ``load_pytree`` result) -> f32 tensors on ``device``."""
+    return {
+        mod: {leaf: _tensor(v, device, torch.float32) for leaf, v in sub.items()}
+        for mod, sub in tree.items()
+    }

@@ -1,0 +1,180 @@
+"""The whole slice — prompt, prefill, greedy decode with capture pooling,
+prober gate, BM25 retrieval, regeneration — against the JAX pipeline, on
+the corpus of .claude/skills/verify/rag_demo.py (doc lengths made distinct)
+with the tiny f32 model.
+
+Both sides get the same numpy-drawn LM and prober parameters. Predictions
+and retrieval counts must be equal; gate scores allclose at rtol 1e-4 /
+atol 1e-4 (f32 forward sums in another order). Retrieval ids can only
+match if the top-k scores are distinct, which the test asserts for every
+query the pipeline searched.
+
+A subprocess imports every module of the port and runs the CPU ``rag-run``
+CLI on a fixture, and checks that jax was never imported."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from probing_rag_tpu.data.corpus import DocStore
+from probing_rag_tpu.models import gemma as jg
+from probing_rag_tpu.models.tokenizer import ByteTokenizer as JaxByteTokenizer
+from probing_rag_tpu.pipeline.rag import AdaptiveRAGPipeline as JaxPipeline
+from probing_rag_tpu.pipeline.rag import RAGConfig as JaxRAGConfig
+from probing_rag_tpu.retrieval.bm25 import BM25Engine as JaxBM25Engine
+from probing_rag_tpu.retrieval.bm25_index import BM25Config as JaxBM25Config
+from probing_rag_tpu.retrieval.bm25_index import BM25Index as JaxBM25Index
+from probing_rag_tpu_torch.models import gemma as tg
+from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
+from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
+from probing_rag_tpu_torch.weights import lm_params_from_jax, probers_from_jax
+
+from test_torch_gemma import numpy_params, to_jax
+from test_torch_prober import numpy_stack
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+# rag_demo.py's corpus, with docs lengthened or shortened to distinct token
+# counts: two docs of one length matching the same query words would tie
+CORPUS = [
+    "the quick brown fox jumps over the lazy dog",
+    "paris is the capital of france",
+    "the eiffel tower is in central paris",
+    "mount everest is the tallest mountain on earth",
+    "the pacific ocean is the largest and the deepest ocean",
+    "water boils at hundred degrees",
+]
+QUESTIONS = ["where is the eiffel tower?", "which ocean is the largest?"]
+
+
+class RecordingEngine:
+    """Delegates to a BM25 engine and records every query searched."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.queries = []
+
+    def search(self, queries, k=5):
+        self.queries.extend(queries)
+        return self.engine.search(queries, k=k)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = dataclasses.replace(jg.GemmaConfig.tiny(), compute_dtype=jnp.float32)
+    tcfg = dataclasses.replace(tg.GemmaConfig.tiny(), compute_dtype=torch.float32)
+    lm = numpy_params(jcfg, seed=5)
+    probers = numpy_stack(len(jcfg.probe_layers), jcfg.d_model, seed=6)
+    bm = dict(stem=False, remove_stopwords=False)
+    return dict(
+        jcfg=jcfg, tcfg=tcfg, jlm=to_jax(lm), tlm=lm_params_from_jax(lm, tcfg),
+        jprobers=to_jax(probers), tprobers=probers_from_jax(probers),
+        jidx=JaxBM25Index.build(CORPUS, JaxBM25Config(**bm)),
+        tidx=BM25Index.build(CORPUS, BM25Config(**bm)),
+    )
+
+
+@pytest.mark.parametrize("method,threshold", [
+    ("probing", -1e6), ("probing", 0.0), ("probing", 1e6), ("none", 0.0), ("simple", 0.0),
+])
+def test_pipeline_matches_jax(setup, method, threshold):
+    s = setup
+    store = DocStore.from_texts(CORPUS)
+    kw = dict(retr_method=method, threshold=threshold, batch_size=2, max_new_tokens=6)
+    jres = JaxPipeline(s["jlm"], s["jcfg"], JaxByteTokenizer(512), JaxBM25Engine(s["jidx"]),
+                       store, s["jprobers"], JaxRAGConfig(**kw)).run(QUESTIONS)
+    engine = RecordingEngine(BM25Engine(s["tidx"]))
+    tres = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), engine, store,
+                               s["tprobers"], RAGConfig(**kw)).run(QUESTIONS)
+    for q in engine.queries:  # retrieval ids are comparable only without ties
+        ids = s["tidx"].encode_query(engine.engine.analyzer(q))
+        top = np.sort(s["tidx"].score_all(ids))[::-1][:5]
+        top = top[top > 0]
+        assert (np.abs(np.diff(top)) > 1e-4).all(), (q, top)
+    assert tres.pred_list == jres.pred_list
+    assert tres.retr_count_list == jres.retr_count_list
+    if method == "probing":
+        expect = {-1e6: 0, 1e6: 3}.get(threshold)
+        if expect is not None:
+            assert tres.retr_count_list == [expect] * len(QUESTIONS)
+        for a, b in zip(tres.gate_scores, jres.gate_scores):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-4)
+
+
+def test_unported_knobs_raise(setup):
+    s = setup
+    with pytest.raises(NotImplementedError):
+        AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), None, None, None,
+                            RAGConfig(kv_int8=True))
+    pipe = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), None, None, None,
+                               RAGConfig(retr_method="bogus"))
+    with pytest.raises(ValueError, match="bogus"):
+        pipe.run(["q"])
+
+
+def test_run_resumable_skips_done_chunks(setup, tmp_path):
+    s = setup
+    store = DocStore.from_texts(CORPUS)
+    pipe = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), BM25Engine(s["tidx"]),
+                               store, s["tprobers"],
+                               RAGConfig(batch_size=2, max_new_tokens=4, threshold=1e6))
+    manifest = tmp_path / "runs.jsonl"
+    questions = QUESTIONS + ["what is the capital of france?"]
+    first = pipe.run_resumable(questions, manifest, chunk_size=2)  # last chunk padded
+    lines = manifest.read_text().splitlines()
+    assert [json.loads(l)["i"] for l in lines] == [0, 1, 2]
+    again = pipe.run_resumable(questions, manifest, chunk_size=2)
+    assert manifest.read_text().splitlines() == lines  # nothing recomputed
+    assert again.pred_list == first.pred_list
+    assert again.retr_count_list == first.retr_count_list == [3, 3, 3]
+
+
+SUBPROCESS = r"""
+import importlib, json, pkgutil, sys, tempfile
+from pathlib import Path
+import probing_rag_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(probing_rag_tpu_torch.__path__,
+                                               "probing_rag_tpu_torch.")]
+for name in names:
+    if not name.endswith("__main__"):
+        importlib.import_module(name)
+print("MODULES", len(names))
+from probing_rag_tpu_torch.cli.main import main
+d = Path(tempfile.mkdtemp())
+(d / "corpus.txt").write_text("\n".join(json.loads(sys.argv[1])))
+(d / "qa.json").write_text(json.dumps([
+    {"question": "where is the eiffel tower?", "answers": ["paris"]},
+    {"question": "what is the tallest mountain?", "answers": ["everest"]}]))
+main(["index-build", "--dataset", "nq", "--fixture", str(d / "corpus.txt"), "--out", str(d / "idx")])
+main(["rag-run", "--device", "cpu", "--dataset", "nq", "--fixture-qa", str(d / "qa.json"),
+      "--index", str(d / "idx"), "--max-new-tokens", "6", "--batch-size", "2",
+      "--threshold", "1e6", "--results-dir", str(d / "result")])
+runs = (d / "result" / "runs.jsonl").read_text().splitlines()
+assert json.loads(runs[-1])["retr_counts"] == [3, 3], runs[-1]
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+print("NO_JAX_OK")
+"""
+
+
+def test_port_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", SUBPROCESS, json.dumps(CORPUS)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
+    n_modules = int(proc.stdout.split("MODULES")[1].split()[0])
+    assert n_modules >= 25, proc.stdout
