@@ -22,6 +22,23 @@ and the script exits non-zero:
    tokens, gate threshold 1e6 so that all 4 retrieval rounds run; then the
    loop's first and last BM25 searches again, kernels against the plain
    path, at the widths the loop gave them (up to 2M slots per row).
+6. dense kernels vs plain: the flat dense top-k at 500,000 x 768 with 256
+   queries (ip and l2 bf16, the int8 rerank pool, int8 x int8), the f32
+   coarse quantizer (64 x 4096 x 768, nprobe 32 and 128), the probing
+   loop's own shape (8 x 100,000 x 768 l2 bf16) and depths of 32 and 100;
+   the IVF top-k over a clustered 1,000,000 x 768 corpus (k-means on the
+   card, nlist 4096, nprobe 32, block 256) at 64 and 8 queries, bf16 and
+   int8. Each against its plain version: scores allclose, ids equal where
+   the scores are distinct, recall@10 = 1.0. Then IVF engines at depth 40
+   and block 48 against the same engines on the CPU.
+7. dense main path: a flat l2 index of the phase-4 corpus rendered as text,
+   encoded by a Contriever-width encoder (random bf16 weights from a seed,
+   byte tokenizer), and an IVF index over it; the probing loop of phase
+   5's model and probers over the flat engine and then over the IVF
+   engine, 8 questions each, all 4 retrieval rounds, each loop with its
+   own launch counts; then the flat loop's first and last searches again
+   through the flat bf16, flat int8 + rerank, IVF bf16 and IVF int8
+   engines, each against the same engine on the CPU.
 
 The line before the last is the card's name and power limit; the last line
 is the result as one JSON object.
@@ -45,19 +62,39 @@ K = 5
 SORT_WIDTHS = (2048, 32768, 524288, 1 << 21)
 SORT_ROWS = {2048: 1024, 32768: 64, 524288: 4, 1 << 21: 2}
 
+# phase 6: bench_dense.py's shape, the IVF quantizer's, bench_ivf.py's
+DENSE_N, DENSE_Q, DENSE_D = 500_000, 256, 768
+QUANT_Q, QUANT_NLIST = 64, 4096
+IVF_N, IVF_CLUSTERS, IVF_NLIST, IVF_NPROBE, IVF_BLOCK = 1_000_000, 4096, 4096, 32, 256
+IVF_QS = (64, 8)
+DENSE_K = 10
+N_DENSE_QUESTIONS = 8
+WIDE_NPROBE = 128  # a faiss nprobe above the rerank pool's 32
+# depths that are not a multiple of the kernels' 64-deep step, and IVF
+# blocks that are not a multiple of the IVF kernel's 32-row step
+TAIL_DS, TAIL_N, TAIL_Q = (32, 100), 20_011, 37
+TAIL_IVF_D, TAIL_IVF_N, TAIL_IVF_NLIST, TAIL_IVF_BLOCK = 40, 20_000, 64, 48
+
 REPO_KERNELS = "probing_rag_tpu_torch/kernels/csrc"
 REPLACES = {
     "bm25_gather": "probing_rag_tpu/ops/pallas_sparse.py:663",
     "bitonic_sort": "probing_rag_tpu/ops/pallas_sort.py:55",
     "bitonic_sort_wide": "probing_rag_tpu/ops/pallas_sort.py:155",
     "segment_topk": "probing_rag_tpu/ops/pallas_sparse.py:84",
+    "dense_topk": "probing_rag_tpu/ops/pallas_dense.py:185",
+    "ivf_topk": "probing_rag_tpu/ops/pallas_ivf.py:52",
 }
 SOURCES = {
     "bm25_gather": f"{REPO_KERNELS}/bm25_gather.cu",
     "bitonic_sort": f"{REPO_KERNELS}/bitonic_sort.cu",
     "bitonic_sort_wide": f"{REPO_KERNELS}/bitonic_sort.cu",
     "segment_topk": f"{REPO_KERNELS}/segment_topk.cu",
+    "dense_topk": f"{REPO_KERNELS}/dense_topk.cu",
+    "ivf_topk": f"{REPO_KERNELS}/ivf_topk.cu",
 }
+# the kernels each path must launch
+BM25_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_topk")
+DENSE_KERNELS = ("dense_topk", "ivf_topk")
 
 
 class Phase:
@@ -389,10 +426,11 @@ class TextStore:
         return [self._texts[i] for i in indices]
 
 
-def phase_main_path(index, docs_tokens, cpu_engine) -> dict:
+def phase_main_path(index, docs_tokens, cpu_engine):
     """``rag-run --retr-method probing`` at Gemma-2B width through the
     pipeline API: random bf16 weights and probers from a seed. Returns the
-    kernel launch counts of the probing loop."""
+    kernel launch counts of the probing loop, and (params, config, probers,
+    tokenizer, docstore) for the dense path."""
     import numpy as np
     import torch
 
@@ -459,9 +497,9 @@ def phase_main_path(index, docs_tokens, cpu_engine) -> dict:
         if s is None or s.shape != (2,) or not np.isfinite(s).all() \
                 or abs(float(s.sum()) - len(tc.sites)) > 1e-3:
             raise AssertionError(f"gate scores {s} are not {len(tc.sites)} softmax sums")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in BM25_KERNELS if launches[n] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the BM25 path: {missing}")
 
     # the loop's first search (the questions) and last one (whole
     # generations, over-cap rows) again: kernels against the plain path
@@ -494,7 +532,321 @@ def phase_main_path(index, docs_tokens, cpu_engine) -> dict:
     print(f"  decode at batch 8, prompt {len(tok.encode(prompts8[0]))} tokens: prefill "
           f"{t1:.3f}s, 150 tokens {t150:.3f}s -> {decode_tps:.1f} decode tokens/s; "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, (params, cfg, probers, tok, store)
+
+
+def check_topk(got, ref, what: str, rtol: float = 1e-4, atol: float = 1e-3):
+    """A kernel's (scores, ids) against its plain version's on the same
+    inputs: scores allclose (the sums run in another order), ids equal where
+    the plain scores are distinct from their neighbours, and recall@10 of
+    the plain ids. Returns (max abs error over finite scores, recall)."""
+    import numpy as np
+
+    gv, gi = (t.cpu().numpy() for t in got)
+    rv, ri = (t.cpu().numpy() for t in ref)
+    if not np.allclose(gv, rv, rtol=rtol, atol=atol):  # +-inf must match exactly
+        raise AssertionError(f"{what}: scores differ, max {np.nanmax(np.abs(gv - rv))}")
+    fin = np.isfinite(rv)
+    err = float(np.abs(gv - rv)[fin].max()) if fin.any() else 0.0
+    gap = np.abs(np.diff(np.where(fin, rv, 0.0), axis=1)) > atol
+    distinct = np.ones_like(ri, bool)
+    distinct[:, 1:] &= gap
+    distinct[:, :-1] &= gap
+    bad = int((gi[distinct] != ri[distinct]).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} ids differ where the scores are distinct")
+    k = min(10, ri.shape[1])
+    recall = float(np.mean([len(set(a[:k]) & set(b[:k])) / k for a, b in zip(gi, ri)]))
+    if recall != 1.0:
+        raise AssertionError(f"{what}: recall@{k} {recall} != 1.0")
+    return err, recall
+
+
+def phase_dense_kernels(results: dict) -> None:
+    """The flat dense top-k against its plain version at bench_dense.py's
+    shape and the coarse quantizer's."""
+    import torch
+
+    from probing_rag_tpu_torch.ops.dense import (
+        dense_topk, dense_topk_plain, dense_topk_rerank, prepare_dense_store,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    emb = torch.randn((DENSE_N, DENSE_D), generator=gen, device=DEVICE)
+    q = torch.randn((DENSE_Q, DENSE_D), generator=gen, device=DEVICE)
+    cent = torch.randn((QUANT_NLIST, DENSE_D), generator=gen, device=DEVICE)
+    cq = torch.randn((QUANT_Q, DENSE_D), generator=gen, device=DEVICE)
+    bf16 = torch.bfloat16
+    cases = [
+        ("ip bf16", q, prepare_dense_store(emb, metric="ip", store_dtype=bf16),
+         dict(k=DENSE_K, metric="ip")),
+        ("l2 bf16", q, prepare_dense_store(emb, metric="l2", store_dtype=bf16),
+         dict(k=DENSE_K, metric="l2")),
+        ("l2 int8, rerank pool", q, prepare_dense_store(emb, metric="l2", store_dtype=torch.int8),
+         dict(k=32, k_pad=32, metric="l2")),
+        ("ip int8 x int8", q, prepare_dense_store(emb, metric="ip", store_dtype=torch.int8),
+         dict(k=DENSE_K, metric="ip", mxu_int8=True)),
+        ("l2 f32 coarse quantizer", cq, prepare_dense_store(cent, metric="l2"),
+         dict(k=IVF_NPROBE, k_pad=IVF_NPROBE, metric="l2")),
+        ("l2 f32 coarse quantizer, wide nprobe", cq, prepare_dense_store(cent, metric="l2"),
+         dict(k=WIDE_NPROBE, k_pad=WIDE_NPROBE, metric="l2")),
+        # the probing loop's own traffic: 8 queries over the phase-7 index size
+        ("l2 bf16, the loop's shape", q[:N_DENSE_QUESTIONS].contiguous(),
+         prepare_dense_store(emb[:N_DOCS], metric="l2", store_dtype=bf16),
+         dict(k=K, metric="l2")),
+    ]
+    # widths that are not a multiple of the kernel's 64-deep step (the
+    # CLI's tiny encoder has D = 32)
+    for d in TAIL_DS:
+        te = torch.randn((TAIL_N, d), generator=gen, device=DEVICE)
+        tq = torch.randn((TAIL_Q, d), generator=gen, device=DEVICE)
+        i8 = torch.int8
+        cases += [
+            (f"l2 bf16 D={d}", tq, prepare_dense_store(te, metric="l2", store_dtype=bf16),
+             dict(k=K, metric="l2")),
+            (f"ip int8 D={d}", tq, prepare_dense_store(te, metric="ip", store_dtype=i8),
+             dict(k=K, k_pad=32, metric="ip")),
+            (f"l2 f32 D={d}", tq, prepare_dense_store(te, metric="l2"), dict(k=K, metric="l2")),
+            (f"ip int8 x int8 D={d}", tq, prepare_dense_store(te, metric="ip", store_dtype=i8),
+             dict(k=K, metric="ip", mxu_int8=True)),
+        ]
+    max_err = 0.0
+    for label, qq, st, kw in cases:
+        kw = dict(kw, sq_norms=st.sq_norms, scales=st.scales, n_total=st.n_docs)
+        got = dense_topk(qq, st.embeddings, **kw)
+        ref = dense_topk_plain(qq, st.embeddings, **kw)
+        sync()
+        err, recall = check_topk(got, ref, f"dense_topk {label}")
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda qq=qq, st=st, kw=kw: dense_topk(qq, st.embeddings, **kw))
+        plain_ms = cuda_ms(lambda qq=qq, st=st, kw=kw: dense_topk_plain(qq, st.embeddings, **kw))
+        shape = f"[{qq.shape[0]} x {st.n_docs} x {qq.shape[1]}]"
+        print(f"  dense_topk {label} {shape}, k {kw['k']}: max abs err {err:.3g}, recall@10 "
+              f"{recall}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        if label == "ip bf16":
+            results["dense_topk"] = {"ms": ms, "plain_ms": plain_ms}
+        if label.startswith("l2 int8"):
+            rerank_emb = emb.to(bf16)
+            rr = cuda_ms(lambda: dense_topk_rerank(
+                q, st.embeddings, rerank_emb, k=DENSE_K, metric="l2", sq_norms=st.sq_norms,
+                scales=st.scales, n_total=st.n_docs, k_pad=32))
+            print(f"  dense_topk_rerank (int8 sweep + bf16 refine, k {DENSE_K}): {rr:.3f} ms")
+            del rerank_emb
+    results["dense_topk"]["max_abs_err"] = max_err
+
+
+def clustered_corpus(gen):
+    """bench_ivf.py's clustered corpus, drawn on the card: IVF_CLUSTERS
+    normal centres, each point a centre plus 0.3 x normal noise."""
+    import torch
+
+    centers = torch.randn((IVF_CLUSTERS, DENSE_D), generator=gen, device=DEVICE)
+    assign = torch.randint(0, IVF_CLUSTERS, (IVF_N,), generator=gen, device=DEVICE)
+    return centers[assign] + 0.3 * torch.randn((IVF_N, DENSE_D), generator=gen, device=DEVICE)
+
+
+def phase_ivf_kernels(results: dict) -> None:
+    """The IVF block top-k against its plain version at bench_ivf.py's
+    shape: k-means on the card, then Q = 64 and Q = 8, bf16 and int8."""
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch.ops.ivf import QT, ivf_topk, ivf_topk_plain
+    from probing_rag_tpu_torch.retrieval.ivf import IVFDenseIndex, IVFEngine
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    emb = clustered_corpus(gen)
+    host = emb.cpu().numpy()
+    sync()
+    t0 = time.time()
+    index = IVFDenseIndex.build(host, nlist=IVF_NLIST, block=IVF_BLOCK, metric="ip",
+                                seed=SEED, device=DEVICE)
+    print(f"  IVF build over {IVF_N} x {DENSE_D} (k-means on the card, nlist {IVF_NLIST}): "
+          f"{time.time() - t0:.1f}s; {index.pad_block} blocks of {IVF_BLOCK}, imbalance "
+          f"{index.imbalance_factor():.3f}")
+    rng = np.random.default_rng(SEED + 12)
+    max_err = 0.0
+    for dt in (torch.bfloat16, torch.int8):
+        eng = IVFEngine(index, nprobe=IVF_NPROBE, device=DEVICE, store_dtype=dt)
+        for nq in IVF_QS:
+            picks = torch.from_numpy(rng.choice(IVF_N, nq, replace=False)).to(DEVICE)
+            qe = emb[picks] + 0.1 * torch.randn((nq, DENSE_D), generator=gen, device=DEVICE)
+            desc = eng.plan(eng.probe_cells(qe.cpu().numpy()))
+            t = desc.shape[0]
+            qpad = torch.cat([qe, qe[:1].expand(t * QT - nq, -1)]).contiguous()
+            dd = torch.from_numpy(desc).to(DEVICE)
+            args = (qpad, dd, eng._emb, eng._ids)
+            kw = dict(k=DENSE_K, metric="ip", block=IVF_BLOCK, sq_norms=eng._sqn,
+                      scales=eng._scales)
+            got, ref = ivf_topk(*args, **kw), ivf_topk_plain(*args, **kw)
+            sync()
+            label = f"ivf_topk {str(dt)[6:]} Q={nq}"
+            err, recall = check_topk(got, ref, label)
+            max_err = max(max_err, err)
+            ms = cuda_ms(lambda args=args, kw=kw: ivf_topk(*args, **kw))
+            plain_ms = cuda_ms(lambda args=args, kw=kw: ivf_topk_plain(*args, **kw))
+            real = int((desc != index.pad_block).sum())
+            mb = real * IVF_BLOCK * DENSE_D * eng._emb.element_size() / 1e6
+            print(f"  {label}: [{t} tiles x {desc.shape[1]} descriptors, {real} real blocks, "
+                  f"{mb:.0f} MB read]: max abs err {err:.3g}, recall@10 {recall}; "
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            if dt == torch.bfloat16 and nq == IVF_QS[0]:
+                results["ivf_topk"] = {"ms": ms, "plain_ms": plain_ms}
+        del eng
+    results["ivf_topk"]["max_abs_err"] = max_err
+
+    # a depth that is not a multiple of 64 and a block that is not a
+    # multiple of 32, with the wide coarse probe: engines on the card
+    # against the same engines on the CPU
+    small = torch.randn((TAIL_IVF_N, TAIL_IVF_D), generator=gen, device=DEVICE)
+    tq = (small[:TAIL_Q] + 0.1 * torch.randn((TAIL_Q, TAIL_IVF_D), generator=gen,
+                                             device=DEVICE)).cpu().numpy()
+    for metric in ("ip", "l2"):
+        tix = IVFDenseIndex.build(small.cpu().numpy(), nlist=TAIL_IVF_NLIST, block=TAIL_IVF_BLOCK,
+                                  metric=metric, seed=SEED, device=DEVICE)
+        for dt in (torch.bfloat16, torch.int8, torch.float32):
+            for nprobe in (8, WIDE_NPROBE):
+                card = IVFEngine(tix, nprobe=nprobe, device=DEVICE, store_dtype=dt)
+                cpu = IVFEngine(tix, nprobe=nprobe, device="cpu", store_dtype=dt)
+                assert_same_search(card.search_embeddings(tq, k=DENSE_K),
+                                   cpu.search_embeddings(tq, k=DENSE_K),
+                                   f"IVF D={TAIL_IVF_D} block {TAIL_IVF_BLOCK} {metric} {dt} "
+                                   f"nprobe {nprobe}")
+    print(f"  IVF engines at D={TAIL_IVF_D}, block {TAIL_IVF_BLOCK}, nlist {TAIL_IVF_NLIST} "
+          f"(ip and l2; bf16, int8, f32; nprobe 8 and {min(WIDE_NPROBE, TAIL_IVF_NLIST)}): "
+          f"each equal to its CPU engine")
+
+
+def encoder_config():
+    from probing_rag_tpu_torch.models.encoder import EncoderConfig
+
+    return EncoderConfig.contriever()
+
+
+class TimedEncoder:
+    """An ``encode_fn`` that sums its wall seconds (synchronised)."""
+
+    def __init__(self, encode):
+        self.encode = encode
+        self.seconds = 0.0
+
+    def __call__(self, texts):
+        sync()
+        t0 = time.time()
+        out = self.encode(texts)
+        self.seconds += time.time() - t0
+        return out
+
+
+def assert_same_search(res, ref, what: str) -> None:
+    """An engine's result on the card against the same engine's on the
+    CPU: scores allclose, ids equal where the scores are distinct."""
+    import numpy as np
+
+    if not np.allclose(res.scores, ref.scores, rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"{what}: scores differ from the CPU engine")
+    gap = np.abs(np.diff(ref.scores, axis=1)) > 1e-3
+    distinct = np.ones_like(ref.doc_indices, bool)
+    distinct[:, 1:] &= gap
+    distinct[:, :-1] &= gap
+    bad = int((res.doc_indices[distinct] != ref.doc_indices[distinct]).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} ids differ from the CPU engine where scores are distinct")
+
+
+def phase_dense_main_path(docs_tokens, lm) -> dict:
+    """``rag-run --dense`` and ``rag-run --dense --dense-ivf`` at Contriever
+    and Gemma-2B width through the pipeline API, then the flat loop's first
+    and last searches through four engines against the same engines on the
+    CPU. Returns the launches of each dense kernel on its own loop: the
+    flat loop's ``dense_topk``, the IVF loop's ``ivf_topk``."""
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models.encoder import init_encoder_params, text_encoder
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
+    from probing_rag_tpu_torch.retrieval.dense import DenseEngine, DenseIndex
+    from probing_rag_tpu_torch.retrieval.ivf import IVFDenseIndex, IVFEngine
+
+    params, cfg, probers, tok, store = lm
+    ecfg = encoder_config()
+    eparams = init_encoder_params(ecfg, torch.Generator(device=DEVICE).manual_seed(SEED + 20),
+                                  device=DEVICE, dtype=torch.bfloat16)
+    encode = TimedEncoder(text_encoder(eparams, ecfg, ByteTokenizer(max(ecfg.vocab_size, 259)),
+                                       DEVICE))
+    texts = [" ".join(d) for d in docs_tokens]
+    sync()
+    t0 = time.time()
+    index = DenseIndex.build(texts, encode)
+    build_s = time.time() - t0
+    if index.embeddings.shape != (len(texts), ecfg.d_model) or not np.isfinite(index.embeddings).all():
+        raise AssertionError("dense index embeddings are not finite [N, D]")
+    print(f"  Contriever-width index of {len(texts)} docs (mean "
+          f"{np.mean([len(t) for t in texts]):.0f} bytes, cut to {ecfg.max_positions}): "
+          f"{build_s:.1f}s, {len(texts) / build_s:.0f} docs/s")
+    t0 = time.time()
+    ivf = IVFDenseIndex.build(index.embeddings, metric=index.metric, seed=SEED, device=DEVICE)
+    print(f"  IVF over it: nlist {ivf.nlist}, built in {time.time() - t0:.1f}s")
+
+    names = sorted({t for d in docs_tokens[:2000] for t in d})
+    rng = np.random.default_rng(SEED + 21)
+    questions = ["What links " + " and ".join(rng.choice(names, 3, replace=False)) + "?"
+                 for _ in range(N_DENSE_QUESTIONS)]
+    rag = RAGConfig(retr_method="probing", threshold=1e6, top_k=K, max_new_tokens=150,
+                    batch_size=8)
+
+    def probing_loop(label, engine, path_kernels):
+        """One ``rag-run`` probing loop over ``engine``; its own launch
+        counts, zeroed just before it and read just after."""
+        retriever = TimedRetriever(engine)
+        pipe = AdaptiveRAGPipeline(params, cfg, tok, retriever, store, probers, rag)
+        encode.seconds = 0.0
+        kernels.reset_launches()
+        sync()
+        t0 = time.time()
+        result = pipe.run(questions)
+        sync()
+        wall = time.time() - t0
+        counts = dict(kernels.LAUNCHES)
+        print(f"  {label} probing loop over {len(questions)} questions: {wall:.1f}s wall, of "
+              f"which search {retriever.seconds:.3f}s ({len(retriever.calls)} calls, "
+              f"{sum(map(len, retriever.calls))} queries) including query encoding "
+              f"{encode.seconds:.3f}s; retr_count {result.retr_count_list}; kernel launches "
+              f"{counts}")
+        if result.retr_count_list != [3] * len(questions):
+            raise AssertionError(f"{label}: retr_count {result.retr_count_list} != all 3")
+        if not all(isinstance(p, str) and p for p in result.pred_list):
+            raise AssertionError(f"{label}: empty prediction")
+        missing = [n for n in path_kernels if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {label} path: {missing}")
+        return counts, retriever.calls
+
+    flat = DenseEngine(index, encode, device=DEVICE)
+    flat_counts, calls = probing_loop("dense flat bf16 l2", flat, ("dense_topk",))
+    # --dense-ivf: the IVF engine's coarse probe runs dense_topk too
+    ivf_counts, _ = probing_loop("dense IVF bf16",
+                                 IVFEngine(ivf, encode_fn=encode, device=DEVICE),
+                                 ("dense_topk", "ivf_topk"))
+
+    engines = [
+        ("flat bf16", flat, DenseEngine(index, device="cpu")),
+        ("flat int8 + rerank", DenseEngine(index, device=DEVICE, store_dtype=torch.int8),
+         DenseEngine(index, device="cpu", store_dtype=torch.int8)),
+        ("IVF bf16", IVFEngine(ivf, device=DEVICE), IVFEngine(ivf, device="cpu")),
+        ("IVF int8", IVFEngine(ivf, device=DEVICE, store_dtype=torch.int8),
+         IVFEngine(ivf, device="cpu", store_dtype=torch.int8)),
+    ]
+    for label, queries in (("first", calls[0]), ("last", calls[-1])):
+        qemb = encode(queries)
+        for name, card, cpu in engines:
+            res = card.search_embeddings(qemb, k=K)
+            assert_same_search(res, cpu.search_embeddings(qemb, k=K), f"{label} search, {name}")
+        print(f"  {label} loop search again ({len(queries)} queries) through "
+              f"{', '.join(e[0] for e in engines)}: each equal to its CPU engine")
+    return {"dense_topk": flat_counts["dense_topk"], "ivf_topk": ivf_counts["ivf_topk"]}
 
 
 def main() -> int:
@@ -538,7 +890,17 @@ def main() -> int:
         phase_bm25(engine, cpu_engine, index, queries, rng)
         del engine
     with Phase("5 main path"):
-        launches = phase_main_path(index, docs_tokens, cpu_engine)
+        launches, lm = phase_main_path(index, docs_tokens, cpu_engine)
+    del index, cpu_engine, queries
+    torch.cuda.empty_cache()
+    with Phase("6 dense kernels vs plain"):
+        phase_dense_kernels(results)
+        torch.cuda.empty_cache()
+        phase_ivf_kernels(results)
+        torch.cuda.empty_cache()
+    with Phase("7 dense main path"):
+        dense_launches = phase_dense_main_path(docs_tokens, lm)
+    launches.update({n: dense_launches[n] for n in DENSE_KERNELS})
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -546,6 +908,8 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
         for name, r in results.items()
     ]}
+    if sorted(results) != sorted(SOURCES):
+        raise AssertionError(f"kernels measured {sorted(results)} != {sorted(SOURCES)}")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,21 @@
 """Command-line entry points of the port: ``index-build`` and ``rag-run``.
 
-Port of the BM25 path of ``probing_rag_tpu/cli/main.py``:
+Port of the BM25 and dense paths of ``probing_rag_tpu/cli/main.py``:
 
     python -m probing_rag_tpu_torch.cli index-build --dataset nq --fixture corpus.txt --out artifacts/nq
     python -m probing_rag_tpu_torch.cli rag-run --retr-method probing --dataset nq \\
         --fixture-qa qa.json --index artifacts/nq --device cuda
 
+``--dense`` builds and searches the flat dense index instead of BM25
+(``--dense-int8``: the SQ8 store with re-ranking; ``--dense-ivf``: the IVF
+index, built beside the flat one).
+
 Without a checkpoint (loading one is not ported yet) ``rag-run`` uses the
 random-init tiny model and the byte tokenizer — the JAX CLI's smoke mode —
 and a random prober gate unless ``--probers`` names a ``save_pytree``
-checkpoint.
+checkpoint. The dense encoder is then the tiny encoder with weights drawn
+from one fixed seed, the same in ``index-build`` and ``rag-run``, so that
+documents and queries are embedded by one encoder.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ import time
 from pathlib import Path
 
 import torch
+
+# seed of the random-init query/document encoder (the JAX CLI's PRNGKey(0))
+ENCODER_SEED = 0
 
 
 def _load_model(args):
@@ -70,6 +79,21 @@ def _load_probers(args, cfg):
     return probers
 
 
+def _dense_encoder(args):
+    """Tiny encoder from ``ENCODER_SEED`` (drawn on the CPU, so every
+    device gets the same weights) with the byte tokenizer."""
+    from probing_rag_tpu_torch.models.encoder import EncoderConfig, init_encoder_params, text_encoder
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+
+    cfg = EncoderConfig.tiny()
+    params = init_encoder_params(cfg, torch.Generator().manual_seed(ENCODER_SEED))
+
+    def to_device(tree):
+        return {k: to_device(v) if isinstance(v, dict) else v.to(args.device) for k, v in tree.items()}
+
+    return text_encoder(to_device(params), cfg, ByteTokenizer(max(cfg.vocab_size, 259)), args.device)
+
+
 def cmd_index_build(args):
     from probing_rag_tpu.data.corpus import DocStore, make_documents
     from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
@@ -82,8 +106,24 @@ def cmd_index_build(args):
     out = Path(args.out)
     DocStore.from_texts(texts, ids).save(out / "docstore.json")
     t0 = time.time()
-    BM25Index.build(texts, BM25Config()).save(out / "bm25")
-    print(f"built sparse index over {len(texts)} docs in {time.time() - t0:.1f}s")
+    if args.dense:
+        from probing_rag_tpu_torch.retrieval.dense import DenseIndex
+
+        dense = DenseIndex.build(texts, _dense_encoder(args))
+        dense.save(out / "dense")
+        print(f"built dense index over {len(texts)} docs in {time.time() - t0:.1f}s")
+        if args.dense_ivf:
+            from probing_rag_tpu_torch.retrieval.ivf import IVFDenseIndex
+
+            t0 = time.time()
+            IVFDenseIndex.build(
+                dense.embeddings, metric=dense.metric, seed=args.seed,
+                nlist=args.ivf_nlist, device=args.device,
+            ).save(out / "ivf")
+            print(f"built IVF quantizer+store in {time.time() - t0:.1f}s")
+    else:
+        BM25Index.build(texts, BM25Config()).save(out / "bm25")
+        print(f"built sparse index over {len(texts)} docs in {time.time() - t0:.1f}s")
     print(f"index written to {out}")
 
 
@@ -115,7 +155,21 @@ def cmd_rag_run(args):
     params, cfg, tok = _load_model(args)
     index_dir = Path(args.index)
     store = DocStore.load(index_dir / "docstore.json")
-    engine = BM25Engine(BM25Index.load(index_dir / "bm25"), device=args.device)
+    if args.dense:
+        store_dtype = torch.int8 if args.dense_int8 else torch.bfloat16
+        if args.dense_ivf:
+            from probing_rag_tpu_torch.retrieval.ivf import IVFDenseIndex, IVFEngine
+
+            engine = IVFEngine(IVFDenseIndex.load(index_dir / "ivf"), nprobe=args.ivf_nprobe,
+                               encode_fn=_dense_encoder(args), device=args.device,
+                               store_dtype=store_dtype)
+        else:
+            from probing_rag_tpu_torch.retrieval.dense import DenseEngine, DenseIndex
+
+            engine = DenseEngine(DenseIndex.load(index_dir / "dense"), _dense_encoder(args),
+                                 device=args.device, store_dtype=store_dtype)
+    else:
+        engine = BM25Engine(BM25Index.load(index_dir / "bm25"), device=args.device)
     probers = _load_probers(args, cfg) if args.retr_method == "probing" else None
     rag = RAGConfig(
         retr_method=args.retr_method,
@@ -147,7 +201,7 @@ def cmd_rag_run(args):
         config={k: v for k, v in vars(args).items() if k != "fn"},
     )
     fname = result_filename(
-        args.ablation, "torch", "sparse", args.dataset,
+        args.ablation, "torch", "dense" if args.dense else "sparse", args.dataset,
         args.threshold, args.retr_method, "cot", args.split, args.steps_limit,
     )
     path = save_run(record, Path(args.results_dir), fname)
@@ -159,7 +213,21 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="probing-rag-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def dense_args(sp):
+        sp.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
+        sp.add_argument("--seed", type=int, default=42)
+        sp.add_argument("--dense", action="store_true", help="dense retrieval")
+        sp.add_argument("--dense-int8", action="store_true",
+                        help="int8 (SQ8) dense store, re-ranked against a bf16 copy")
+        sp.add_argument("--dense-ivf", action="store_true",
+                        help="IVF dense index (k-means cells, probed search)")
+        sp.add_argument("--ivf-nprobe", type=int, default=32,
+                        help="IVF cells probed per query (recall knob)")
+        sp.add_argument("--ivf-nlist", type=int, default=None,
+                        help="IVF cell count (default ~2*sqrt(n_docs), pow2)")
+
     sp = sub.add_parser("index-build")
+    dense_args(sp)
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--raw-dir", default="raw_data")
     sp.add_argument("--out", required=True)
@@ -167,8 +235,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_index_build)
 
     sp = sub.add_parser("rag-run")
-    sp.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
-    sp.add_argument("--seed", type=int, default=42)
+    dense_args(sp)
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--split", default="dev")
     sp.add_argument("--raw-dir", default="raw_data")

@@ -1,6 +1,7 @@
 """Build and load layer for the hand-written CUDA kernels in ``csrc/``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``_build/`` beside this file, and is reused while
 a hash of the sources and flags is unchanged. Nothing is built or imported
@@ -30,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,6 +40,8 @@ LAUNCHES: Dict[str, int] = {
     "bitonic_sort": 0,
     "bitonic_sort_wide": 0,
     "segment_topk": 0,
+    "dense_topk": 0,
+    "ivf_topk": 0,
 }
 
 _P = ctypes.c_void_p
@@ -48,6 +51,8 @@ _SIGNATURES = {
     "bm25_gather": [_P] * 15 + [_I, _I, _LL, _I, _I, _P, _P, _P],
     "bitonic_sort_pairs": [_P, _P, _P, _P, _I, _LL, _LL, _P],
     "segment_topk": [_P, _P, _I, _LL, _I, _I, _P, _P, _P],
+    "dense_topk": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _I] + [_P] * 5,
+    "ivf_topk": [_P] * 6 + [_I] * 9 + [_P] * 5,
 }
 
 
@@ -70,9 +75,10 @@ def _sources():
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libprobing_kernels_<hash>.so``
-    unless that file exists. Returns its path. With ``verbose``, prints the
-    build time and ``ptxas`` resource usage (registers, shared memory,
-    spills) of each kernel."""
+    unless that file exists. Returns its path. Each source compiles in its
+    own ``nvcc`` process, all at once; one more call links the objects.
+    With ``verbose``, prints the build time and ``ptxas`` resource usage
+    (registers, shared memory, spills) of each kernel."""
     cu, cuh = _sources()
     digest = hashlib.sha256()
     for f in (*cu, *cuh):
@@ -83,19 +89,37 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, cu)]
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs, procs = [], []
+    for src in cu:
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    logs = []
+    for cmd, proc in procs:  # wait for every compile before reporting
+        out, err = proc.communicate()
+        logs.append((cmd, proc.returncode, out, err))
+    for cmd, rc, out, err in logs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}\n{err}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+    link = subprocess.run(cmd, capture_output=True, text=True)
+    if link.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
+            f"nvcc link failed ({link.returncode}):\n{' '.join(cmd)}\n"
+            f"{link.stdout}\n{link.stderr}"
         )
     os.replace(tmp, so)
+    for obj in objs:
+        obj.unlink()
     if verbose:
-        print(f"built {so.name} in {time.time() - t0:.1f}s")
-        print(proc.stderr.strip())
+        print(f"built {so.name} from {len(cu)} sources in {time.time() - t0:.1f}s")
+        for _, _, _, err in logs:
+            print(err.strip())
     return so
 
 
@@ -117,6 +141,15 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().kernel_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``: the dense kernels split
+    their work into a few thread blocks per SM."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> int:

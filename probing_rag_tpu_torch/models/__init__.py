@@ -1,1 +1,1 @@
-"""Gemma-architecture LM, tokenizer, greedy decode."""
+"""Gemma-architecture LM, tokenizer, greedy decode, dense text encoder."""

@@ -1,1 +1,2 @@
-"""Device ops: the BM25 search kernels' wrappers and plain versions."""
+"""Device ops: the BM25, flat dense and IVF search kernels' wrappers and
+their plain versions."""

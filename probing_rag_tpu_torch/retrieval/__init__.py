@@ -1,1 +1,1 @@
-"""BM25 index and search."""
+"""BM25, flat dense and IVF indexes and search."""

@@ -12,6 +12,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from probing_rag_tpu_torch.models.encoder import EncoderConfig
 from probing_rag_tpu_torch.models.gemma import GemmaConfig
 
 
@@ -47,6 +48,36 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg: GemmaConfig, device="cpu",
             raise ValueError(f"{name}: shape {tuple(tree[name].shape)} != {shape}")
         out[name] = _tensor(tree[name], device, dtype)
     return out
+
+
+def encoder_params_from_jax(tree: Dict[str, Any], cfg: EncoderConfig, device="cpu",
+                            dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Encoder params (``models/encoder.py::init_encoder_params`` tree, as
+    numpy arrays) -> the port's dict of tensors on ``device`` in ``dtype``."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    ln, ln_l = {"w": (d,), "b": (d,)}, {"w": (L, d), "b": (L, d)}
+    want = {
+        "tok_embed": (cfg.vocab_size, d), "pos_embed": (cfg.max_positions, d),
+        "type_embed": (cfg.n_token_types, d), "embed_ln": ln,
+        "layers": {
+            "wq": (L, d, d), "bq": (L, d), "wk": (L, d, d), "bk": (L, d),
+            "wv": (L, d, d), "bv": (L, d), "wo": (L, d, d), "bo": (L, d),
+            "attn_ln": ln_l, "w1": (L, d, f), "b1": (L, f), "w2": (L, f, d),
+            "b2": (L, d), "mlp_ln": ln_l,
+        },
+    }
+
+    def convert(node, spec, path):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or set(node) != set(spec):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                raise ValueError(f"{path or 'params'}: leaves {got} != {sorted(spec)}")
+            return {k: convert(node[k], s, f"{path}/{k}" if path else k) for k, s in spec.items()}
+        if tuple(node.shape) != spec:
+            raise ValueError(f"{path}: shape {tuple(node.shape)} != {spec}")
+        return _tensor(node, device, dtype)
+
+    return convert(tree, want, "")
 
 
 def probers_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:

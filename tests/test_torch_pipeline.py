@@ -1,7 +1,9 @@
 """The whole slice — prompt, prefill, greedy decode with capture pooling,
 prober gate, BM25 retrieval, regeneration — against the JAX pipeline, on
 the corpus of .claude/skills/verify/rag_demo.py (doc lengths made distinct)
-with the tiny f32 model.
+with the tiny f32 model. The same loop runs over the dense retrievers (the
+flat engine and the IVF engine probing every cell), with the tiny f32
+encoder on both sides.
 
 Both sides get the same numpy-drawn LM and prober parameters. Predictions
 and retrieval counts must be equal; gate scores allclose at rtol 1e-4 /
@@ -9,8 +11,9 @@ atol 1e-4 (f32 forward sums in another order). Retrieval ids can only
 match if the top-k scores are distinct, which the test asserts for every
 query the pipeline searched.
 
-A subprocess imports every module of the port and runs the CPU ``rag-run``
-CLI on a fixture, and checks that jax was never imported."""
+A subprocess imports every module of the port, runs the CPU ``index-build``
+and ``rag-run`` CLI on a fixture over BM25, the flat dense index (bf16 and
+int8) and the IVF index, and checks that jax was never imported."""
 
 import dataclasses
 import json
@@ -19,12 +22,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from probing_rag_tpu.data.corpus import DocStore
+from probing_rag_tpu.models import encoder as je
 from probing_rag_tpu.models import gemma as jg
 from probing_rag_tpu.models.tokenizer import ByteTokenizer as JaxByteTokenizer
 from probing_rag_tpu.pipeline.rag import AdaptiveRAGPipeline as JaxPipeline
@@ -32,12 +37,17 @@ from probing_rag_tpu.pipeline.rag import RAGConfig as JaxRAGConfig
 from probing_rag_tpu.retrieval.bm25 import BM25Engine as JaxBM25Engine
 from probing_rag_tpu.retrieval.bm25_index import BM25Config as JaxBM25Config
 from probing_rag_tpu.retrieval.bm25_index import BM25Index as JaxBM25Index
+from probing_rag_tpu.retrieval import dense as jdense
+from probing_rag_tpu.retrieval import ivf as jivf
+from probing_rag_tpu_torch.models import encoder as te
 from probing_rag_tpu_torch.models import gemma as tg
 from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
 from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
 from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
 from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
-from probing_rag_tpu_torch.weights import lm_params_from_jax, probers_from_jax
+from probing_rag_tpu_torch.retrieval import dense as tdense
+from probing_rag_tpu_torch.retrieval import ivf as tivf
+from probing_rag_tpu_torch.weights import encoder_params_from_jax, lm_params_from_jax, probers_from_jax
 
 from test_torch_gemma import numpy_params, to_jax
 from test_torch_prober import numpy_stack
@@ -112,6 +122,66 @@ def test_pipeline_matches_jax(setup, method, threshold):
             np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-4)
 
 
+def jax_encoder(params, cfg):
+    """The JAX CLI's ``_dense_encoder`` closure, with given parameters."""
+    tok = JaxByteTokenizer(max(cfg.vocab_size, 259))
+    fwd = jax.jit(lambda p, t, m: je.encoder_forward(p, t, m, cfg))
+
+    def encode(texts):
+        ids = [tok.encode(t)[: cfg.max_positions] for t in texts]
+        ml = max(max((len(i) for i in ids), default=1), 1)
+        arr = np.zeros((len(ids), ml), np.int32)
+        mask = np.zeros((len(ids), ml), bool)
+        for i, row in enumerate(ids):
+            arr[i, : len(row)] = [min(t, cfg.vocab_size - 1) for t in row]
+            mask[i, : len(row)] = True
+        return np.asarray(fwd(params, jnp.asarray(arr), jnp.asarray(mask)))
+
+    return encode
+
+
+@pytest.fixture(scope="module")
+def encoders():
+    jcfg = dataclasses.replace(je.EncoderConfig.tiny(), compute_dtype=jnp.float32)
+    tcfg = dataclasses.replace(te.EncoderConfig.tiny(), compute_dtype=torch.float32)
+    params = jax.tree_util.tree_map(np.asarray, je.init_encoder_params(jcfg, jax.random.PRNGKey(0)))
+    tenc = te.text_encoder(encoder_params_from_jax(params, tcfg), tcfg, ByteTokenizer(259))
+    return jax_encoder(to_jax(params), jcfg), tenc
+
+
+@pytest.mark.parametrize("engine", ["flat", "ivf"])
+def test_dense_pipeline_matches_jax(setup, encoders, engine):
+    """The probing loop over dense retrieval (l2, bf16 store; the IVF
+    engine probes both of its 2 cells) gives the JAX pipeline's
+    predictions and retrieval counts."""
+    s = setup
+    jenc, tenc = encoders
+    store = DocStore.from_texts(CORPUS)
+    jflat = jdense.DenseIndex.build(CORPUS, jenc)
+    tflat = tdense.DenseIndex.build(CORPUS, tenc)
+    np.testing.assert_allclose(tflat.embeddings, jflat.embeddings, rtol=1e-5, atol=1e-5)
+    if engine == "flat":
+        jeng = jdense.DenseEngine(jflat, jenc, use_pallas=True)
+        teng = tdense.DenseEngine(tflat, tenc)
+    else:
+        jeng = jivf.IVFEngine(jivf.IVFDenseIndex.build(jflat.embeddings, nlist=2, block=32),
+                              nprobe=2, encode_fn=jenc)
+        teng = tivf.IVFEngine(tivf.IVFDenseIndex.build(tflat.embeddings, nlist=2, block=32),
+                              nprobe=2, encode_fn=tenc)
+    kw = dict(retr_method="probing", threshold=1e6, batch_size=2, max_new_tokens=6)
+    jres = JaxPipeline(s["jlm"], s["jcfg"], JaxByteTokenizer(512), jeng, store,
+                       s["jprobers"], JaxRAGConfig(**kw)).run(QUESTIONS)
+    rec = RecordingEngine(teng)
+    tres = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), rec, store,
+                               s["tprobers"], RAGConfig(**kw)).run(QUESTIONS)
+    assert len(rec.queries) == 4 * len(QUESTIONS)  # 4 search rounds, 3 counted
+    q = tenc(rec.queries)  # retrieval ids are comparable only without ties
+    d = np.sort(((q[:, None, :] - tflat.embeddings[None]) ** 2).sum(-1), axis=1)[:, :5]
+    assert (np.diff(d, axis=1) > 1e-4).all(), d
+    assert tres.pred_list == jres.pred_list
+    assert tres.retr_count_list == jres.retr_count_list == [3] * len(QUESTIONS)
+
+
 def test_unported_knobs_raise(setup):
     s = setup
     with pytest.raises(NotImplementedError):
@@ -162,6 +232,15 @@ main(["rag-run", "--device", "cpu", "--dataset", "nq", "--fixture-qa", str(d / "
       "--threshold", "1e6", "--results-dir", str(d / "result")])
 runs = (d / "result" / "runs.jsonl").read_text().splitlines()
 assert json.loads(runs[-1])["retr_counts"] == [3, 3], runs[-1]
+main(["index-build", "--device", "cpu", "--dataset", "nq", "--fixture", str(d / "corpus.txt"),
+      "--out", str(d / "dense"), "--dense", "--dense-ivf", "--ivf-nlist", "2"])
+for flags in (["--dense"], ["--dense", "--dense-int8"], ["--dense", "--dense-ivf", "--ivf-nprobe", "2"]):
+    main(["rag-run", "--device", "cpu", "--dataset", "nq", "--fixture-qa", str(d / "qa.json"),
+          "--index", str(d / "dense"), "--max-new-tokens", "6", "--batch-size", "2",
+          "--threshold", "1e6", "--results-dir", str(d / "dense_result"), *flags])
+    runs = (d / "dense_result" / "runs.jsonl").read_text().splitlines()
+    assert json.loads(runs[-1])["retr_counts"] == [3, 3], (flags, runs[-1])
+assert any("dense" in p.name for p in (d / "dense_result").iterdir())
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 print("NO_JAX_OK")
 """
