@@ -29,8 +29,10 @@ and the script exits non-zero:
    the IVF top-k over a clustered 1,000,000 x 768 corpus (k-means on the
    card, nlist 4096, nprobe 32, block 256) at 64 and 8 queries, bf16 and
    int8. Each against its plain version: scores allclose, ids equal where
-   the scores are distinct, recall@10 = 1.0. Then IVF engines at depth 40
-   and block 48 against the same engines on the CPU.
+   the scores are distinct, recall@10 = 1.0. A coarse probe of nprobe 512
+   (above dense_topk's 256: the full-row probe) against the CPU probe, and
+   the search it plans. Then IVF engines at depth 40 and block 48 against
+   the same engines on the CPU.
 7. dense main path: a flat l2 index of the phase-4 corpus rendered as text,
    encoded by a Contriever-width encoder (random bf16 weights from a seed,
    byte tokenizer), and an IVF index over it; the probing loop of phase
@@ -39,9 +41,23 @@ and the script exits non-zero:
    own launch counts; then the flat loop's first and last searches again
    through the flat bf16, flat int8 + rerank, IVF bf16 and IVF int8
    engines, each against the same engine on the CPU.
+8. quantized main path: phase 5's bf16 weights quantized on the card
+   (per-channel int8); the int8-weight matmul kernel against its plain
+   version at every product of a Gemma-2B decode step (M = 8, the tied
+   head transposed), at prefill (M = 8 x the padded prompt length), at
+   ragged shapes and in f32; quantized tiny f32 forwards (int8 and rank-1
+   int4 weights, int8 and int4 KV, w8a8 prefill) against the CPU; the
+   probing loop with ``--quantize int8 --kv-int8`` over the phase-4 BM25
+   index (8 questions, all 4 rounds) with its own launch counts; then
+   prefill seconds, decode tokens/s at batch 8 and peak memory for bf16,
+   int8 + int8 KV, int8 + act_int8_rows 512 + int8 KV and rank-1 int4 +
+   int4 KV.
 
-The line before the last is the card's name and power limit; the last line
-is the result as one JSON object.
+Kernel times are CUDA-event means after a warm-up, with the card given a
+head start (``cuda_ms``). The kernels line lists, for each kernel, its
+launches on its path, its max abs error, kernel / plain / library ms and
+its bound (``bound``). The line before the last is the card's name and
+power limit; the last line is the result as one JSON object.
 """
 
 from __future__ import annotations
@@ -70,10 +86,25 @@ IVF_QS = (64, 8)
 DENSE_K = 10
 N_DENSE_QUESTIONS = 8
 WIDE_NPROBE = 128  # a faiss nprobe above the rerank pool's 32
+WIDEST_NPROBE = 512  # above dense_topk's 256-long lists: the full-row probe
 # depths that are not a multiple of the kernels' 64-deep step, and IVF
 # blocks that are not a multiple of the IVF kernel's 32-row step
 TAIL_DS, TAIL_N, TAIL_Q = (32, 100), 20_011, 37
 TAIL_IVF_D, TAIL_IVF_N, TAIL_IVF_NLIST, TAIL_IVF_BLOCK = 40, 20_000, 64, 48
+
+# phase 8: the decode batch and Gemma-2B's products as (K, N)
+MM_DECODE_M = 8
+GEMMA_MM = {"wq/wo": (2048, 2048), "wk/wv": (2048, 256), "w_gate/w_up": (2048, 16384),
+            "w_down": (16384, 2048)}
+TIED_HEAD = (2048, 256_000)  # (K, N): the [V, D] embedding read transposed
+N_QUANT_QUESTIONS = 8
+
+# H100 SXM data sheet: HBM rate and dense peaks (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+# cuda_ms's head start for the card: ~5 ms at the H100's ~1.98 GHz clock
+SPIN_CYCLES = 10_000_000
 
 REPO_KERNELS = "probing_rag_tpu_torch/kernels/csrc"
 REPLACES = {
@@ -83,6 +114,7 @@ REPLACES = {
     "segment_topk": "probing_rag_tpu/ops/pallas_sparse.py:84",
     "dense_topk": "probing_rag_tpu/ops/pallas_dense.py:185",
     "ivf_topk": "probing_rag_tpu/ops/pallas_ivf.py:52",
+    "matmul_int8": "probing_rag_tpu/ops/pallas_matmul.py:27",
 }
 SOURCES = {
     "bm25_gather": f"{REPO_KERNELS}/bm25_gather.cu",
@@ -91,10 +123,12 @@ SOURCES = {
     "segment_topk": f"{REPO_KERNELS}/segment_topk.cu",
     "dense_topk": f"{REPO_KERNELS}/dense_topk.cu",
     "ivf_topk": f"{REPO_KERNELS}/ivf_topk.cu",
+    "matmul_int8": f"{REPO_KERNELS}/matmul_int8.cu",
 }
 # the kernels each path must launch
 BM25_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_topk")
 DENSE_KERNELS = ("dense_topk", "ivf_topk")
+QUANT_KERNELS = ("matmul_int8",) + BM25_KERNELS
 
 
 class Phase:
@@ -132,7 +166,9 @@ def sync() -> None:
 
 def cuda_ms(fn, reps: int = 5) -> float:
     """Mean milliseconds of ``fn()`` on the card over ``reps`` runs after one
-    warm-up, timed with CUDA events."""
+    warm-up, timed with CUDA events. The card first spins for ~5 ms while
+    the host queues the runs, so that a call whose host side is slower than
+    its kernels is timed by its device time."""
     import torch
 
     fn()
@@ -144,12 +180,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` (each
+    input read once, each output written once) over the HBM rate and
+    ``ops`` over the peak rate of their ``kind``. Returns the kernels
+    line's ``bound_ms`` and ``bound_by``."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
 
 
 def zipf_tokens(rng, n: int, a: float = 1.3, lo: int = 180):
@@ -225,7 +274,13 @@ def phase_sort(results: dict) -> None:
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             errs[name] = max(errs.get(name, 0.0), err)
             if k_start == 2048 and p in (32768, 1 << 21):
-                results[name] = {"ms": ms, "plain_ms": plain_ms}
+                # compare-exchanges of the merges from k_start to p, p/2 a pass
+                passes = sum(range(k_start.bit_length() - 1, p.bit_length()))
+                lib_ms = cuda_ms(lambda: torch.sort(keys, dim=1, stable=True))
+                results[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                 **bound(2 * q * p * 8, q * p // 2 * passes, "f32")}
+                print(f"    bound {results[name]['bound_ms']:.3f} ms "
+                      f"({results[name]['bound_by']}); torch.sort {lib_ms:.3f} ms")
     for name, err in errs.items():  # the largest over every width of the name
         results[name]["max_abs_err"] = err
 
@@ -286,7 +341,11 @@ def phase_gather_segment(engine, queries, results: dict) -> None:
     plain_ms = cuda_ms(lambda: bm25_gather_plain(engine._dev_store, *desc, wtblk, **kw))
     print(f"  gather [{len(rows)}, {pad}]: equal (max abs err {err}); kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms")
-    results["bm25_gather"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # reads the rows' real postings (doc + impact) and the weight blocks,
+    # writes the [Q, pad] rows; no arithmetic to speak of
+    gbound = bound(int(totals[rows].sum()) * 8 + wtblk.numel() * 4 + len(rows) * pad * 8, 0, "f32")
+    results["bm25_gather"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "library_ms": None, **gbound}
 
     doc, imp = sort_pairs(*got, k_start=2 * block)
     # the main path's k, and the widest k over the same rows plus one row
@@ -318,7 +377,9 @@ def phase_gather_segment(engine, queries, results: dict) -> None:
     plain_ms = cuda_ms(lambda: segment_topk_plain(doc, imp, k=K, sentinel=sentinel))
     print(f"  segment top-k [{len(rows)}, {pad}]: max abs err {err:.3g} (k={K}; k={TOPK_MAX} "
           f"and an empty row also agree); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    results["segment_topk"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    results["segment_topk"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": None,
+                               **bound(doc.numel() * 8 + len(rows) * K * 8, doc.numel(), "f32")}
 
 
 def assert_same_topk(res, ref, what: str) -> None:
@@ -383,7 +444,7 @@ def phase_lm_reference() -> float:
     from probing_rag_tpu_torch.models.gemma import GemmaConfig, forward, init_params
 
     cfg = dataclasses.replace(GemmaConfig.tiny(), compute_dtype=torch.float32)
-    params = init_params(cfg, torch.Generator().manual_seed(SEED))
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
     ref, _, _ = forward(params, tokens, cfg)
     on_card = {k: ({n: w.to(DEVICE) for n, w in v.items()} if isinstance(v, dict) else v.to(DEVICE))
@@ -429,8 +490,9 @@ class TextStore:
 def phase_main_path(index, docs_tokens, cpu_engine):
     """``rag-run --retr-method probing`` at Gemma-2B width through the
     pipeline API: random bf16 weights and probers from a seed. Returns the
-    kernel launch counts of the probing loop, and (params, config, probers,
-    tokenizer, docstore) for the dense path."""
+    kernel launch counts of the probing loop, (params, config, probers,
+    tokenizer, docstore) for the dense and quantized paths, and the
+    questions."""
     import numpy as np
     import torch
 
@@ -532,7 +594,7 @@ def phase_main_path(index, docs_tokens, cpu_engine):
     print(f"  decode at batch 8, prompt {len(tok.encode(prompts8[0]))} tokens: prefill "
           f"{t1:.3f}s, 150 tokens {t150:.3f}s -> {decode_tps:.1f} decode tokens/s; "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, (params, cfg, probers, tok, store)
+    return launches, (params, cfg, probers, tok, store), questions
 
 
 def check_topk(got, ref, what: str, rtol: float = 1e-4, atol: float = 1e-3):
@@ -624,7 +686,11 @@ def phase_dense_kernels(results: dict) -> None:
         print(f"  dense_topk {label} {shape}, k {kw['k']}: max abs err {err:.3g}, recall@10 "
               f"{recall}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         if label == "ip bf16":
-            results["dense_topk"] = {"ms": ms, "plain_ms": plain_ms}
+            nq, d = qq.shape
+            results["dense_topk"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                **bound(st.n_docs * d * 2 + nq * d * 2 + nq * kw["k"] * 8,
+                        2 * nq * st.n_docs * d, "bf16")}
         if label.startswith("l2 int8"):
             rerank_emb = emb.to(bf16)
             rr = cuda_ms(lambda: dense_topk_rerank(
@@ -691,8 +757,40 @@ def phase_ivf_kernels(results: dict) -> None:
                   f"{mb:.0f} MB read]: max abs err {err:.3g}, recall@10 {recall}; "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             if dt == torch.bfloat16 and nq == IVF_QS[0]:
-                results["ivf_topk"] = {"ms": ms, "plain_ms": plain_ms}
+                rows = real * IVF_BLOCK  # each tile of 8 queries scores its own blocks
+                results["ivf_topk"] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    **bound(rows * (DENSE_D * 2 + 4) + nq * DENSE_D * 2 + nq * DENSE_K * 8,
+                            2 * QT * rows * DENSE_D, "bf16")}
         del eng
+    # a probe wider than dense_topk's lists (a full score row and a sort)
+    # on the card against the same probe on the CPU, then the search it plans
+    from probing_rag_tpu_torch.retrieval.ivf import probe_cells_host
+
+    eng = IVFEngine(index, nprobe=WIDEST_NPROBE, device=DEVICE)
+    qe = emb[: IVF_QS[1]] + 0.1 * torch.randn((IVF_QS[1], DENSE_D), generator=gen, device=DEVICE)
+    qh = qe.cpu().numpy()
+    probes = eng.probe_cells(qh)
+    cpu = probe_cells_host(qh, eng._cent.cpu(), eng._cent_sqn.cpu(), WIDEST_NPROBE, index.nlist)
+    cent = index.centroids.astype(np.float64)
+    dist = lambda pr: np.sort(((qh[:, None, :].astype(np.float64) - cent[pr]) ** 2).sum(-1), 1)
+    # cells whose distances tie to f32 rounding may swap at the boundary:
+    # the probed distances must agree, the cells almost everywhere
+    same = float(np.mean(np.sort(probes, 1) == np.sort(cpu, 1)))
+    if probes.shape != (IVF_QS[1], WIDEST_NPROBE) or not np.allclose(
+            dist(probes), dist(cpu), rtol=1e-5) or same < 0.99:
+        raise AssertionError(f"nprobe {WIDEST_NPROBE}: card probe differs from the CPU probe")
+    desc = eng.plan(probes)
+    qpad = torch.cat([qe, qe[:1].expand(desc.shape[0] * QT - IVF_QS[1], -1)]).contiguous()
+    args = (qpad, torch.from_numpy(desc).to(DEVICE), eng._emb, eng._ids)
+    kw = dict(k=DENSE_K, metric="ip", block=IVF_BLOCK, sq_norms=eng._sqn, scales=eng._scales)
+    err, recall = check_topk(ivf_topk(*args, **kw), ivf_topk_plain(*args, **kw),
+                             f"ivf_topk nprobe {WIDEST_NPROBE}")
+    max_err = max(max_err, err)
+    print(f"  nprobe {WIDEST_NPROBE} (full-row probe): cells {same:.4f} equal to the CPU probe; "
+          f"ivf_topk over {int((desc != index.pad_block).sum())} blocks: max abs err {err:.3g}, "
+          f"recall@10 {recall}")
+    del eng
     results["ivf_topk"]["max_abs_err"] = max_err
 
     # a depth that is not a multiple of 64 and a block that is not a
@@ -849,6 +947,271 @@ def phase_dense_main_path(docs_tokens, lm) -> dict:
     return {"dense_topk": flat_counts["dense_topk"], "ivf_topk": ivf_counts["ivf_topk"]}
 
 
+def mm_operands(gen, m: int, k: int, n: int, transpose_rhs: bool, dt):
+    """Seeded operands of matmul_int8: x ~ N(0, 1) in ``dt``, int8 weights
+    uniform in [-127, 127], column scales in [0.005, 0.015)."""
+    import torch
+
+    x = torch.randn((m, k), generator=gen, device=DEVICE).to(dt)
+    shape = (n, k) if transpose_rhs else (k, n)
+    q = torch.randint(-127, 128, shape, generator=gen, device=DEVICE, dtype=torch.int8)
+    s = (torch.rand((1, n), generator=gen, device=DEVICE) + 0.5) / 100
+    return x, q, s
+
+
+def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
+    """matmul_int8 against its plain version on the card at every product
+    of a Gemma-2B decode step (M = 8, the tied head transposed), at the
+    prefill's M = 8 x prompt length, at ragged M, N and K, and in the f32
+    mode at the tiny config's widths. Tolerance, bf16: the f32 sums run in
+    another order, so a sum may round to the neighbouring bf16 value (2^-8
+    relative) and the scaled product rounds once more (up to 2^-7): rtol
+    2^-6, atol 1e-5 of the largest output; and at most 1% of the outputs
+    may differ at all, which holds the op order (scaling the f32 sum before
+    rounding it would change many more). f32: rtol 1e-5, the same atol."""
+    import torch
+
+    from probing_rag_tpu_torch.ops.matmul import matmul_int8, matmul_int8_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"decode {name}", MM_DECODE_M, k, n, False, bf16)
+             for name, (k, n) in GEMMA_MM.items()]
+    cases += [("decode tied head", MM_DECODE_M, *TIED_HEAD, True, bf16)]
+    cases += [(f"prefill {name}", prefill_m, *GEMMA_MM[name], False, bf16)
+              for name in ("w_gate/w_up", "w_down")]
+    cases += [("ragged M and N", 37, 2048, 1000, False, bf16),
+              ("ragged M and N, transposed", 37, 2048, 1000, True, bf16),
+              ("ragged K", 5, 200, 300, False, bf16), ("ragged K, transposed", 5, 200, 300, True, bf16),
+              ("tiny f32 w_gate", 20, 64, 128, False, f32),
+              ("tiny f32 tied head", 20, 64, 512, True, f32),
+              ("tiny f32 ragged", 7, 40, 30, False, f32)]
+    max_err = 0.0
+    for label, m, k, n, tr, dt in cases:
+        x, q, s = mm_operands(gen, m, k, n, tr, dt)
+        got = matmul_int8(x, q, s, dt=dt, transpose_rhs=tr)
+        ref = matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr)
+        sync()
+        differ = float((got != ref).float().mean())
+        got, ref32 = got.float(), ref.float()
+        atol = 1e-5 * float(ref32.abs().max())
+        err = float((got - ref32).abs().max())
+        if not torch.allclose(got, ref32, rtol=2**-6 if dt == bf16 else 1e-5, atol=atol) \
+                or (dt == bf16 and differ > 0.01):
+            raise AssertionError(f"matmul_int8 {label}: max abs err {err}, {differ:.4f} of the "
+                                 f"outputs differ")
+        max_err = max(max_err, err)
+        del got, ref, ref32
+        ms = cuda_ms(lambda: matmul_int8(x, q, s, dt=dt, transpose_rhs=tr))
+        plain_ms = cuda_ms(lambda: matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr))
+        b = bound(x.numel() * x.element_size() + q.numel() + n * 4 + m * n * x.element_size(),
+                  2 * m * n * k, "bf16" if dt == bf16 else "f32")
+        line = (f"  matmul_int8 {label} [{m} x {k} -> {n}]: max abs err {err:.3g} "
+                f"({differ:.4f} of the outputs differ); kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']})")
+        lib_ms = None
+        if dt == bf16 and not label.startswith("ragged"):
+            # yardsticks: one PyTorch call of the w8a16 function, where it
+            # runs on the card ([N, K] weights, bf16 scales); cuBLAS on bf16
+            # weights (a different function: twice the weight bytes)
+            qnk = q if tr else q.T.contiguous()
+            sb = s.reshape(-1).to(bf16)
+            try:
+                torch._weight_int8pack_mm(x, qnk, sb)
+                sync()
+                lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, qnk, sb))
+                line += f"; torch._weight_int8pack_mm {lib_ms:.4f} ms"
+            except (RuntimeError, NotImplementedError) as e:
+                line += f"; torch._weight_int8pack_mm: none on this card ({str(e).splitlines()[0][:60]})"
+            wb = (q.T if tr else q).to(bf16)
+            line += f"; cuBLAS bf16-weight matmul {cuda_ms(lambda: x @ wb):.4f} ms"
+            del qnk, wb
+        print(line, flush=True)
+        if label == "decode w_gate/w_up":
+            results["matmul_int8"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b}
+        del x, q, s
+    results["matmul_int8"]["max_abs_err"] = max_err
+
+
+def phase_quant_reference() -> dict:
+    """Quantized tiny f32 forwards on the card against the same forwards on
+    the CPU (shared parameters, quantized on each device; prefill of 6
+    tokens into the cache, then 4 single-token steps). The quantized trees
+    must be equal (ints) and allclose at 1e-6 (scales). Logits: with int8
+    or rank-1 int4 weights over an f32 cache, allclose at 1e-4 (f32, TF32
+    off, sums in another order). Where activations or the cache are
+    quantized on the fly (w8a8 at every row count, act_int8_rows 1: 24
+    rows at prefill, 4 per step; int8 or int4 KV), values that differ in
+    their last f32 bits may round to neighbouring steps, so the logits are
+    held within 1% (int8) or 5% (int4) of the largest logit. Returns the max abs logit
+    difference of each case."""
+    import dataclasses
+
+    import torch
+
+    from probing_rag_tpu_torch.models.gemma import (
+        GemmaConfig, forward, init_kv_cache, init_params, quantize_lm_params,
+    )
+
+    cfg = dataclasses.replace(GemmaConfig.tiny(), compute_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 10), generator=torch.Generator().manual_seed(2))
+    to_card = lambda tree: {k: to_card(v) if isinstance(v, dict) else v.to(DEVICE)  # noqa: E731
+                            for k, v in tree.items()}
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)])
+
+    def incremental(p, c, kv_dtype, dev):
+        kv = init_kv_cache(c, tokens.shape[0], tokens.shape[1], kv_dtype, device=dev)
+        toks = tokens.to(dev)
+        logits, kv, _ = forward(p, toks[:, :6], c, kv_cache=kv)
+        outs = [logits]
+        for i in range(6, tokens.shape[1]):
+            step, kv, _ = forward(p, toks[:, i : i + 1], c, kv_cache=kv)
+            outs.append(step)
+        return torch.cat(outs, dim=1).cpu()
+
+    errs = {}
+    f32 = torch.float32
+    for label, quant, kv_dtype, act8, rel in (
+        ("int8", dict(bits=8), f32, 0, None),
+        ("rank-1 int4", dict(bits=4, int4_scheme="rank1"), f32, 0, None),
+        ("int8 + int8 KV", dict(bits=8), torch.int8, 0, 0.01),
+        ("int8 + w8a8 + int8 KV", dict(bits=8), torch.int8, 1, 0.01),
+        ("rank-1 int4 + int4 KV", dict(bits=4, int4_scheme="rank1"), "int4", 0, 0.05),
+    ):
+        c = dataclasses.replace(cfg, act_int8_rows=act8)
+        qcpu = quantize_lm_params(params, **quant)
+        qcard = quantize_lm_params(to_card(params), **quant)
+        for (name, a), (_, b) in zip(leaves(qcpu), leaves(qcard)):
+            b = b.cpu()
+            same = torch.equal(a, b) if not a.is_floating_point() else torch.allclose(
+                a, b, rtol=1e-6, atol=0)
+            if not same:
+                raise AssertionError(f"{label}: {name} quantized on the card differs from the CPU")
+        ref = incremental(qcpu, c, kv_dtype, "cpu")
+        got = incremental(qcard, c, kv_dtype, DEVICE)
+        errs[label] = float((got - ref).abs().max())
+        tol = dict(rtol=1e-4, atol=1e-4) if rel is None else dict(
+            rtol=0.0, atol=rel * float(ref.abs().max()))
+        if not torch.allclose(got, ref, **tol):
+            raise AssertionError(f"tiny {label} forward on the card differs from the CPU: "
+                                 f"{errs[label]}")
+    return errs
+
+
+def gib(nbytes: float) -> float:
+    return nbytes / 2**30
+
+
+def phase_quantized(lm, index, questions, results: dict) -> dict:
+    """``rag-run --quantize int8 --kv-int8`` at Gemma-2B width: phase 5's
+    bf16 parameters quantized on the card, the kernel against its plain
+    version at the shapes this path gives it, the quantized tiny forwards
+    against the CPU, the probing loop over the phase-4 BM25 index with its
+    own launch counts, then prefill seconds and decode tokens/s at batch 8
+    for four serving modes. Returns the loop's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models.decode import StopTables, _pad_batch, generate
+    from probing_rag_tpu_torch.models.gemma import quantize_lm_params
+    from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+
+    params, cfg, probers, tok, store = lm
+
+    def tree_bytes(tree) -> int:
+        return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+                   for v in tree.values())
+
+    sync()
+    t0 = time.time()
+    q8 = quantize_lm_params(params, bits=8)
+    sync()
+    print(f"  quantize_lm_params(bits=8) on the card: {time.time() - t0:.1f}s; int8 tree "
+          f"{gib(tree_bytes(q8)):.2f} GiB (bf16 {gib(tree_bytes(params)):.2f} GiB)")
+
+    engine = BM25Engine(index, device=DEVICE)
+    retriever = TimedRetriever(engine)
+    questions = questions[:N_QUANT_QUESTIONS]
+    rag = RAGConfig(retr_method="probing", threshold=1e6, top_k=K, max_new_tokens=150,
+                    batch_size=8, kv_int8=True)
+    pipe = AdaptiveRAGPipeline(q8, cfg, tok, retriever, store, probers, rag)
+    prompts8 = pipe.retrieval_prompts(questions, questions)
+    padded_len = _pad_batch([tok.encode(p, add_bos=True) for p in prompts8], tok.pad_id)[0].shape[1]
+    phase_matmul_kernels(results, 8 * padded_len)
+    torch.cuda.empty_cache()
+
+    for label, err in phase_quant_reference().items():
+        print(f"  tiny f32 {label}, card vs CPU: max abs logit diff {err:.3g}")
+
+    retriever.seconds, retriever.calls = 0.0, []
+    kernels.reset_launches()
+    sync()
+    t0 = time.time()
+    result = pipe.run(questions)
+    sync()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    print(f"  int8 + int8 KV probing loop over {len(questions)} questions: {wall:.1f}s wall, of "
+          f"which BM25 search {retriever.seconds:.3f}s ({len(retriever.calls)} calls); "
+          f"retr_count {result.retr_count_list}; kernel launches {launches}")
+    if result.retr_count_list != [3] * len(questions):
+        raise AssertionError(f"quantized loop: retr_count {result.retr_count_list} != all 3")
+    if not all(isinstance(p, str) and p for p in result.pred_list):
+        raise AssertionError("quantized loop: empty prediction")
+    for s in result.gate_scores:
+        if s is None or not np.isfinite(s).all():
+            raise AssertionError(f"quantized loop: gate scores {s} are not finite")
+    missing = [n for n in QUANT_KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the quantized path: {missing}")
+
+    # prefill seconds and decode tokens/s at batch 8, stops off so that all
+    # 150 tokens are generated; peak memory of each mode
+    stops = StopTables.disabled(cfg.vocab_size)
+    a8 = dataclasses.replace(cfg, act_int8_rows=512)
+    modes = [("bf16", lambda: params, cfg, {}),
+             ("int8 + int8 KV", lambda: q8, cfg, dict(kv_int8=True)),
+             ("int8 + act_int8_rows 512 + int8 KV", lambda: q8, a8, dict(kv_int8=True)),
+             ("rank-1 int4 + int4 KV", lambda: quantize_lm_params(params, bits=4, int4_scheme="rank1"),
+              cfg, dict(kv_int4=True))]
+    for label, make, c, kv in modes:
+        p = make()
+        sync()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def timed(n):
+            sync()
+            t = time.time()
+            _, res = generate(p, c, tok, prompts8, max_new_tokens=n, stop_tables=stops, **kv)
+            sync()
+            return time.time() - t, res
+
+        timed(1)
+        t1, _ = timed(1)
+        t150, res = timed(150)
+        if int(res.n_generated.sum()) != 8 * 150 or not np.isfinite(res.pooled_captures).all():
+            raise AssertionError(f"{label}: decode did not produce 150 finite steps per row")
+        print(f"  {label}: prefill {t1:.3f}s (8 x {padded_len} tokens), 150 tokens {t150:.3f}s -> "
+              f"{8 * 149 / (t150 - t1):.1f} decode tokens/s; weights {gib(tree_bytes(p)):.2f} GiB, "
+              f"peak {gib(torch.cuda.max_memory_allocated()):.2f} GiB "
+              f"({gib(torch.cuda.max_memory_allocated() - before):.2f} over the "
+              f"{gib(before):.2f} allocated before)", flush=True)
+        del p
+    del q8, pipe, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -890,8 +1253,8 @@ def main() -> int:
         phase_bm25(engine, cpu_engine, index, queries, rng)
         del engine
     with Phase("5 main path"):
-        launches, lm = phase_main_path(index, docs_tokens, cpu_engine)
-    del index, cpu_engine, queries
+        launches, lm, questions = phase_main_path(index, docs_tokens, cpu_engine)
+    del cpu_engine, queries
     torch.cuda.empty_cache()
     with Phase("6 dense kernels vs plain"):
         phase_dense_kernels(results)
@@ -901,11 +1264,13 @@ def main() -> int:
     with Phase("7 dense main path"):
         dense_launches = phase_dense_main_path(docs_tokens, lm)
     launches.update({n: dense_launches[n] for n in DENSE_KERNELS})
+    with Phase("8 quantized main path"):
+        launches["matmul_int8"] = phase_quantized(lm, index, questions, results)["matmul_int8"]
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "replaces": REPLACES[name], "launches": launches[name], **{k: r[k] for k in keys}}
         for name, r in results.items()
     ]}
     if sorted(results) != sorted(SOURCES):

@@ -8,7 +8,9 @@ Port of the BM25 and dense paths of ``probing_rag_tpu/cli/main.py``:
 
 ``--dense`` builds and searches the flat dense index instead of BM25
 (``--dense-int8``: the SQ8 store with re-ranking; ``--dense-ivf``: the IVF
-index, built beside the flat one).
+index, built beside the flat one). ``rag-run --quantize int8|int4``
+quantizes the LM weights (``--int4-scheme``, ``--act-int8-rows``), and
+``--kv-int8`` / ``--kv-int4`` the KV cache.
 
 Without a checkpoint (loading one is not ported yet) ``rag-run`` uses the
 random-init tiny model and the byte tokenizer — the JAX CLI's smoke mode —
@@ -42,9 +44,30 @@ def _load_model(args):
         file=sys.stderr,
     )
     cfg = dataclasses.replace(GemmaConfig.tiny(), compute_dtype=torch.float32)
+    cfg = _apply_act8(cfg, args)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=args.device)
-    return params, cfg, ByteTokenizer(cfg.vocab_size)
+    return _maybe_quantize(params, args), cfg, ByteTokenizer(cfg.vocab_size)
+
+
+def _apply_act8(cfg, args):
+    """The w8a8 / w4a8 prefill threshold applies to ``--quantize int8`` and
+    to rank-1 int4 (its group scale folds into the activations before they
+    are quantized per row); grouped int4 keeps its w4a16 form."""
+    rows = args.act_int8_rows
+    rank1 = args.int4_scheme == "rank1"
+    if rows and (args.quantize == "int8" or (args.quantize == "int4" and rank1)):
+        return dataclasses.replace(cfg, act_int8_rows=rows)
+    return cfg
+
+
+def _maybe_quantize(params, args):
+    if args.quantize == "none":
+        return params
+    from probing_rag_tpu_torch.models.gemma import quantize_lm_params
+
+    return quantize_lm_params(params, bits=4 if args.quantize == "int4" else 8,
+                              int4_scheme=args.int4_scheme)
 
 
 def _load_probers(args, cfg):
@@ -86,7 +109,8 @@ def _dense_encoder(args):
     from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
 
     cfg = EncoderConfig.tiny()
-    params = init_encoder_params(cfg, torch.Generator().manual_seed(ENCODER_SEED))
+    params = init_encoder_params(cfg, torch.Generator().manual_seed(ENCODER_SEED),
+                                 device="cpu")
 
     def to_device(tree):
         return {k: to_device(v) if isinstance(v, dict) else v.to(args.device) for k, v in tree.items()}
@@ -95,7 +119,7 @@ def _dense_encoder(args):
 
 
 def cmd_index_build(args):
-    from probing_rag_tpu.data.corpus import DocStore, make_documents
+    from probing_rag_tpu_torch.data.corpus import DocStore, make_documents
     from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
 
     if args.fixture:
@@ -128,7 +152,7 @@ def cmd_index_build(args):
 
 
 def _load_questions(args):
-    from probing_rag_tpu.data.qa import load_qa_dataset
+    from probing_rag_tpu_torch.data.qa import load_qa_dataset
 
     if args.fixture_qa:
         import json
@@ -141,10 +165,10 @@ def _load_questions(args):
 
 
 def cmd_rag_run(args):
-    from probing_rag_tpu.data.corpus import DocStore
-    from probing_rag_tpu.eval.evaluator import evaluate_predictions
-    from probing_rag_tpu.eval.metrics import EmF1Metric, SupportEmF1Metric
-    from probing_rag_tpu.eval.results import RunRecord, result_filename, save_run
+    from probing_rag_tpu_torch.data.corpus import DocStore
+    from probing_rag_tpu_torch.eval.evaluator import evaluate_predictions
+    from probing_rag_tpu_torch.eval.metrics import EmF1Metric, SupportEmF1Metric
+    from probing_rag_tpu_torch.eval.results import RunRecord, result_filename, save_run
     from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
     from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
     from probing_rag_tpu_torch.retrieval.bm25_index import BM25Index
@@ -179,6 +203,8 @@ def cmd_rag_run(args):
         max_new_tokens=args.max_new_tokens,
         batch_size=args.batch_size,
         position=args.position,
+        kv_int8=args.kv_int8,
+        kv_int4=args.kv_int4,
     )
     pipeline = AdaptiveRAGPipeline(params, cfg, tok, engine, store, probers, rag)
     questions, answers = _load_questions(args)
@@ -251,6 +277,21 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--steps-limit", type=int, default=500)
     sp.add_argument("--results-dir", default="result")
     sp.add_argument("--retr-method", default="probing", choices=["probing", "none", "simple"])
+    sp.add_argument("--quantize", default="none", choices=["none", "int8", "int4"],
+                    help="LM weights: per-channel int8 (w8a16 on the matmul_int8 kernel), "
+                    "or sub-channel int4 (the embedding stays int8)")
+    sp.add_argument("--int4-scheme", default="grouped", choices=["grouped", "rank1"],
+                    help="with --quantize int4: 'grouped' keeps one scale per "
+                    "(group, channel); 'rank1' factorizes them as rs[k] * s[f]")
+    sp.add_argument("--act-int8-rows", type=int, default=0,
+                    help="with --quantize int8 (or int4 rank1): from this many "
+                    "activation rows (batch x tokens, so prefill) the products "
+                    "run w8a8 (w4a8); 0 = never")
+    sp.add_argument("--kv-int8", action="store_true",
+                    help="int8 KV cache (one scale per token and kv head)")
+    sp.add_argument("--kv-int4", action="store_true",
+                    help="int4 KV cache (one scale per 32 head-dim lanes); "
+                    "exclusive with --kv-int8")
     sp.set_defaults(fn=cmd_rag_run)
     return p
 

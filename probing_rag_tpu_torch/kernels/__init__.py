@@ -42,6 +42,7 @@ LAUNCHES: Dict[str, int] = {
     "segment_topk": 0,
     "dense_topk": 0,
     "ivf_topk": 0,
+    "matmul_int8": 0,
 }
 
 _P = ctypes.c_void_p
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "segment_topk": [_P, _P, _I, _LL, _I, _I, _P, _P, _P],
     "dense_topk": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _I] + [_P] * 5,
     "ivf_topk": [_P] * 6 + [_I] * 9 + [_P] * 5,
+    "matmul_int8": [_P] * 5 + [_I, _I, _LL, _I, _I, _I, _I, _P],
 }
 
 

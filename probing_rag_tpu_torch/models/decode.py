@@ -89,6 +89,16 @@ def _pad_batch(
     return tokens, valid
 
 
+def _kv_dtype(cfg: GemmaConfig, kv_int8: bool, kv_int4: bool = False):
+    """Cache element type for the (kv_int8, kv_int4) pair (see
+    ``init_kv_cache``)."""
+    if kv_int8 and kv_int4:
+        raise ValueError("kv_int8 and kv_int4 are mutually exclusive")
+    if kv_int4:
+        return "int4"
+    return torch.int8 if kv_int8 else cfg.compute_dtype
+
+
 def _is_stop(cur, prev, stop_contains, stop_ends, stop_starts, eos_id):
     return (cur == eos_id) | stop_contains[cur] | (stop_ends[prev] & stop_starts[cur])
 
@@ -103,12 +113,15 @@ def _prefill_impl(
     max_new_tokens: int,
     eos_id: int,
     sampling: SamplingConfig,
+    kv_int8: bool = False,
+    kv_int4: bool = False,
 ):
     """Prompt forward: builds the KV cache, selects the first token.
     Returns ``(kv, g1, finished0)``."""
     b, t = prompt_tokens.shape
     dev = prompt_tokens.device
-    kv = init_kv_cache(cfg, b, t + max_new_tokens, dtype=cfg.compute_dtype, device=dev)
+    kv = init_kv_cache(cfg, b, t + max_new_tokens, dtype=_kv_dtype(cfg, kv_int8, kv_int4),
+                       device=dev)
     # cache-slot validity: prompt pad slots never attendable
     slot_valid = torch.cat(
         [prompt_valid, torch.ones((b, max_new_tokens), dtype=torch.bool, device=dev)], dim=-1
@@ -189,14 +202,18 @@ def decode_greedy(
     max_new_tokens: int,
     eos_id: int,
     sampling: SamplingConfig = SamplingConfig(),
+    kv_int8: bool = False,
+    kv_int4: bool = False,
 ):
     """Prefill + decode loop. ``stops`` are the StopTables arrays as bool
-    tensors on the device. Returns (tokens, token_valid, pooled, n_pooled,
-    n_generated) as tensors."""
+    tensors on the device; ``kv_int8`` / ``kv_int4`` quantize the KV cache.
+    Returns (tokens, token_valid, pooled, n_pooled, n_generated) as
+    tensors."""
     with torch.inference_mode():
         kv, g1, finished0 = _prefill_impl(
             params, prompt_tokens, prompt_valid, stops,
             cfg=cfg, max_new_tokens=max_new_tokens, eos_id=eos_id, sampling=sampling,
+            kv_int8=kv_int8, kv_int4=kv_int4,
         )
         return _decode_loop_impl(
             params, kv, g1, finished0, prompt_valid, stops,
@@ -216,6 +233,8 @@ def generate(
     stop_tables: Optional[StopTables] = None,
     paragraph_stop: bool = True,
     sampling: SamplingConfig = SamplingConfig(),
+    kv_int8: bool = False,
+    kv_int4: bool = False,
 ) -> Tuple[List[str], DecodeResult]:
     """End-to-end batched generation: tokenize, decode on the parameters'
     device, detokenize. Returns (full_texts, DecodeResult) where
@@ -227,7 +246,7 @@ def generate(
             if paragraph_stop
             else StopTables.disabled(tokenizer.vocab_size)
         )
-    dev = params["embed"].device
+    dev = params["final_norm"].device
     prompt_ids = [tokenizer.encode(p, add_bos=True) for p in prompts]
     tokens, valid = _pad_batch(prompt_ids, tokenizer.pad_id)
     stops = tuple(
@@ -240,7 +259,7 @@ def generate(
         torch.from_numpy(valid).to(dev),
         stops,
         cfg=cfg, capture=capture, max_new_tokens=max_new_tokens,
-        eos_id=tokenizer.eos_id, sampling=sampling,
+        eos_id=tokenizer.eos_id, sampling=sampling, kv_int8=kv_int8, kv_int4=kv_int4,
     )
     gen = gen.to(torch.int32).cpu().numpy()
     gen_valid = gen_valid.cpu().numpy()

@@ -49,7 +49,7 @@ class EncoderConfig:
 def init_encoder_params(
     cfg: EncoderConfig,
     generator: torch.Generator,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> Params:
     """Random parameters with the JAX ``init_encoder_params`` distribution:
@@ -136,7 +136,7 @@ def encoder_forward(
 
 
 def text_encoder(
-    params: Params, cfg: EncoderConfig, tokenizer, device="cpu"
+    params: Params, cfg: EncoderConfig, tokenizer, device="cuda"
 ) -> Callable[[Sequence[str]], np.ndarray]:
     """``texts -> [B, D] f32`` numpy embeddings, as the JAX CLI's
     ``_dense_encoder`` closure: token ids cut to ``max_positions`` and

@@ -1,9 +1,8 @@
 """Gemma-architecture LM in PyTorch with functional activation capture.
 
-Port of the bf16/f32 path of ``probing_rag_tpu/models/gemma.py``: the
-forward returns the residual-stream activations at the requested
-(layer, site) pairs as part of its output, in place of the reference's
-transformer_lens hooks.
+Port of ``probing_rag_tpu/models/gemma.py``: the forward returns the
+residual-stream activations at the requested (layer, site) pairs as part
+of its output, in place of the reference's transformer_lens hooks.
 
 Architecture (Gemma 1, google/gemma-2b):
 - embeddings scaled by sqrt(d_model) in f32; tied LM head
@@ -19,6 +18,14 @@ weights ``[in, out]`` stacked over layers (``[L, ...]``), the KV cache
 ``[L, B, KV, S, hd]``. Matmuls run in ``compute_dtype``; the residual stream
 and norms stay f32. Attention is written as the JAX package writes it, in
 plain ops: f32 scores, ``-1e30`` masking, softmax.
+
+Quantized serving (``quantize_lm_params``) keeps the JAX boundary formats:
+per-channel int8 ``{"q": int8, "s": f32}``, grouped int4 ``{"qp": uint8,
+"gs": f32}`` and rank-1 int4 ``{"qp": uint8, "rs": f32 [K, 1], "s": f32
+[1, F]}``, int4 values nibble-packed two to a byte (there is no int4 to
+compute with; they are unpacked per call). Every w8a16 product, the tied
+head included, runs on ``ops/matmul.py::matmul_int8``; the KV cache may be
+int8 or int4 (``init_kv_cache``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from probing_rag_tpu_torch.ops.matmul import matmul_int8
 
 Params = Dict[str, Any]
 
@@ -53,6 +62,9 @@ class GemmaConfig:
     mlp_activation: str = "gelu"  # GeGLU "gelu" vs SwiGLU "silu"
     scale_embeddings: bool = True  # sqrt(d_model) input-embedding scaling
     tied_head: bool = True  # LM head == embed.T vs separate params["lm_head"]
+    # above this many activation rows (batch x tokens) an int8 weight runs
+    # w8a8 (rank-1 int4: w4a8); 0 = never. Prefill crosses it, decode not.
+    act_int8_rows: int = 0
 
     @classmethod
     def gemma_2b(cls) -> "GemmaConfig":
@@ -132,7 +144,7 @@ class CaptureSpec:
 def init_params(
     cfg: GemmaConfig,
     generator: torch.Generator,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> Params:
     """Random parameters with the JAX ``init_params`` distribution: dense
@@ -195,8 +207,210 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    return x.to(dt) @ w.to(dt)
+# ------------------------------------------------ int8/int4 quantization
+
+# Above this many activation rows the grouped-int4 product dequantizes the
+# weight to a transient compute-dtype copy instead of the per-group batched
+# product, whose [rows, K, F] partials would outweigh it (the JAX rule).
+_INT4_DEQUANT_ROWS = 1024
+
+
+def _pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] -> uint8 pairs along the last axis: byte j
+    holds columns (2j, 2j+1) as (lo, hi) nibbles biased by +8."""
+    if q.shape[-1] % 2:
+        raise ValueError(f"int4 pack needs an even last dim, got {tuple(q.shape)}")
+    u = (q + 8).to(torch.uint8)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def _unpack_int4(qp: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_pack_int4`: uint8 [..., F/2] -> int8 [..., F]."""
+    lo = (qp & 0xF).to(torch.int8) - 8
+    hi = (qp >> 4).to(torch.int8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(*qp.shape[:-1], qp.shape[-1] * 2)
+
+
+def _per_matrix(fn, w: torch.Tensor, *args) -> Params:
+    """``fn`` over the trailing [D, F] matrices of a layer-stacked ``w``
+    one at a time, so that only one matrix's f32 copy exists; the results
+    are stacked over the leading dims."""
+    if w.dim() == 2:
+        return fn(w, *args)
+    flat = w.reshape(-1, *w.shape[-2:])
+    out: Params = {}
+    for i in range(flat.shape[0]):
+        for name, v in fn(flat[i], *args).items():
+            if name not in out:
+                out[name] = torch.empty((flat.shape[0], *v.shape), dtype=v.dtype, device=v.device)
+            out[name][i] = v
+    return {name: v.reshape(*w.shape[:-2], *v.shape[1:]) for name, v in out.items()}
+
+
+def _quant_channel_2d(w: torch.Tensor, axis: int, nbits: int) -> Params:
+    """Symmetric per-channel quantization along ``axis`` (the max is taken
+    over it): ``{"q": int8, "s": f32}``, or ``{"qp", "s"}`` at 4 bits."""
+    qmax = (1 << (nbits - 1)) - 1
+    w32 = w.float()
+    s = w32.abs().amax(dim=axis, keepdim=True) / qmax
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(w32 / s), -qmax, qmax).to(torch.int8)
+    return {"qp": _pack_int4(q), "s": s} if nbits == 4 else {"q": q, "s": s}
+
+
+def _quant_grouped_2d(w: torch.Tensor, group_size: int) -> Params:
+    """Sub-channel int4: one scale per (``group_size`` rows of the
+    reduction dim, output column). ``{"qp": [D, F/2], "gs": [D/group, F]}``."""
+    w32 = w.float()
+    d, f = w32.shape
+    wg = w32.reshape(d // group_size, group_size, f)
+    s = wg.abs().amax(dim=-2, keepdim=True) / 7.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(wg / s), -7, 7).to(torch.int8)
+    return {"qp": _pack_int4(q.reshape(d, f)), "gs": s[..., 0, :]}
+
+
+def _quant_rank1_2d(w: torch.Tensor, group_size: int) -> Params:
+    """Rank-1 sub-channel int4: ``scale[k, f] = rs[k] * s[f]``, fitted to the
+    per-(group, column) max-abs matrix by 3 rounds of max-plus alternating
+    minimization, after which no weight is clipped. ``{"qp": [D, F/2],
+    "rs": [K, 1], "s": [1, F]}``."""
+    w32 = w.float()
+    d, f = w32.shape
+    k = d // group_size
+    wg = w32.reshape(k, group_size, f)
+    m = torch.clamp(wg.abs().amax(dim=-2) / 7.0, min=1e-12)  # [K, F]
+    rs = torch.ones((k, 1), dtype=torch.float32, device=w.device)
+    for _ in range(3):
+        s = (m / rs).amax(dim=-2, keepdim=True)  # [1, F]
+        rs = (m / s).amax(dim=-1, keepdim=True)  # [K, 1]
+    scale4 = rs[:, :, None] * s[None, :, :]  # [K, 1, F] >= m
+    q = torch.clamp(torch.round(wg / scale4), -7, 7).to(torch.int8)
+    return {"qp": _pack_int4(q.reshape(d, f)), "rs": rs, "s": s}
+
+
+def _default_group_size(params: Params, cap: int = 128) -> int:
+    """Largest group <= ``cap`` dividing every grouped reduction dim
+    (d_model, n_heads * head_dim, d_ff, and an untied head's d_model)."""
+    dims = [params["layers"][n].shape[-2] for n in ("wq", "wo", "w_down")]
+    if "lm_head" in params:
+        dims.append(params["lm_head"].shape[-2])
+    gcd = math.gcd(*dims)
+    g = min(cap, gcd)
+    while gcd % g:  # a divisor of the gcd divides every dim
+        g -= 1
+    return g
+
+
+def quantize_lm_params(
+    params: Params,
+    bits: int = 8,
+    group_size: Optional[int] = None,
+    embed_bits: Optional[int] = None,
+    int4_scheme: str = "grouped",
+) -> Params:
+    """Symmetric quantization of the seven matmul weight families and the
+    embedding, on the parameters' device, one weight matrix at a time.
+
+    ``bits=8``: per-output-channel int8, ``{"q": int8, "s": f32 [.., 1, F]}``,
+    so the forward computes ``(x @ q) * s``. The embedding is quantized per
+    vocab row (``s`` [V, 1]), which serves both the lookup and the tied head
+    (as a per-logit column scale). ``bits=4``: the layer families (and an
+    untied head) become sub-channel int4, ``int4_scheme`` ``"grouped"`` (one
+    scale per (group, column)) or ``"rank1"`` (the scale matrix factorized
+    as ``rs[k] * s[f]``); the embedding stays per-row int8 unless
+    ``embed_bits=4``. ``group_size=None`` picks the largest group <= 128
+    that divides every grouped reduction dim of this tree."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if int4_scheme not in ("grouped", "rank1"):
+        raise ValueError(f"int4_scheme must be 'grouped' or 'rank1', got {int4_scheme!r}")
+    embed_bits = 8 if embed_bits is None else embed_bits
+    if bits == 8 and embed_bits != 8:
+        raise ValueError("embed_bits only applies to bits=4")
+    if embed_bits not in (8, 4):
+        raise ValueError(f"embed_bits must be 8 or 4, got {embed_bits}")
+    if group_size is None:
+        group_size = _default_group_size(params)
+
+    def quant_grouped(w):
+        if w.shape[-2] % group_size:
+            raise ValueError(f"group_size {group_size} must divide reduction dim {w.shape[-2]}")
+        fn = _quant_rank1_2d if int4_scheme == "rank1" else _quant_grouped_2d
+        return _per_matrix(fn, w, group_size)
+
+    out = dict(params)
+    out["embed"] = _quant_channel_2d(params["embed"], -1, embed_bits)  # [V, D], s [V, 1]
+    if "lm_head" in params:
+        out["lm_head"] = (quant_grouped(params["lm_head"]) if bits == 4
+                          else _quant_channel_2d(params["lm_head"], -2, 8))  # s [1, V]
+    out["layers"] = dict(params["layers"])
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        w = params["layers"][name]
+        out["layers"][name] = (quant_grouped(w) if bits == 4
+                               else _per_matrix(_quant_channel_2d, w, -2, 8))
+    return out
+
+
+def _quant_acts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 activations: [..., D] -> (int8 values, f32
+    scales [..., 1]); the row max is taken in f32."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1, keepdim=True) / 127.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    return torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8), s
+
+
+def _int8_product(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``xq @ q`` of int8 operands: ``torch._int_mm`` on the
+    card (s8 x s8 -> s32 in cuBLASLt, which needs more than 16 rows, so
+    fewer are padded with zero rows, and the right operand column-major,
+    so ``q`` is copied transposed), an f64 product on the CPU (its sums of
+    int8 products are exact)."""
+    if xq.device.type == "cuda":
+        m = xq.shape[0]
+        if m <= 16:
+            xq = torch.cat([xq, xq.new_zeros((17 - m, xq.shape[1]))])
+        return torch._int_mm(xq, q.T.contiguous().T)[:m]
+    return (xq.double() @ q.double()).to(torch.int32)
+
+
+def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0) -> torch.Tensor:
+    """``x @ w`` for plain and quantized weights (the branches of the JAX
+    ``_mm``). ``act8_rows``: from that many activation rows (prefill) an
+    int8 weight runs w8a8 and a rank-1 int4 weight w4a8, the activations
+    quantized per row and both scales applied outside the exact int32
+    product; below it (decode) int8 and rank-1 int4 run w8a16 on the
+    ``matmul_int8`` kernel. Grouped int4 batches its product over groups up
+    to ``_INT4_DEQUANT_ROWS`` rows, and multiplies by a transient
+    dequantized copy above."""
+    if not isinstance(w, dict):
+        return x.to(dt) @ w.to(dt)
+    lead, d = x.shape[:-1], x.shape[-1]
+    rows = math.prod(lead)
+    x2 = x.reshape(rows, d)
+    if "gs" in w:  # grouped int4: q [D, F], gs [K, F], K = D / group
+        q, gs = _unpack_int4(w["qp"]), w["gs"]
+        f, k = q.shape[1], gs.shape[0]
+        qg = q.reshape(k, d // k, f)
+        if rows > _INT4_DEQUANT_ROWS:
+            y = x2.to(dt) @ (qg.to(dt) * gs[:, None, :].to(dt)).reshape(d, f)
+        else:
+            part = torch.einsum("rkg,kgf->rkf", x2.to(dt).reshape(rows, k, d // k), qg.to(dt))
+            y = torch.einsum("rkf,kf->rf", part.float(), gs).to(dt)
+        return y.reshape(*lead, f)
+    if "rs" in w:  # rank-1 int4: the group factor folds into the activations
+        q, rs, s = _unpack_int4(w["qp"]), w["rs"], w["s"]
+        k = rs.shape[0]
+        x2 = (x2.float().reshape(rows, k, d // k) * rs).reshape(rows, d)
+    else:  # per-channel int8
+        q, s = w["q"], w["s"]
+    if act8_rows and rows >= act8_rows:
+        xq, xs = _quant_acts(x2)
+        y = (_int8_product(xq, q).float() * xs * s.float()).to(dt)
+    else:
+        y = matmul_int8(x2.to(dt).contiguous(), q, s, dt=dt)
+    return y.reshape(*lead, q.shape[1])
 
 
 def _attn_core(
@@ -223,13 +437,39 @@ def _attention(q, k, v, mask) -> torch.Tensor:
     return _attn_core(q.reshape(b, t, kv, h // kv, hd), k, v, mask)
 
 
+def _cache_update(kv: Params, name: str, x: torch.Tensor, layer: int, pos: int, n_keys: int,
+                  dt: torch.dtype) -> torch.Tensor:
+    """Writes the new tokens' ``x`` [B, KV, T, hd] into ``kv[name]`` at
+    slots ``pos..pos+T`` of ``layer`` IN PLACE (quantized for an int8 or
+    int4 cache, with their scales) and returns the layer's first ``n_keys``
+    slots in ``dt``."""
+    buf = kv[name]
+    t = x.shape[2]
+    if buf.dtype == torch.uint8:  # int4, nibble-packed; scales [L, B, KV*G, S]
+        q, s = _quant_kv4(x)  # s [B, KV, T, G]
+        b, kvh, _, g = s.shape
+        scales = kv[f"{name}_scale"]
+        buf[layer, :, :, pos : pos + t] = _pack_int4(q)
+        scales[layer, :, :, pos : pos + t] = s.transpose(-1, -2).reshape(b, kvh * g, t)
+        return _dequant_kv4(_unpack_int4(buf[layer, :, :, :n_keys]),
+                            scales[layer, :, :, :n_keys], dt)
+    if buf.dtype == torch.int8:  # scales [L, B, KV, S]
+        q, s = _quant_kv(x)
+        scales = kv[f"{name}_scale"]
+        buf[layer, :, :, pos : pos + t] = q
+        scales[layer, :, :, pos : pos + t] = s[..., 0]
+        return buf[layer, :, :, :n_keys].to(dt) * scales[layer, :, :, :n_keys, None].to(dt)
+    buf[layer, :, :, pos : pos + t] = x.to(buf.dtype)
+    return buf[layer, :, :, :n_keys]
+
+
 def _block(
     lp: Params,  # this layer's params (leaves without the L axis)
     x: torch.Tensor,  # [B, T, D] f32 residual stream
     positions: torch.Tensor,
     mask: torch.Tensor,
     cfg: GemmaConfig,
-    cache: Optional[Tuple],  # (ck [L,B,KV,S,hd], cv, layer, pos, n_keys) | None
+    cache: Optional[Tuple],  # (kv_cache, layer, pos, n_keys) | None
 ):
     """One transformer block. Returns (resid_mid, resid_post).
 
@@ -239,30 +479,29 @@ def _block(
     b, t, d = x.shape
     dt = cfg.compute_dtype
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    a8 = cfg.act_int8_rows
 
     attn_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one).to(dt)
-    q = _mm(attn_in, lp["wq"], dt).reshape(b, t, h, hd)
-    k = _mm(attn_in, lp["wk"], dt).reshape(b, t, kvh, hd)
-    v = _mm(attn_in, lp["wv"], dt).reshape(b, t, kvh, hd)
+    q = _mm(attn_in, lp["wq"], dt, a8).reshape(b, t, h, hd)
+    k = _mm(attn_in, lp["wk"], dt, a8).reshape(b, t, kvh, hd)
+    v = _mm(attn_in, lp["wv"], dt, a8).reshape(b, t, kvh, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta).transpose(1, 2)  # [B, KV, T, hd]
     v = v.transpose(1, 2)
     if cache is not None:
-        ck, cv, layer, pos, n_keys = cache
-        ck[layer, :, :, pos : pos + t] = k.to(ck.dtype)
-        cv[layer, :, :, pos : pos + t] = v.to(cv.dtype)
-        k = ck[layer, :, :, :n_keys]
-        v = cv[layer, :, :, :n_keys]
+        kv, layer, pos, n_keys = cache
+        k = _cache_update(kv, "k", k, layer, pos, n_keys, dt)
+        v = _cache_update(kv, "v", v, layer, pos, n_keys, dt)
 
     attn = _attention(q, k.to(dt), v.to(dt), mask)
-    attn_out = _mm(attn.to(dt), lp["wo"], dt).to(cfg.resid_dtype)
+    attn_out = _mm(attn.to(dt), lp["wo"], dt, a8).to(cfg.resid_dtype)
     resid_mid = x + attn_out
 
     x_in = rms_norm(resid_mid, lp["mlp_norm"], cfg.norm_eps, cfg.norm_plus_one).to(dt)
-    gate = _mm(x_in, lp["w_gate"], dt)
+    gate = _mm(x_in, lp["w_gate"], dt, a8)
     gate = F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu" else F.silu(gate)
-    up = _mm(x_in, lp["w_up"], dt)
-    mlp_out = _mm(gate * up, lp["w_down"], dt).to(cfg.resid_dtype)
+    up = _mm(x_in, lp["w_up"], dt, a8)
+    mlp_out = _mm(gate * up, lp["w_down"], dt, a8).to(cfg.resid_dtype)
     return resid_mid, resid_mid + mlp_out
 
 
@@ -272,7 +511,7 @@ def forward(
     cfg: GemmaConfig,
     *,
     capture: CaptureSpec = CaptureSpec(),
-    kv_cache: Optional[Params] = None,  # {"k": [L,B,KV,S,hd], "v": ..., "pos": int}
+    kv_cache: Optional[Params] = None,  # init_kv_cache's dict
     positions: Optional[torch.Tensor] = None,  # [B, T] RoPE positions
     attn_valid: Optional[torch.Tensor] = None,  # no-cache: [B,T]; cache: [B,S] slot validity
     logits_last_only: bool = False,  # head only on the final position
@@ -293,7 +532,11 @@ def forward(
     b, t = tokens.shape
     dev = tokens.device
     emb = params["embed"]
-    x = emb[tokens].to(cfg.resid_dtype)
+    if isinstance(emb, dict):  # quantized per row: dequantize the looked-up rows
+        rows = emb["q"][tokens] if "q" in emb else _unpack_int4(emb["qp"][tokens])
+        x = rows.to(cfg.resid_dtype) * emb["s"][tokens]
+    else:
+        x = emb[tokens].to(cfg.resid_dtype)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
 
@@ -321,10 +564,11 @@ def forward(
     caps = [None] * capture.n_sites
     lp_all = params["layers"]
     for layer in range(cfg.n_layers):
-        lp = {name: w[layer] for name, w in lp_all.items()}
+        lp = {name: ({k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer])
+              for name, w in lp_all.items()}
         cache = None
         if kv_cache is not None:
-            cache = (kv_cache["k"], kv_cache["v"], layer, base, n_keys)
+            cache = (kv_cache, layer, base, n_keys)
         resid_mid, resid_post = _block(lp, x, positions, mask, cfg, cache)
         for i, site in want.get(layer, ()):
             caps[i] = resid_mid if site == "resid_mid" else resid_post
@@ -336,27 +580,89 @@ def forward(
         x = x[:, -1:, :]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
     dt = cfg.compute_dtype
-    if cfg.tied_head:
-        logits = x.to(dt) @ emb.to(dt).T
+    if not cfg.tied_head:
+        logits = _mm(x.to(dt), params["lm_head"], dt, cfg.act_int8_rows)
+    elif isinstance(emb, dict):
+        # the per-row embedding scale is the head's per-logit column scale
+        q = emb["q"] if "q" in emb else _unpack_int4(emb["qp"])
+        x2 = x.to(dt).reshape(-1, cfg.d_model).contiguous()
+        logits = matmul_int8(x2, q, emb["s"], dt=dt, transpose_rhs=True)
+        logits = logits.reshape(*x.shape[:-1], q.shape[0])
     else:
-        logits = _mm(x, params["lm_head"], dt)
+        logits = x.to(dt) @ emb.to(dt).T
     logits = logits.float()
 
     new_cache = None
     if kv_cache is not None:
-        new_cache = {"k": kv_cache["k"], "v": kv_cache["v"], "pos": base + t}
+        new_cache = dict(kv_cache, pos=base + t)
     captures = torch.stack(caps) if caps else None
     return logits, new_cache, captures
 
 
 def init_kv_cache(
-    cfg: GemmaConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
-    device="cpu",
+    cfg: GemmaConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
 ) -> Params:
-    """KV cache in the JAX layout [L, B, KV, S, hd], zero-filled."""
+    """KV cache in the JAX layout [L, B, KV, S, hd], zero-filled.
+
+    ``dtype=torch.int8``: values quantized per (token, kv-head), with f32
+    scales ``k_scale``/``v_scale`` [L, B, KV, S]. ``dtype="int4"``: one
+    scale per (token, kv-head, ``_kv4_group`` lanes of the head dim),
+    stored [L, B, KV*G, S] (the JAX merged layout), and the values
+    nibble-packed as uint8 [L, B, KV, S, hd/2] (``_pack_int4``): a quarter
+    of a bf16 cache."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    vshape, sshape, vdt = shape, shape[:-1], dtype
+    if dtype == "int4":
+        g = cfg.head_dim // _kv4_group(cfg.head_dim)
+        vshape, vdt = (*shape[:-1], cfg.head_dim // 2), torch.uint8
+        sshape = (cfg.n_layers, batch, cfg.n_kv_heads * g, max_len)
+    cache = {
+        "k": torch.zeros(vshape, dtype=vdt, device=device),
+        "v": torch.zeros(vshape, dtype=vdt, device=device),
         "pos": 0,
     }
+    if dtype in (torch.int8, "int4"):
+        cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
+    return cache
+
+
+def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 values, f32 scales [..., 1]); one scale per row."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1, keepdim=True) / 127.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    return torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8), s
+
+
+# Sub-channel group width of the int4 KV cache: one scale per 32 head-dim
+# lanes (per token, per kv-head); a head_dim 32 does not divide gets one
+# group per head.
+KV4_GROUP = 32
+
+
+def _kv4_group(head_dim: int) -> int:
+    return KV4_GROUP if head_dim % KV4_GROUP == 0 else head_dim
+
+
+def _quant_kv4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 values in [-7, 7] [..., hd], f32 scales [..., G]):
+    one symmetric max-abs scale per ``_kv4_group`` slice of the head dim."""
+    hd = x.shape[-1]
+    g = _kv4_group(hd)
+    xg = x.float().reshape(*x.shape[:-1], hd // g, g)
+    s = xg.abs().amax(dim=-1) / 7.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(xg / s[..., None]), -7, 7)
+    return q.reshape(x.shape).to(torch.int8), s
+
+
+def _dequant_kv4(q: torch.Tensor, s_m: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """q [..., KV, S, hd] int4 values (as int8), s_m [..., KV*G, S] f32 ->
+    [..., KV, S, hd] in ``dt``."""
+    hd = q.shape[-1]
+    ng = hd // _kv4_group(hd)
+    kv, s_len = q.shape[-3], q.shape[-2]
+    s = s_m.reshape(*s_m.shape[:-2], kv, ng, s_len).transpose(-1, -2)[..., None]  # [.., KV, S, G, 1]
+    xg = q.reshape(*q.shape[:-1], ng, hd // ng).to(dt) * s.to(dt)
+    return xg.reshape(q.shape)

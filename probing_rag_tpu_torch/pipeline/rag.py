@@ -30,7 +30,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from probing_rag_tpu.data import prompts
+from probing_rag_tpu_torch.data import prompts
 from probing_rag_tpu_torch.models.decode import StopTables, generate
 from probing_rag_tpu_torch.models.gemma import CaptureSpec, GemmaConfig
 from probing_rag_tpu_torch.prober.gate import gate_decision
@@ -48,10 +48,10 @@ class RAGConfig:
     max_extra_rounds: int = 3  # retr_count cap: 4 rounds total
     batch_size: int = 8
     position: str = "resid_post"
+    kv_int8: bool = False  # int8 KV cache
+    kv_int4: bool = False  # int4 KV cache (exclusive with kv_int8)
     # knobs of the JAX pipeline this port does not have yet; setting one
     # raises in AdaptiveRAGPipeline
-    kv_int8: bool = False
-    kv_int4: bool = False
     spec_k: int = 0
     split_prefill: bool = False
 
@@ -74,7 +74,7 @@ class AdaptiveRAGPipeline:
         prober_stack=None,  # stacked prober params (probing method)
         rag: RAGConfig = RAGConfig(),
     ):
-        unported = [n for n in ("kv_int8", "kv_int4", "spec_k", "split_prefill") if getattr(rag, n)]
+        unported = [n for n in ("spec_k", "split_prefill") if getattr(rag, n)]
         if unported:
             raise NotImplementedError(f"RAGConfig {unported} are not ported yet")
         self.lm_params = lm_params
@@ -102,6 +102,7 @@ class AdaptiveRAGPipeline:
                 self.lm_params, self.cfg, self.tokenizer, padded,
                 max_new_tokens=self.rag.max_new_tokens,
                 capture=capture, stop_tables=self.stop_tables,
+                kv_int8=self.rag.kv_int8, kv_int4=self.rag.kv_int4,
             )
             texts_out.extend(texts[: len(chunk)])
             if with_capture:

@@ -53,7 +53,7 @@ def init_improved_probe(
     input_size: int,
     output_size: int = NUM_CLASSES,
     hidden_size: int = HIDDEN_SIZE,
-    device="cpu",
+    device="cuda",
 ) -> ProbeParams:
     return {
         "ln_in": _ln_init(input_size, device),

@@ -26,7 +26,7 @@ class ProberTrainConfig:
 
 
 def init_prober_stack(
-    tc: ProberTrainConfig, d_model: int, generator: torch.Generator, device="cpu"
+    tc: ProberTrainConfig, d_model: int, generator: torch.Generator, device="cuda"
 ):
     """Stacked params for all (layer, position) sites: leaves [n_sites, ...]."""
     per_site = [init_improved_probe(generator, d_model, device=device) for _ in tc.sites]

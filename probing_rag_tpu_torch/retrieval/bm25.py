@@ -139,7 +139,7 @@ class BM25Engine:
     its own power-of-two width. Repeated query terms are searched once with
     an occurrence-count weight."""
 
-    def __init__(self, index: BM25Index, device="cpu"):
+    def __init__(self, index: BM25Index, device="cuda"):
         if index.nnz >= 2**31:
             raise ValueError("single-shard postings exceed int32 indexing; shard the index")
         self.index = index

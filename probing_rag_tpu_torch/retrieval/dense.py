@@ -76,7 +76,7 @@ class DenseEngine:
         self,
         index: DenseIndex,
         encode_fn: Optional[Callable[[Sequence[str]], np.ndarray]] = None,
-        device="cpu",
+        device="cuda",
         store_dtype: torch.dtype = torch.bfloat16,
         rerank: Optional[bool] = None,
     ):

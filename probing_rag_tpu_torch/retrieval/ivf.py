@@ -41,7 +41,7 @@ def _min_d2_update(xd: torch.Tensor, cd: torch.Tensor, mind2: torch.Tensor) -> t
     return torch.minimum(mind2, d2.min(dim=-1).values)
 
 
-def _kmeanspp_init(x: np.ndarray, nlist: int, rng, device="cpu") -> np.ndarray:
+def _kmeanspp_init(x: np.ndarray, nlist: int, rng, device="cuda") -> np.ndarray:
     """Batched k-means++ seeding: candidates are drawn in rounds of
     ``nlist // 16`` in proportion to the current min squared distance."""
     n = x.shape[0]
@@ -77,7 +77,7 @@ def kmeans(
     seed: int = 0,
     sample_per_list: int = 64,  # training points capped at nlist * this
     chunk: int = 65536,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """Lloyd's k-means for the coarse quantizer. Returns [nlist, D] f32.
     Empty cells are reseeded from random training points."""
@@ -112,7 +112,7 @@ def kmeans(
 
 
 def assign_cells(x: np.ndarray, centroids: np.ndarray, chunk: int = 65536,
-                 device="cpu") -> np.ndarray:
+                 device="cuda") -> np.ndarray:
     """Nearest-centroid cell id per vector ([N] int32), in chunks."""
     c = torch.from_numpy(np.asarray(centroids, np.float32)).to(device)
     csq = (c * c).sum(-1)[None, :]
@@ -177,7 +177,7 @@ class IVFDenseIndex:
         metric: str = "l2",
         seed: int = 0,
         iters: int = 10,
-        device="cpu",  # where k-means and the cell assignment run
+        device="cuda",  # where k-means and the cell assignment run
     ) -> "IVFDenseIndex":
         emb = np.ascontiguousarray(embeddings, np.float32)
         n, d = emb.shape
@@ -228,7 +228,7 @@ class IVFDenseIndex:
                    meta["metric"], meta["block"], meta["n_docs"])
 
 
-def host_store_prep(emb: np.ndarray, metric: str, store_dtype: torch.dtype, device="cpu"):
+def host_store_prep(emb: np.ndarray, metric: str, store_dtype: torch.dtype, device="cuda"):
     """Store preparation: SQ8 per-vector quantization (int8) or a cast,
     and the l2 squared norms of the stored (rounded or dequantized)
     vectors. Runs on ``device``. Returns ``(store, scales | None,
@@ -245,13 +245,20 @@ def probe_cells_host(query_emb, centroids: torch.Tensor, cent_sqn: torch.Tensor,
     Cells are ranked by L2 distance to the centroids for both metrics:
     docs were assigned to their L2-nearest centroid (``assign_cells``), so
     the probe must use the same geometry (faiss ``IndexIVFFlat`` over an
-    ``IndexFlatL2`` quantizer)."""
+    ``IndexFlatL2`` quantizer).
+
+    Up to ``MAX_K_PAD`` cells the probe runs on ``dense_topk``; a wider
+    probe ranks the full ``[Q, nlist]`` row of ``2 q.c - |c|^2`` (the same
+    key) by a stable sort, ties by cell id ascending, as the JAX probe's
+    ``matmul_topk`` does in XLA."""
     k = int(min(nprobe, nlist))
-    if k > MAX_K_PAD:
-        raise ValueError(f"nprobe {k} exceeds the coarse search's {MAX_K_PAD}")
     q = torch.as_tensor(np.asarray(query_emb, np.float32)).to(centroids.device)
-    _, idx = dense_topk(q, centroids, k=k, metric="l2", sq_norms=cent_sqn, k_pad=max(16, k))
-    return idx.cpu().numpy()
+    if k <= MAX_K_PAD:
+        _, idx = dense_topk(q, centroids, k=k, metric="l2", sq_norms=cent_sqn, k_pad=max(16, k))
+    else:
+        key = 2.0 * (q @ centroids.T) - cent_sqn[None, :]
+        idx = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
+    return idx.to(torch.int32).cpu().numpy()
 
 
 def tile_union(probes: np.ndarray):
@@ -302,7 +309,7 @@ class IVFEngine:
         index: IVFDenseIndex,
         nprobe: int = 32,
         encode_fn=None,  # texts -> [Q, D] embeddings (query encoder)
-        device="cpu",
+        device="cuda",
         store_dtype: Optional[torch.dtype] = None,  # default bf16; torch.int8 for SQ8
     ):
         self.index = index

@@ -78,7 +78,7 @@ def test_planner_helpers_equal_jax(indexes):
             j = jbm25.trim_to_cap(lens, np.asarray(ids, np.int64), cap)
             np.testing.assert_array_equal(t[0], j[0])
             assert t[2:] == j[2:]
-    teng = tbm25.BM25Engine(idx)
+    teng = tbm25.BM25Engine(idx, device="cpu")
     jeng = jbm25.BM25Engine(jidx, mode="bitonic", interpret=True)
     tplan = teng._plan_bitonic(tu, tw)
     jplan = jeng._plan_bitonic(ju, jw)
@@ -120,7 +120,7 @@ def test_search_matches_jax_bitonic_xla_and_oracle(indexes):
     qids = [idx.encode_query([f"t{t}" for t in rng.zipf(1.2, rng.integers(1, 6)) % 400])
             for _ in range(7)]
     qids.append(np.zeros(0, np.int32))  # empty query
-    res = tbm25.BM25Engine(idx).search_term_ids(qids, k=5)
+    res = tbm25.BM25Engine(idx, device="cpu").search_term_ids(qids, k=5)
     assert_matches_oracle(idx, qids, res)
     jres = jbm25.BM25Engine(jidx, mode="bitonic", interpret=True).search_term_ids(qids, k=5)
     assert_same_results(res, jres)
@@ -137,7 +137,7 @@ def test_overcap_duplicate_and_oov_queries(indexes, monkeypatch):
     overcap = np.concatenate([heavy, [light]]).astype(np.int32)
     dup = np.asarray([heavy[0], heavy[0], light, light, light], np.int32)
     qids = [overcap, dup, np.asarray([light], np.int32)]
-    eng = tbm25.BM25Engine(idx)
+    eng = tbm25.BM25Engine(idx, device="cpu")
     res = eng.search_term_ids(qids, k=5)
     assert eng.last_stats == {"n_queries": 3, "n_trimmed": 0}
     assert_matches_oracle(idx, qids, res, atol=1e-3)
@@ -151,13 +151,13 @@ def test_overcap_duplicate_and_oov_queries(indexes, monkeypatch):
     assert_same_results(res, jres)
     # a trimmed query keeps its most selective terms, as JAX does
     monkeypatch.setattr(tbm25, "FALLBACK_MAX_PAD", int(lens[heavy[0]]))
-    eng = tbm25.BM25Engine(idx)
+    eng = tbm25.BM25Engine(idx, device="cpu")
     res = eng.search_term_ids([overcap], k=5)
     assert eng.last_stats == {"n_queries": 1, "n_trimmed": 1}
     kept, *_ = jbm25.trim_to_cap(lens.astype(np.int64), overcap.astype(np.int64),
                                  int(lens[heavy[0]]))
     assert_matches_oracle(idx, [kept], res, atol=1e-3)
     # OOV text: no terms, every slot empty
-    text = tbm25.BM25Engine(idx).search(["zzzqqq unknownword"], k=3)
+    text = tbm25.BM25Engine(idx, device="cpu").search(["zzzqqq unknownword"], k=3)
     assert (text.doc_indices == -1).all() and (text.scores == 0).all()
-    assert tbm25.BM25Engine(idx).retrieve("zzzqqq", k=3) == []
+    assert tbm25.BM25Engine(idx, device="cpu").retrieve("zzzqqq", k=3) == []

@@ -8,6 +8,7 @@ per-step values differ in the last bits (matmul summation order)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,14 +33,14 @@ PROMPTS = [
 ]
 
 
-def _both(tree, jcfg, tcfg, strings):
+def _both(tree, jcfg, tcfg, strings, **kv):
     j_texts, j_res = jd.generate(
         to_jax(tree), jcfg, JaxByteTokenizer(300), PROMPTS, max_new_tokens=40,
-        stop_tables=jd.StopTables.from_token_strings(strings),
+        stop_tables=jd.StopTables.from_token_strings(strings), **kv,
     )
     t_texts, t_res = td.generate(
-        lm_params_from_jax(tree, tcfg), tcfg, ByteTokenizer(300), PROMPTS, max_new_tokens=40,
-        stop_tables=td.StopTables.from_token_strings(strings),
+        lm_params_from_jax(tree, tcfg, device="cpu"), tcfg, ByteTokenizer(300), PROMPTS,
+        max_new_tokens=40, stop_tables=td.StopTables.from_token_strings(strings), **kv,
     )
     assert t_texts == j_texts
     np.testing.assert_array_equal(t_res.tokens, np.asarray(j_res.tokens))
@@ -65,6 +66,25 @@ def test_generate_matches_jax():
     strings[int(res.tokens[0, 5])] = "x\n\n"
     res = _both(tree, jcfg, tcfg, strings)
     assert (res.n_generated < 40).any()
+
+
+@pytest.mark.parametrize("quant,kv", [
+    (dict(bits=8), dict(kv_int8=True)),
+    (None, dict(kv_int8=True)),
+    (dict(bits=4, int4_scheme="rank1"), dict(kv_int4=True)),
+])
+def test_quantized_generate_matches_jax(quant, kv):
+    """Greedy decode over int8 (or rank-1 int4) weights and an int8 (int4)
+    KV cache, f32 compute: the same tokens as the JAX decode."""
+    jcfg = dataclasses.replace(jg.GemmaConfig.tiny(vocab_size=300), compute_dtype=jnp.float32)
+    tcfg = dataclasses.replace(tg.GemmaConfig.tiny(vocab_size=300), compute_dtype=torch.float32)
+    tree = numpy_params(jcfg, seed=4)
+    if quant is not None:
+        tree = jax.tree_util.tree_map(np.asarray, jg.quantize_lm_params(to_jax(tree), **quant))
+    res = _both(tree, jcfg, tcfg, [""] * 300, **kv)
+    assert (res.n_generated == 40).all()
+    with pytest.raises(ValueError, match="exclusive"):
+        td._kv_dtype(tcfg, True, True)
 
 
 def test_stop_tables_and_pad_batch_match_jax():

@@ -164,7 +164,8 @@ def test_dense_engine_matches_jax_across_files(tmp_path, metric, dt):
     DenseIndex(emb, metric=metric).save(tmp_path / "torch" / "dense")
     jeng = jdense.DenseEngine(jdense.DenseIndex.load(tmp_path / "torch" / "dense"),
                               store_dtype=JDT[dt], use_pallas=True)
-    teng = DenseEngine(DenseIndex.load(tmp_path / "jax" / "dense"), store_dtype=TDT[dt])
+    teng = DenseEngine(DenseIndex.load(tmp_path / "jax" / "dense"), device="cpu",
+                       store_dtype=TDT[dt])
     assert teng.index.metric == metric and teng.index.n_docs == 256
     ref, got = jeng.search_embeddings(q, k=5), teng.search_embeddings(q, k=5)
     assert_same((got.scores, got.doc_indices), (ref.scores, ref.doc_indices))

@@ -51,7 +51,7 @@ def test_encoder_matches_jax(params, dtype):
     tokens, mask = inputs(jcfg)
     ref = np.asarray(je.encoder_forward(jax.tree_util.tree_map(jnp.asarray, params),
                                         jnp.asarray(tokens), jnp.asarray(mask), jcfg))
-    got = te.encoder_forward(encoder_params_from_jax(params, tcfg), torch.from_numpy(tokens).long(),
+    got = te.encoder_forward(encoder_params_from_jax(params, tcfg, device="cpu"), torch.from_numpy(tokens).long(),
                              torch.from_numpy(mask), tcfg).numpy()
     assert got.shape == ref.shape == (3, jcfg.d_model) and np.isfinite(got).all()
     if dtype == "f32":
@@ -64,7 +64,7 @@ def test_padding_does_not_change_pooled_vector(params):
     """Extra padded positions holding other tokens leave every row's
     pooled vector unchanged (the keys are masked, the mean skips them)."""
     cfg = dataclasses.replace(te.EncoderConfig.tiny(), compute_dtype=torch.float32)
-    p = encoder_params_from_jax(params, cfg)
+    p = encoder_params_from_jax(params, cfg, device="cpu")
     tokens, mask = inputs(cfg, lengths=(9, 4, 1), t=9)
     padded = np.concatenate([tokens, np.full((3, 7), 5, np.int32)], axis=1)
     pmask = np.concatenate([mask, np.zeros((3, 7), bool)], axis=1)
@@ -80,10 +80,11 @@ def test_contriever_config_and_shape_checks(params):
     assert c.norm_eps == 1e-12
     bad = dict(params, pos_embed=params["pos_embed"][:-1])
     with pytest.raises(ValueError, match="pos_embed"):
-        encoder_params_from_jax(bad, te.EncoderConfig.tiny())
+        encoder_params_from_jax(bad, te.EncoderConfig.tiny(), device="cpu")
     layers = {k: v for k, v in params["layers"].items() if k != "b2"}
     with pytest.raises(ValueError, match="layers"):
-        encoder_params_from_jax(dict(params, layers=layers), te.EncoderConfig.tiny())
+        encoder_params_from_jax(dict(params, layers=layers), te.EncoderConfig.tiny(),
+                                device="cpu")
 
 
 def test_text_encoder_truncates(params):
@@ -92,8 +93,8 @@ def test_text_encoder_truncates(params):
     from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
 
     cfg = dataclasses.replace(te.EncoderConfig.tiny(), compute_dtype=torch.float32)
-    p = encoder_params_from_jax(params, cfg)
-    encode = te.text_encoder(p, cfg, ByteTokenizer(259))
+    p = encoder_params_from_jax(params, cfg, device="cpu")
+    encode = te.text_encoder(p, cfg, ByteTokenizer(259), device="cpu")
     long_text = "é" * 50  # 100 bytes, each >= 128, cut to 64 positions
     got = encode([long_text, "ab"])
     ids = np.minimum(list(long_text.encode())[: cfg.max_positions], cfg.vocab_size - 1)

@@ -80,7 +80,7 @@ def test_forward_logits_and_captures_match_jax(family):
         positions=jnp.asarray(positions), attn_valid=jnp.asarray(valid),
     )
     t_logits, _, t_caps = tg.forward(
-        lm_params_from_jax(tree, tcfg), torch.from_numpy(tokens).long(), tcfg,
+        lm_params_from_jax(tree, tcfg, device="cpu"), torch.from_numpy(tokens).long(), tcfg,
         capture=tg.CaptureSpec(sites), positions=torch.from_numpy(positions).long(),
         attn_valid=torch.from_numpy(valid),
     )
@@ -88,7 +88,7 @@ def test_forward_logits_and_captures_match_jax(family):
     np.testing.assert_allclose(t_caps.numpy(), np.asarray(j_caps), **TOL)
     # logits_last_only is the last row of the full logits
     last, _, _ = tg.forward(
-        lm_params_from_jax(tree, tcfg), torch.from_numpy(tokens).long(), tcfg,
+        lm_params_from_jax(tree, tcfg, device="cpu"), torch.from_numpy(tokens).long(), tcfg,
         positions=torch.from_numpy(positions).long(), attn_valid=torch.from_numpy(valid),
         logits_last_only=True,
     )
@@ -117,8 +117,8 @@ def test_prefill_then_cache_append_matches_jax(family):
                                  positions=jnp.asarray(nxt_pos), attn_valid=jnp.asarray(slot_valid),
                                  capture=jg.CaptureSpec(((1, "resid_post"),)))
 
-    tp = lm_params_from_jax(tree, tcfg)
-    tkv = tg.init_kv_cache(tcfg, b, s, dtype=torch.float32)
+    tp = lm_params_from_jax(tree, tcfg, device="cpu")
+    tkv = tg.init_kv_cache(tcfg, b, s, dtype=torch.float32, device="cpu")
     t1, tkv, _ = tg.forward(tp, torch.from_numpy(tokens).long(), tcfg, kv_cache=tkv,
                             positions=torch.from_numpy(positions).long(),
                             attn_valid=torch.from_numpy(slot_valid), logits_last_only=True)

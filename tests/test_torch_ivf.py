@@ -48,9 +48,9 @@ def test_kmeans_and_assign_match_jax():
     rng = np.random.default_rng(0)
     pts, _ = clustered(rng)
     ref = jivf.kmeans(pts, 8, iters=15, seed=1)
-    got = tivf.kmeans(pts, 8, iters=15, seed=1)
+    got = tivf.kmeans(pts, 8, iters=15, seed=1, device="cpu")
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(tivf.assign_cells(pts, got), jivf.assign_cells(pts, ref))
+    np.testing.assert_array_equal(tivf.assign_cells(pts, got, device="cpu"), jivf.assign_cells(pts, ref))
 
 
 def test_kmeans_subsample_follows_the_same_draws():
@@ -58,7 +58,7 @@ def test_kmeans_subsample_follows_the_same_draws():
     draws."""
     rng = np.random.default_rng(1)
     pts, _ = clustered(rng, n_clusters=4, per=50, d=8)
-    np.testing.assert_allclose(tivf.kmeans(pts, 4, iters=5, seed=2, sample_per_list=16),
+    np.testing.assert_allclose(tivf.kmeans(pts, 4, iters=5, seed=2, sample_per_list=16, device="cpu"),
                                jivf.kmeans(pts, 4, iters=5, seed=2, sample_per_list=16),
                                rtol=1e-5, atol=1e-5)
 
@@ -71,7 +71,8 @@ def built():
     out = {"pts": pts, "q": q}
     for metric in ("ip", "l2"):
         out[metric] = (jivf.IVFDenseIndex.build(pts, nlist=16, block=32, metric=metric, seed=0),
-                       tivf.IVFDenseIndex.build(pts, nlist=16, block=32, metric=metric, seed=0))
+                       tivf.IVFDenseIndex.build(pts, nlist=16, block=32, metric=metric, seed=0,
+                                                device="cpu"))
     return out
 
 
@@ -91,7 +92,7 @@ def test_probe_and_plan_match_jax(built, nprobe):
     j, t = built["ip"]
     q = built["q"]
     jeng = jivf.IVFEngine(j, nprobe=nprobe, store_dtype=jnp.float32)
-    teng = tivf.IVFEngine(t, nprobe=nprobe, store_dtype=torch.float32)
+    teng = tivf.IVFEngine(t, nprobe=nprobe, store_dtype=torch.float32, device="cpu")
     probes = teng.probe_cells(q)
     np.testing.assert_array_equal(probes, jeng.probe_cells(q))
     np.testing.assert_array_equal(teng.plan(probes), jeng.plan(probes))
@@ -116,7 +117,7 @@ def store_args(ix, dt, device="cpu"):
 def test_ivf_topk_plain_matches_pallas_and_xla(built, metric, dt):
     j, t = built[metric]
     q = built["q"]
-    eng = tivf.IVFEngine(t, nprobe=3, store_dtype=torch.float32)
+    eng = tivf.IVFEngine(t, nprobe=3, store_dtype=torch.float32, device="cpu")
     desc = eng.plan(eng.probe_cells(q))
     qpad = np.concatenate([q, np.broadcast_to(q[:1], (16 - 13, q.shape[1]))])
     emb, ids, scl, sqn = store_args(t, dt)
@@ -173,7 +174,7 @@ def test_ivf_engine_matches_jax_across_files(tmp_path, built, metric, dt):
     jeng = jivf.IVFEngine(jivf.IVFDenseIndex.load(tmp_path / "torch" / "ivf"), nprobe=4,
                           store_dtype=JDT[dt], force_kernel=True)
     teng = tivf.IVFEngine(tivf.IVFDenseIndex.load(tmp_path / "jax" / "ivf"), nprobe=4,
-                          store_dtype=TDT[dt])
+                          store_dtype=TDT[dt], device="cpu")
     ref, got = jeng.search_embeddings(q, k=5), teng.search_embeddings(q, k=5)
     assert_same_topk(got.scores, got.doc_indices, ref.scores, ref.doc_indices)
 
@@ -184,7 +185,8 @@ def wide():
     pts, _ = clustered(rng, n_clusters=128, per=8, d=16)
     q = rng.normal(size=(11, 16)).astype(np.float32) * 2.0
     return (q, jivf.IVFDenseIndex.build(pts, nlist=128, block=8, metric="l2", seed=0),
-            tivf.IVFDenseIndex.build(pts, nlist=128, block=8, metric="l2", seed=0))
+            tivf.IVFDenseIndex.build(pts, nlist=128, block=8, metric="l2", seed=0,
+                                     device="cpu"))
 
 
 @pytest.mark.parametrize("nprobe", [64, 128])
@@ -194,7 +196,7 @@ def test_wide_nprobe_matches_jax(wide, nprobe):
     q, j, t = wide
     np.testing.assert_allclose(t.centroids, j.centroids, rtol=1e-5, atol=1e-5)
     jeng = jivf.IVFEngine(j, nprobe=nprobe, store_dtype=jnp.float32)
-    teng = tivf.IVFEngine(t, nprobe=nprobe, store_dtype=torch.float32)
+    teng = tivf.IVFEngine(t, nprobe=nprobe, store_dtype=torch.float32, device="cpu")
     probes = teng.probe_cells(q)
     assert probes.shape == (11, nprobe)
     np.testing.assert_array_equal(probes, jeng.probe_cells(q))
@@ -203,11 +205,28 @@ def test_wide_nprobe_matches_jax(wide, nprobe):
     assert_same_topk(got.scores, got.doc_indices, ref.scores, ref.doc_indices)
 
 
+@pytest.mark.parametrize("nprobe", [300, 512, 1000])
+def test_probe_above_256_matches_jax(nprobe):
+    """Probes wider than ``dense_topk``'s 256-long lists (a full score row
+    and a stable sort) give the JAX ``probe_cells_host``'s cells, up to
+    nprobe = nlist."""
+    rng = np.random.default_rng(8)
+    nlist = 1000
+    cent = rng.normal(size=(nlist, 16)).astype(np.float32)
+    q = rng.normal(size=(9, 16)).astype(np.float32)
+    tcent = torch.from_numpy(cent)
+    got = tivf.probe_cells_host(q, tcent, (tcent * tcent).sum(-1), nprobe, nlist)
+    want = jivf.probe_cells_host(q, jnp.asarray(cent), nprobe, "l2", nlist)
+    assert got.shape == (9, nprobe) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
 def test_full_probe_equals_flat_bruteforce(built):
     """Probing every cell of an f32 store gives the exact flat answer."""
     _, t = built["l2"]
     pts, q = built["pts"], built["q"]
-    res = tivf.IVFEngine(t, nprobe=16, store_dtype=torch.float32).search_embeddings(q, k=7)
+    res = tivf.IVFEngine(t, nprobe=16, store_dtype=torch.float32,
+                         device="cpu").search_embeddings(q, k=7)
     d = ((q[:, None, :] - pts[None]) ** 2).sum(-1)
     np.testing.assert_allclose(res.scores, np.sort(d, axis=1)[:, :7], rtol=1e-4, atol=1e-3)
     np.testing.assert_array_equal(res.doc_indices, np.argsort(d, axis=1)[:, :7])

@@ -158,7 +158,7 @@ def test_plain_gather_layout_matches_numpy_rebuild(zipf_indexes):
     store's compact copy, each times its dedup weight."""
     idx, jidx, rng = zipf_indexes
     jst = jidx.bitonic_csr()
-    eng = BM25Engine(idx)
+    eng = BM25Engine(idx, device="cpu")
     lens = idx.term_offsets[1:] - idx.term_offsets[:-1]
     heavy = np.argsort(lens)[-3:]
     qids = [idx.encode_query([f"t{t}" for t in rng.zipf(1.2, rng.integers(1, 7)) % 400])
@@ -202,7 +202,7 @@ def test_plain_gather_equals_pallas_gather(zipf_indexes, monkeypatch):
     from probing_rag_tpu.retrieval.bm25 import BM25Engine as JaxBM25Engine
 
     idx, jidx, rng = zipf_indexes
-    eng = BM25Engine(idx)
+    eng = BM25Engine(idx, device="cpu")
     jeng = JaxBM25Engine(jidx, mode="bitonic", interpret=True)
     lens = idx.term_offsets[1:] - idx.term_offsets[:-1]
     heavy = np.argsort(lens)[-2:]
@@ -233,7 +233,7 @@ def test_chained_search_matches_oracle(zipf_indexes):
     """gather -> sort (k_start = 2 * block) -> segment top-k on the plain
     versions equals the exact host oracle (f32 sums vs f64: 5e-4)."""
     idx, _, rng = zipf_indexes
-    eng = BM25Engine(idx)
+    eng = BM25Engine(idx, device="cpu")
     qids = [idx.encode_query([f"t{t}" for t in rng.zipf(1.2, rng.integers(1, 6)) % 400])
             for _ in range(6)]
     src, srcr, slot, rlen, big, totals, _ = eng._plan_bitonic(qids)

@@ -12,8 +12,9 @@ match if the top-k scores are distinct, which the test asserts for every
 query the pipeline searched.
 
 A subprocess imports every module of the port, runs the CPU ``index-build``
-and ``rag-run`` CLI on a fixture over BM25, the flat dense index (bf16 and
-int8) and the IVF index, and checks that jax was never imported."""
+and ``rag-run`` CLI on a fixture over BM25 (bf16, and with quantized
+weights and KV cache), the flat dense index (bf16 and int8) and the IVF
+index, and checks that jax was never imported."""
 
 import dataclasses
 import json
@@ -88,8 +89,8 @@ def setup():
     probers = numpy_stack(len(jcfg.probe_layers), jcfg.d_model, seed=6)
     bm = dict(stem=False, remove_stopwords=False)
     return dict(
-        jcfg=jcfg, tcfg=tcfg, jlm=to_jax(lm), tlm=lm_params_from_jax(lm, tcfg),
-        jprobers=to_jax(probers), tprobers=probers_from_jax(probers),
+        jcfg=jcfg, tcfg=tcfg, jlm=to_jax(lm), tlm=lm_params_from_jax(lm, tcfg, device="cpu"),
+        jprobers=to_jax(probers), tprobers=probers_from_jax(probers, device="cpu"),
         jidx=JaxBM25Index.build(CORPUS, JaxBM25Config(**bm)),
         tidx=BM25Index.build(CORPUS, BM25Config(**bm)),
     )
@@ -104,7 +105,7 @@ def test_pipeline_matches_jax(setup, method, threshold):
     kw = dict(retr_method=method, threshold=threshold, batch_size=2, max_new_tokens=6)
     jres = JaxPipeline(s["jlm"], s["jcfg"], JaxByteTokenizer(512), JaxBM25Engine(s["jidx"]),
                        store, s["jprobers"], JaxRAGConfig(**kw)).run(QUESTIONS)
-    engine = RecordingEngine(BM25Engine(s["tidx"]))
+    engine = RecordingEngine(BM25Engine(s["tidx"], device="cpu"))
     tres = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), engine, store,
                                s["tprobers"], RAGConfig(**kw)).run(QUESTIONS)
     for q in engine.queries:  # retrieval ids are comparable only without ties
@@ -120,6 +121,36 @@ def test_pipeline_matches_jax(setup, method, threshold):
             assert tres.retr_count_list == [expect] * len(QUESTIONS)
         for a, b in zip(tres.gate_scores, jres.gate_scores):
             np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("quant,kv", [
+    (dict(bits=8), dict(kv_int8=True)),
+    (dict(bits=4, int4_scheme="rank1"), dict(kv_int4=True)),
+])
+def test_quantized_pipeline_matches_jax(setup, quant, kv):
+    """``rag-run --quantize int8 --kv-int8`` (and rank-1 int4 weights with
+    the int4 KV cache): the probing loop over BM25, all 4 retrieval rounds,
+    gives the JAX pipeline's predictions and retrieval counts on the same
+    quantized tree."""
+    s = setup
+    qtree = jax.tree_util.tree_map(np.asarray, jg.quantize_lm_params(s["jlm"], **quant))
+    store = DocStore.from_texts(CORPUS)
+    kw = dict(retr_method="probing", threshold=1e6, batch_size=2, max_new_tokens=6, **kv)
+    jres = JaxPipeline(to_jax(qtree), s["jcfg"], JaxByteTokenizer(512), JaxBM25Engine(s["jidx"]),
+                       store, s["jprobers"], JaxRAGConfig(**kw)).run(QUESTIONS)
+    engine = RecordingEngine(BM25Engine(s["tidx"], device="cpu"))
+    tres = AdaptiveRAGPipeline(lm_params_from_jax(qtree, s["tcfg"], device="cpu"), s["tcfg"],
+                               ByteTokenizer(512), engine, store, s["tprobers"],
+                               RAGConfig(**kw)).run(QUESTIONS)
+    for q in engine.queries:  # retrieval ids are comparable only without ties
+        ids = s["tidx"].encode_query(engine.engine.analyzer(q))
+        top = np.sort(s["tidx"].score_all(ids))[::-1][:5]
+        top = top[top > 0]
+        assert (np.abs(np.diff(top)) > 1e-4).all(), (q, top)
+    assert tres.pred_list == jres.pred_list
+    assert tres.retr_count_list == jres.retr_count_list == [3] * len(QUESTIONS)
+    for a, b in zip(tres.gate_scores, jres.gate_scores):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-4)
 
 
 def jax_encoder(params, cfg):
@@ -145,7 +176,8 @@ def encoders():
     jcfg = dataclasses.replace(je.EncoderConfig.tiny(), compute_dtype=jnp.float32)
     tcfg = dataclasses.replace(te.EncoderConfig.tiny(), compute_dtype=torch.float32)
     params = jax.tree_util.tree_map(np.asarray, je.init_encoder_params(jcfg, jax.random.PRNGKey(0)))
-    tenc = te.text_encoder(encoder_params_from_jax(params, tcfg), tcfg, ByteTokenizer(259))
+    tenc = te.text_encoder(encoder_params_from_jax(params, tcfg, device="cpu"), tcfg,
+                           ByteTokenizer(259), device="cpu")
     return jax_encoder(to_jax(params), jcfg), tenc
 
 
@@ -162,11 +194,12 @@ def test_dense_pipeline_matches_jax(setup, encoders, engine):
     np.testing.assert_allclose(tflat.embeddings, jflat.embeddings, rtol=1e-5, atol=1e-5)
     if engine == "flat":
         jeng = jdense.DenseEngine(jflat, jenc, use_pallas=True)
-        teng = tdense.DenseEngine(tflat, tenc)
+        teng = tdense.DenseEngine(tflat, tenc, device="cpu")
     else:
         jeng = jivf.IVFEngine(jivf.IVFDenseIndex.build(jflat.embeddings, nlist=2, block=32),
                               nprobe=2, encode_fn=jenc)
-        teng = tivf.IVFEngine(tivf.IVFDenseIndex.build(tflat.embeddings, nlist=2, block=32),
+        teng = tivf.IVFEngine(tivf.IVFDenseIndex.build(tflat.embeddings, nlist=2, block=32,
+                                                        device="cpu"), device="cpu",
                               nprobe=2, encode_fn=tenc)
     kw = dict(retr_method="probing", threshold=1e6, batch_size=2, max_new_tokens=6)
     jres = JaxPipeline(s["jlm"], s["jcfg"], JaxByteTokenizer(512), jeng, store,
@@ -184,9 +217,10 @@ def test_dense_pipeline_matches_jax(setup, encoders, engine):
 
 def test_unported_knobs_raise(setup):
     s = setup
-    with pytest.raises(NotImplementedError):
-        AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), None, None, None,
-                            RAGConfig(kv_int8=True))
+    for knob in (dict(spec_k=2), dict(split_prefill=True)):
+        with pytest.raises(NotImplementedError):
+            AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), None, None, None,
+                                RAGConfig(**knob))
     pipe = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), None, None, None,
                                RAGConfig(retr_method="bogus"))
     with pytest.raises(ValueError, match="bogus"):
@@ -196,7 +230,8 @@ def test_unported_knobs_raise(setup):
 def test_run_resumable_skips_done_chunks(setup, tmp_path):
     s = setup
     store = DocStore.from_texts(CORPUS)
-    pipe = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), BM25Engine(s["tidx"]),
+    pipe = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512),
+                               BM25Engine(s["tidx"], device="cpu"),
                                store, s["tprobers"],
                                RAGConfig(batch_size=2, max_new_tokens=4, threshold=1e6))
     manifest = tmp_path / "runs.jsonl"
@@ -232,6 +267,13 @@ main(["rag-run", "--device", "cpu", "--dataset", "nq", "--fixture-qa", str(d / "
       "--threshold", "1e6", "--results-dir", str(d / "result")])
 runs = (d / "result" / "runs.jsonl").read_text().splitlines()
 assert json.loads(runs[-1])["retr_counts"] == [3, 3], runs[-1]
+for flags in (["--quantize", "int8", "--kv-int8", "--act-int8-rows", "16"],
+              ["--quantize", "int4", "--int4-scheme", "rank1", "--kv-int4"]):
+    main(["rag-run", "--device", "cpu", "--dataset", "nq", "--fixture-qa", str(d / "qa.json"),
+          "--index", str(d / "idx"), "--max-new-tokens", "6", "--batch-size", "2",
+          "--threshold", "1e6", "--results-dir", str(d / "q_result"), *flags])
+    rec = json.loads((d / "q_result" / "runs.jsonl").read_text().splitlines()[-1])
+    assert rec["retr_counts"] == [3, 3] and rec["config"]["quantize"] == flags[1], rec
 main(["index-build", "--device", "cpu", "--dataset", "nq", "--fixture", str(d / "corpus.txt"),
       "--out", str(d / "dense"), "--dense", "--dense-ivf", "--ivf-nlist", "2"])
 for flags in (["--dense"], ["--dense", "--dense-int8"], ["--dense", "--dense-ivf", "--ivf-nprobe", "2"]):

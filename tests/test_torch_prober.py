@@ -50,12 +50,12 @@ def test_gate_matches_jax(ablation):
     tree = numpy_stack(n, d)
     pooled = (np.random.default_rng(1).standard_normal((n, b, d)) * 20).astype(np.float32)
     j_logits = jgate.prober_ensemble_logits(to_jax(tree), jnp.asarray(pooled))
-    t_logits = tgate.prober_ensemble_logits(probers_from_jax(tree), torch.from_numpy(pooled))
+    t_logits = tgate.prober_ensemble_logits(probers_from_jax(tree, device="cpu"), torch.from_numpy(pooled))
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), rtol=1e-5, atol=1e-5)
     for threshold in (-1e6, -0.3, 0.0, 0.25, 1e6):
         jr, js = jgate.gate_decision(to_jax(tree), jnp.asarray(pooled),
                                      threshold=threshold, ablation=ablation)
-        tr, ts = tgate.gate_decision(probers_from_jax(tree), torch.from_numpy(pooled),
+        tr, ts = tgate.gate_decision(probers_from_jax(tree, device="cpu"), torch.from_numpy(pooled),
                                      threshold=threshold, ablation=ablation)
         js = np.asarray(js)
         assert (np.abs(js[:, 0] + threshold - js[:, 1]) > 1e-3).all()
@@ -68,7 +68,7 @@ def test_prober_stack_layout_matches_jax():
     tc = ProberTrainConfig(layers=(1, 2, 3), positions=("resid_post",))
     jtc = JaxProberTrainConfig(layers=(1, 2, 3), positions=("resid_post",))
     assert tc.sites == jtc.sites
-    t = init_prober_stack(tc, 2048, torch.Generator().manual_seed(0))
+    t = init_prober_stack(tc, 2048, torch.Generator().manual_seed(0), device="cpu")
     import jax
 
     j = jax_init_stack(jtc, 2048, jax.random.PRNGKey(0))
@@ -104,5 +104,5 @@ def test_load_pytree_reads_jax_checkpoint(tmp_path):
     # a loaded stack drives the gate like the JAX arrays do
     pooled = np.random.default_rng(4).standard_normal((2, 3, 8)).astype(np.float32)
     jr, js = jgate.gate_decision(to_jax(tree["probers"]), jnp.asarray(pooled))
-    tr, ts = tgate.gate_decision(probers_from_jax(got["probers"]), torch.from_numpy(pooled))
+    tr, ts = tgate.gate_decision(probers_from_jax(got["probers"], device="cpu"), torch.from_numpy(pooled))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
