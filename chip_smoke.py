@@ -99,7 +99,7 @@ GEMMA_MM = {"wq/wo": (2048, 2048), "wk/wv": (2048, 256), "w_gate/w_up": (2048, 1
 TIED_HEAD = (2048, 256_000)  # (K, N): the [V, D] embedding read transposed
 N_QUANT_QUESTIONS = 8
 
-# H100 SXM data sheet: HBM rate and dense peaks (on-chip-measurement guide)
+# H100 SXM data sheet: HBM rate and dense peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
