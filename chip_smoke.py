@@ -13,15 +13,27 @@ and the script exits non-zero:
 2. build: compiles the CUDA kernels from ``probing_rag_tpu_torch/kernels/
    csrc`` and loads them.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card, on seeded inputs at the shapes the main path gives it, with times.
+   card, on seeded inputs at the shapes the main path gives it, with times:
+   the sort (2 to 8M wide), the bitonic gather and segment top-k on the
+   phase-4 stream, the aligned gather in its plain form on the "dma"
+   mode's commonest bucket of that stream (with the sort against
+   ``torch.sort``), and the over-cap hybrid's kernels on one batch of
+   eight 1,500-token Zipf queries: the E/O gather of the long terms, the
+   weighted assembly of the short tails and the ``k_stop = 1024`` sort of
+   those tails.
 4. BM25 at scale: a seeded Zipf corpus of 100k docs x 60 tokens (50k
    vocabulary), 4096 four-term queries through the kernels, checked
-   against the plain path and against the exact host oracle.
+   against the plain path and against the exact host oracle; then the same
+   queries through ``BM25Engine(mode="dma")``, against the same plain
+   results and the oracle.
 5. main path: the adaptive probing RAG loop at Gemma-2B width (random bf16
    weights from a seed, byte tokenizer, random probers), batch 8, 150 new
-   tokens, gate threshold 1e6 so that all 4 retrieval rounds run; then the
+   tokens, gate threshold 1e6 so that all 4 retrieval rounds run; its later
+   searches route rows over 512K slots to the over-cap hybrid. Then the
    loop's first and last BM25 searches again, kernels against the plain
-   path, at the widths the loop gave them (up to 2M slots per row).
+   path, and the last one through both card routes (the hybrid, and
+   ``max_pad = MAX_SORT_WIDTH``: every row on the bitonic kernels) with
+   their seconds and row widths.
 6. dense kernels vs plain: the flat dense top-k at 500,000 x 768 with 256
    queries (ip and l2 bf16, the int8 rerank pool, int8 x int8), the f32
    coarse quantizer (64 x 4096 x 768, nprobe 32 and 128), the probing
@@ -74,9 +86,13 @@ DOC_LEN = 60
 VOCAB = 50_000
 N_QUERIES = 4096
 K = 5
-# 2M is the width of the over-cap rows the probing loop searches
-SORT_WIDTHS = (2048, 32768, 524288, 1 << 21)
-SORT_ROWS = {2048: 1024, 32768: 64, 524288: 4, 1 << 21: 2}
+# 2M is the width of the over-cap rows the probing loop searches on the
+# bitonic path; 8M the widest row the over-cap hybrid can plan
+SORT_WIDTHS = (2048, 32768, 524288, 1 << 21, 1 << 23)
+SORT_ROWS = {2048: 1024, 32768: 64, 524288: 4, 1 << 21: 2, 1 << 23: 1}
+# phase 3's over-cap batch: queries of Zipf text, like the loop's later
+# searches (whole generations and prompts)
+OVERCAP_QUERIES, OVERCAP_TOKENS = 8, 1500
 
 # phase 6: bench_dense.py's shape, the IVF quantizer's, bench_ivf.py's
 DENSE_N, DENSE_Q, DENSE_D = 500_000, 256, 768
@@ -115,6 +131,8 @@ REPLACES = {
     "dense_topk": "probing_rag_tpu/ops/pallas_dense.py:185",
     "ivf_topk": "probing_rag_tpu/ops/pallas_ivf.py:52",
     "matmul_int8": "probing_rag_tpu/ops/pallas_matmul.py:27",
+    "postings_gather": "probing_rag_tpu/ops/pallas_sparse.py:208",
+    "postings_assemble": "probing_rag_tpu/ops/pallas_sparse.py:389",
 }
 SOURCES = {
     "bm25_gather": f"{REPO_KERNELS}/bm25_gather.cu",
@@ -124,9 +142,12 @@ SOURCES = {
     "dense_topk": f"{REPO_KERNELS}/dense_topk.cu",
     "ivf_topk": f"{REPO_KERNELS}/ivf_topk.cu",
     "matmul_int8": f"{REPO_KERNELS}/matmul_int8.cu",
+    "postings_gather": f"{REPO_KERNELS}/postings_gather.cu",
+    "postings_assemble": f"{REPO_KERNELS}/postings_assemble.cu",
 }
 # the kernels each path must launch
-BM25_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_topk")
+BM25_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_topk",
+                "postings_gather", "postings_assemble")
 DENSE_KERNELS = ("dense_topk", "ivf_topk")
 QUANT_KERNELS = ("matmul_int8",) + BM25_KERNELS
 
@@ -382,6 +403,162 @@ def phase_gather_segment(engine, queries, results: dict) -> None:
                                **bound(doc.numel() * 8 + len(rows) * K * 8, doc.numel(), "f32")}
 
 
+def blockwise_pairs(keys, vals, width: int):
+    """``lexsorted_pairs`` of every ``width`` block of each row."""
+    q, p = keys.shape
+    return lexsorted_pairs(keys.reshape(q * p // width, width), vals.reshape(q * p // width, width))
+
+
+def check_equal(got, ref, what: str) -> float:
+    """A gather's (doc, impact) rows against its plain version's: equal bit
+    for bit. Returns the max abs error (0)."""
+    import torch
+
+    sync()
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError(f"{what}: rows differ from the plain version")
+    return max(float((got[0] - ref[0]).abs().max()), float((got[1] - ref[1]).abs().max()))
+
+
+def phase_dma_gather(dma_engine, queries) -> dict:
+    """The aligned gather's plain form, kernel vs plain, on one chunk of the
+    "dma" mode's commonest bucket of the phase-4 stream, as the engine plans
+    it; then the full sort of those rows against ``torch.sort``. Returns
+    the gather's max abs error."""
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch.ops.sort import sort_pairs, sort_pairs_plain
+    from probing_rag_tpu_torch.ops.sparse import postings_gather, postings_gather_plain
+    from probing_rag_tpu_torch.retrieval.bm25 import trim_to_cap
+
+    eng = dma_engine
+    lens = eng._term_lens
+    a_start = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    totals = [int(lens[np.asarray(q, np.int64)].sum()) for q in queries]
+    pads = np.asarray([eng._bucket_pad(min(t, eng.max_pad), base=4) for t in totals])
+    widths, counts = np.unique(pads, return_counts=True)
+    print("  dma-mode buckets of the query stream: "
+          + ", ".join(f"{w}: {c}" for w, c in zip(widths, counts)))
+    pad = int(widths[np.argmax(counts)])
+    rows = np.nonzero(pads == pad)[0][: eng.q_tile]  # one chunk, as the engine runs it
+    kept = [trim_to_cap(lens, np.asarray(queries[i], np.int64), eng.max_pad)[0] for i in rows]
+    tq = max(max(len(k) for k in kept), 1)
+    starts = np.zeros((len(rows), tq), np.int32)
+    alens = np.zeros((len(rows), tq), np.int32)
+    for r, ids in enumerate(kept):
+        starts[r, : len(ids)] = a_start[ids]
+        alens[r, : len(ids)] = lens[ids]
+    args = (*eng._aligned, torch.from_numpy(starts).to(DEVICE), torch.from_numpy(alens).to(DEVICE))
+    sentinel = eng.index.n_docs
+    got = postings_gather(*args, pad=pad, sentinel=sentinel)
+    err = check_equal(got, postings_gather_plain(*args, pad=pad, block=1024, sentinel=sentinel),
+                      f"postings_gather [{len(rows)}, {pad}]")
+    ms = cuda_ms(lambda: postings_gather(*args, pad=pad, sentinel=sentinel))
+    plain_ms = cuda_ms(lambda: postings_gather_plain(*args, pad=pad, block=1024, sentinel=sentinel))
+    real = int((got[0] != sentinel).sum())
+    b = bound(real * 8 + len(rows) * pad * 8, 0, "f32")
+    print(f"  postings_gather, plain form (dma) [{len(rows)}, {pad}], {real} real postings: "
+          f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms")
+    sk, sv = sort_pairs(*got)
+    rk, rv = sort_pairs_plain(*got)
+    sync()
+    if not (torch.equal(sk, rk) and all(torch.equal(a, c) for a, c in
+                                        zip(lexsorted_pairs(sk, sv), lexsorted_pairs(rk, rv)))):
+        raise AssertionError(f"dma full sort [{len(rows)}, {pad}]: differs from plain")
+    sort_ms = cuda_ms(lambda: sort_pairs(*got))
+    lib_ms = cuda_ms(lambda: torch.sort(got[0], dim=1, stable=True))
+    print(f"  dma full sort [{len(rows)}, {pad}] (k_start 2): equal; bitonic kernel {sort_ms:.4f} ms, "
+          f"torch.sort {lib_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+
+
+def phase_hybrid_kernels(engine, index, results: dict, dma_gather: dict) -> None:
+    """The over-cap hybrid's kernels on one batch of Zipf-text queries, on
+    the first chunk the engine plans with long terms: the E/O gather of the
+    long terms with block weights, the weighted assembly of the short
+    tails, the ``k_stop = 1024`` sort of the tails; each against its plain
+    version. Then the chunk's full sort and segment top-k times."""
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch.ops.sort import sort_pairs, sort_pairs_plain
+    from probing_rag_tpu_torch.ops.sparse import (
+        postings_assemble, postings_assemble_plain, postings_gather, postings_gather_plain,
+        segment_topk,
+    )
+    from probing_rag_tpu_torch.retrieval.bm25 import _hybrid_rows, _weight_blocks
+
+    rng = np.random.default_rng(SEED + 3)
+    qs = [index.encode_query([f"t{t}" for t in zipf_tokens(rng, OVERCAP_TOKENS) % VOCAB])
+          for _ in range(OVERCAP_QUERIES)]
+    lists, weights, plan, over = engine._route(qs)
+    if not over.all():
+        raise AssertionError(f"over-cap batch: {int((~over).sum())} rows under max_pad")
+    chunks = engine._fallback_chunks(lists, weights)
+    sel, pad_big, pad_short, desc = next(c for c in chunks if c[1] > 0)
+    print(f"  over-cap batch: {len(qs)} queries of {OVERCAP_TOKENS} Zipf tokens, slot totals "
+          f"{plan[5].min()}-{plan[5].max()}; {engine.last_stats}; hybrid widths "
+          f"{engine.last_widths['hybrid']}")
+    bstarts, blens, bw, ssrc, srlen, sw = (torch.from_numpy(a).to(DEVICE) for a in desc)
+    st = engine._dev_store
+    block = engine._store.block
+    sentinel = index.n_docs
+    m = len(sel)
+    wtblk = torch.from_numpy(_weight_blocks(desc[1], desc[2], pad_big, block)).to(DEVICE)
+    gargs = (st[0], st[1], bstarts, blens, st[2], st[3], wtblk)
+    gkw = dict(pad=pad_big, block=block, sentinel=sentinel)
+    run_gather = lambda: postings_gather(*gargs[:4], doc_o=st[2], imp_o=st[3], wtblk=wtblk, **gkw)  # noqa: E731
+    got = run_gather()
+    err = check_equal(got, postings_gather_plain(*gargs, **gkw), f"postings_gather E/O [{m}, {pad_big}]")
+    ms = cuda_ms(run_gather)
+    plain_ms = cuda_ms(lambda: postings_gather_plain(*gargs, **gkw))
+    real = int((got[0] != sentinel).sum())
+    b = bound(real * 8 + m * pad_big * 8, 0, "f32")
+    print(f"  postings_gather, E/O form with block weights [{m}, {pad_big}], {real} real postings: "
+          f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms")
+    results["postings_gather"] = {"max_abs_err": max(err, dma_gather["max_abs_err"]), "ms": ms,
+                                  "plain_ms": plain_ms, "library_ms": None, **b}
+
+    aargs = (st[4], st[5], ssrc, srlen, sw)
+    akw = dict(pad=pad_short, sentinel=sentinel)
+    tail = postings_assemble(*aargs, **akw)
+    err = check_equal(tail, postings_assemble_plain(*aargs, **akw),
+                      f"postings_assemble [{m}, {pad_short}]")
+    ms = cuda_ms(lambda: postings_assemble(*aargs, **akw))
+    plain_ms = cuda_ms(lambda: postings_assemble_plain(*aargs, **akw))
+    real = int(desc[4].sum())
+    b = bound(real * 8 + m * pad_short * 8, 0, "f32")
+    print(f"  postings_assemble, weighted [{m}, {pad_short}], {real} postings of "
+          f"{int((desc[4] > 0).sum())} short terms: equal; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms")
+    results["postings_assemble"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": None, **b}
+
+    sk, sv = sort_pairs(*tail, k_stop=block)
+    rk, rv = sort_pairs_plain(*tail, k_stop=block)
+    sync()
+    if not (torch.equal(sk, rk) and all(torch.equal(a, c) for a, c in zip(
+            blockwise_pairs(sk, sv, block), blockwise_pairs(rk, rv, block)))):
+        raise AssertionError(f"sort k_stop={block} [{m}, {pad_short}]: blocks differ from plain")
+    ms = cuda_ms(lambda: sort_pairs(*tail, k_stop=block))
+    plain_ms = cuda_ms(lambda: sort_pairs_plain(*tail, k_stop=block))
+    print(f"  sort k_stop={block} [{m}, {pad_short}]: keys equal, pairs equal per block; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    def rows():
+        return _hybrid_rows(st, bstarts, blens, wtblk, ssrc, srlen, sw, pad_big=pad_big,
+                            pad_short=pad_short, sentinel=sentinel, block=block)
+
+    doc, imp, k_start = rows()
+    sd, si = sort_pairs(doc, imp, k_start=k_start)
+    times = {"rows (gather + assemble + k_stop sort)": cuda_ms(rows),
+             f"sort k_start {k_start}": cuda_ms(lambda: sort_pairs(doc, imp, k_start=k_start)),
+             f"segment top-k k={K}": cuda_ms(lambda: segment_topk(sd, si, k=K, sentinel=sentinel))}
+    print(f"  the chunk's hybrid chain [{m}, {pad_big}]: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+
+
 def assert_same_topk(res, ref, what: str) -> None:
     """``res`` (k per query) against the plain path's ``ref`` (k + 1 per
     query): scores allclose, since the kernels sum in another order; doc ids
@@ -399,24 +576,12 @@ def assert_same_topk(res, ref, what: str) -> None:
         raise AssertionError(f"{what}: {bad} ids differ from the plain path where scores are distinct")
 
 
-def phase_bm25(engine, cpu_engine, index, queries, rng) -> None:
+def recall_at_10(engine, index, queries, sample) -> float:
+    """Score-threshold recall@10 of ``engine`` against the exact host oracle
+    (bench.py) on the ``sample`` queries."""
     import numpy as np
 
-    t0 = time.time()
-    res = engine.search_term_ids(queries, k=K)
-    sync()
-    dt = time.time() - t0
-    t0 = time.time()
-    res = engine.search_term_ids(queries, k=K)
-    sync()
-    dt2 = time.time() - t0
-    print(f"  {len(queries)} queries: {dt:.3f}s first pass, {dt2:.3f}s second "
-          f"({len(queries) / dt2:.0f} q/s end to end); {engine.last_stats}")
-    assert_same_topk(res, cpu_engine.search_term_ids(queries, k=K + 1), "phase-4 queries")
-    print(f"  equal to the plain path (CPU) on all {len(queries)} queries")
-    # score-threshold recall@10 against the exact host oracle (bench.py)
     rk = 10
-    sample = rng.choice(len(queries), size=64, replace=False)
     res10 = engine.search_term_ids([queries[i] for i in sample], k=rk)
     recalls = []
     for row, qi in enumerate(sample):
@@ -428,10 +593,54 @@ def phase_bm25(engine, cpu_engine, index, queries, rng) -> None:
         d = res10.doc_indices[row]
         hits = int((oracle[d[d >= 0]] >= thresh - 1e-3).sum())
         recalls.append(min(hits, denom) / denom)
-    recall = float(np.mean(recalls)) if recalls else 1.0
+    return float(np.mean(recalls)) if recalls else 1.0
+
+
+def phase_bm25(engine, dma_engine, cpu_engine, index, queries, rng) -> None:
+    from probing_rag_tpu_torch import kernels
+
+    t0 = time.time()
+    res = engine.search_term_ids(queries, k=K)
+    sync()
+    dt = time.time() - t0
+    t0 = time.time()
+    res = engine.search_term_ids(queries, k=K)
+    sync()
+    dt2 = time.time() - t0
+    print(f"  {len(queries)} queries: {dt:.3f}s first pass, {dt2:.3f}s second "
+          f"({len(queries) / dt2:.0f} q/s end to end); {engine.last_stats}")
+    ref = cpu_engine.search_term_ids(queries, k=K + 1)
+    assert_same_topk(res, ref, "phase-4 queries")
+    print(f"  equal to the plain path (CPU) on all {len(queries)} queries")
+    sample = rng.choice(len(queries), size=64, replace=False)
+    recall = recall_at_10(engine, index, queries, sample)
     print(f"  recall@10 vs oracle on 64 sampled queries: {recall}")
     if recall != 1.0:
         raise AssertionError(f"recall@10 {recall} != 1.0")
+
+    # the same queries through the "dma" mode, with its own launch counts
+    kernels.reset_launches()
+    sync()
+    t0 = time.time()
+    res = dma_engine.search_term_ids(queries, k=K)
+    sync()
+    dt = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    res = dma_engine.search_term_ids(queries, k=K)
+    sync()
+    dt2 = time.time() - t0
+    print(f"  dma mode, {len(queries)} queries: {dt:.3f}s first pass, {dt2:.3f}s second "
+          f"({len(queries) / dt2:.0f} q/s end to end); {dma_engine.last_stats}; row widths "
+          f"{dma_engine.last_widths['dma']}; kernel launches (first pass) {launches}")
+    if launches["postings_gather"] == 0 or launches["bm25_gather"] or launches["postings_assemble"]:
+        raise AssertionError(f"dma mode launched {launches}")
+    assert_same_topk(res, ref, "phase-4 queries, dma mode")
+    recall = recall_at_10(dma_engine, index, queries, sample)
+    print(f"  dma mode: equal to the plain path (CPU) on all {len(queries)} queries; recall@10 "
+          f"vs oracle on the 64 sampled queries: {recall}")
+    if recall != 1.0:
+        raise AssertionError(f"dma mode recall@10 {recall} != 1.0")
 
 
 def phase_lm_reference() -> float:
@@ -466,6 +675,7 @@ class TimedRetriever:
         self.engine = engine
         self.seconds = 0.0
         self.calls = []
+        self.stats = []
 
     def search(self, queries, k=5):
         sync()
@@ -474,6 +684,7 @@ class TimedRetriever:
         sync()
         self.seconds += time.time() - t0
         self.calls.append(list(queries))
+        self.stats.append(dict(getattr(self.engine, "last_stats", {})))
         return res
 
 
@@ -500,6 +711,7 @@ def phase_main_path(index, docs_tokens, cpu_engine):
     from probing_rag_tpu_torch.models.decode import StopTables, generate
     from probing_rag_tpu_torch.models.gemma import GemmaConfig, init_params
     from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.ops.sort import MAX_SORT_WIDTH
     from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
     from probing_rag_tpu_torch.prober.train import ProberTrainConfig, init_prober_stack
     from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
@@ -559,18 +771,42 @@ def phase_main_path(index, docs_tokens, cpu_engine):
         if s is None or s.shape != (2,) or not np.isfinite(s).all() \
                 or abs(float(s.sum()) - len(tc.sites)) > 1e-3:
             raise AssertionError(f"gate scores {s} are not {len(tc.sites)} softmax sums")
+    print(f"  each search's stats: {retriever.stats}")
+    if not any(st["n_fallback"] > 0 for st in retriever.stats[1:]):
+        raise AssertionError("no later search of the loop routed a row to the over-cap hybrid")
     missing = [n for n in BM25_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the BM25 path: {missing}")
 
     # the loop's first search (the questions) and last one (whole
     # generations, over-cap rows) again: kernels against the plain path
+    refs = {}
     for label, queries in (("first", retriever.calls[0]), ("last", retriever.calls[-1])):
         res = engine.search(queries, k=K)
         stats = engine.last_stats
-        assert_same_topk(res, cpu_engine.search(queries, k=K + 1), f"{label} loop search")
+        refs[label] = cpu_engine.search(queries, k=K + 1)
+        assert_same_topk(res, refs[label], f"{label} loop search")
         print(f"  {label} loop search again ({len(queries)} queries, {stats}): "
               f"equal to the plain path (CPU)")
+    # the last search through both card routes: the default (rows over 512K
+    # slots on the hybrid) and every row on the bitonic kernels
+    single = BM25Engine(index, device=DEVICE, max_pad=MAX_SORT_WIDTH)
+    last = retriever.calls[-1]
+    routes = (("hybrid", engine), ("single path", single))
+    secs = {name: [] for name, _ in routes}
+    for name, eng in routes:
+        assert_same_topk(eng.search(last, k=K), refs["last"], f"last loop search, {name}")
+        print(f"  last search, {name} route: equal to the CPU; {eng.last_stats}; row widths "
+              f"{eng.last_widths}")
+    for name, eng in routes + routes[::-1]:
+        sync()
+        t0 = time.time()
+        eng.search(last, k=K)
+        sync()
+        secs[name].append(time.time() - t0)
+    print("  last search seconds (two runs each, in turns): "
+          + "; ".join(f"{n} {', '.join(f'{t:.4f}' for t in ts)}" for n, ts in secs.items()))
+    del single
 
     # decode rate at batch 8 on a retrieval-round prompt, stops off so all
     # 150 tokens are generated; the 1-token call times the prefill
@@ -1246,12 +1482,23 @@ def main() -> int:
         print(f"  Zipf index: {index.n_docs} docs, {index.nnz} postings, "
               f"built in {time.time() - t0:.1f}s")
         engine = BM25Engine(index, device=DEVICE)
+        sync()
+        before = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+        dma_engine = BM25Engine(index, device=DEVICE, mode="dma")
+        sync()
+        dma_bytes = sum(a.numel() * a.element_size() for a in dma_engine._aligned)
+        print(f"  dma-mode aligned CSR: {dma_engine._aligned[0].numel()} entries for "
+              f"{index.nnz} postings, {dma_bytes / 2**30:.3f} GiB "
+              f"({((torch.cuda.memory_allocated() if DEVICE == 'cuda' else 0) - before) / 2**30:.3f}"
+              f" GiB allocated by the engine)")
         phase_sort(results)
         phase_gather_segment(engine, queries, results)
+        dma_gather = phase_dma_gather(dma_engine, queries)
+        phase_hybrid_kernels(engine, index, results, dma_gather)
     with Phase("4 BM25 at scale"):
         cpu_engine = BM25Engine(index, device="cpu")
-        phase_bm25(engine, cpu_engine, index, queries, rng)
-        del engine
+        phase_bm25(engine, dma_engine, cpu_engine, index, queries, rng)
+        del engine, dma_engine
     with Phase("5 main path"):
         launches, lm, questions = phase_main_path(index, docs_tokens, cpu_engine)
     del cpu_engine, queries

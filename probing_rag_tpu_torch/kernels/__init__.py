@@ -43,6 +43,8 @@ LAUNCHES: Dict[str, int] = {
     "dense_topk": 0,
     "ivf_topk": 0,
     "matmul_int8": 0,
+    "postings_gather": 0,
+    "postings_assemble": 0,
 }
 
 _P = ctypes.c_void_p
@@ -50,11 +52,15 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "bm25_gather": [_P] * 15 + [_I, _I, _LL, _I, _I, _P, _P, _P],
-    "bitonic_sort_pairs": [_P, _P, _P, _P, _I, _LL, _LL, _P],
+    # keys in, values in, keys out, values out, q, p, row strides in and
+    # out, k_start, k_stop, stream
+    "bitonic_sort_pairs": [_P] * 4 + [_I] + [_LL] * 5 + [_P],
     "segment_topk": [_P, _P, _I, _LL, _I, _I, _P, _P, _P],
     "dense_topk": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _I] + [_P] * 5,
     "ivf_topk": [_P] * 6 + [_I] * 9 + [_P] * 5,
     "matmul_int8": [_P] * 5 + [_I, _I, _LL, _I, _I, _I, _I, _P],
+    "postings_gather": [_P] * 7 + [_I, _I, _LL, _I, _I, _P, _P, _P],
+    "postings_assemble": [_P] * 5 + [_I, _I, _LL, _LL, _I, _P, _P, _P],
 }
 
 

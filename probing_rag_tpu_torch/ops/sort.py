@@ -4,33 +4,59 @@ plain PyTorch version.
 Port of ``probing_rag_tpu/ops/pallas_sort.py`` (``sort_pairs_pallas`` and
 ``sort_pairs_pallas_wide``): one CUDA network
 (``kernels/csrc/bitonic_sort.cu``) covers every power-of-two width from 2
-to 2M. Keys come out ascending and every (key, value) pair is preserved;
-the order of values within one key is free.
+to ``MAX_SORT_WIDTH``. Keys come out ascending and every (key, value) pair
+is preserved; the order of values within one key is free.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from probing_rag_tpu_torch import kernels
 
-MAX_SORT_WIDTH = 1 << 21
+# The widest row the BM25 engine sorts. Its over-cap hybrid keeps at most
+# 2^20 real postings a row (retrieval/bm25.py FALLBACK_MAX_PAD); a long
+# term has at least 256 of them (the store's min_len) and takes a whole
+# number of 1024-blocks, so at most 4x its postings in slots: at most 2^22
+# long-term slots, plus the short tail's reserved slack, in a power of two.
+MAX_SORT_WIDTH = 1 << 23
 # rows wider than this are the TPU's "wide" sort (_bitonic_wide_kernel);
 # the launch counts keep the two apart
 NARROW_SORT_MAX = 1 << 15
 
 
 def sort_pairs_plain(
-    keys: torch.Tensor, vals: torch.Tensor
+    keys: torch.Tensor, vals: torch.Tensor, *, k_start: int = 2,
+    k_stop: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: stable ``torch.sort`` of the keys, values gathered."""
-    out_k, idx = torch.sort(keys, dim=1, stable=True)
-    return out_k, torch.gather(vals, 1, idx)
+    """Plain version: stable ``torch.sort`` of the keys, values gathered.
+    With ``k_stop`` below the row width, each aligned ``k_stop`` block is
+    sorted on its own, descending at odd block index (the state the
+    network leaves after stage ``k_stop``). Like the network, it returns
+    the rows unchanged when ``k_start`` is past ``min(k_stop, P)``."""
+    q, p = keys.shape
+    k_last = p if k_stop is None else min(p, k_stop)
+    if k_start > k_last:
+        return keys.clone(), vals.clone()
+    if k_last == p:
+        out_k, idx = torch.sort(keys, dim=1, stable=True)
+        return out_k, torch.gather(vals, 1, idx)
+    nb = p // k_last
+    out_k, idx = torch.sort(keys.reshape(q, nb, k_last), dim=2, stable=True)
+    out_v = torch.gather(vals.reshape(q, nb, k_last), 2, idx)
+    out_k[:, 1::2] = out_k[:, 1::2].flip(2)
+    out_v[:, 1::2] = out_v[:, 1::2].flip(2)
+    return out_k.reshape(q, p), out_v.reshape(q, p)
 
 
-def _check(keys: torch.Tensor, vals: torch.Tensor, k_start: int) -> None:
+def _pow2(name: str, v: int) -> None:
+    if v < 2 or v & (v - 1):
+        raise ValueError(f"{name} must be a power of two >= 2, got {v}")
+
+
+def _check(keys, vals, k_start: int, k_stop: Optional[int], out) -> None:
     if keys.dtype != torch.int32 or vals.dtype != torch.float32:
         raise TypeError(f"need int32 keys and f32 values, got {keys.dtype}, {vals.dtype}")
     if keys.dim() != 2 or keys.shape != vals.shape:
@@ -40,8 +66,21 @@ def _check(keys: torch.Tensor, vals: torch.Tensor, k_start: int) -> None:
     p = keys.shape[1]
     if p < 2 or p & (p - 1) or p > MAX_SORT_WIDTH:
         raise ValueError(f"row width must be a power of two in [2, {MAX_SORT_WIDTH}], got {p}")
-    if k_start < 2 or k_start & (k_start - 1):
-        raise ValueError(f"k_start must be a power of two >= 2, got {k_start}")
+    _pow2("k_start", k_start)
+    if k_stop is not None:
+        _pow2("k_stop", k_stop)
+    if out is not None:
+        ok, ov = out
+        if (ok.dtype, ov.dtype) != (keys.dtype, vals.dtype) or ok.shape != keys.shape \
+                or ov.shape != keys.shape or ok.device != keys.device or ov.device != keys.device:
+            raise ValueError("out must be (int32, f32) rows of the inputs' shape and device")
+
+
+def _row_stride(a: torch.Tensor, b: torch.Tensor, what: str) -> int:
+    """The common row stride of two [Q, P] views whose rows are contiguous."""
+    if a.stride(1) != 1 or b.stride(1) != 1 or a.stride(0) != b.stride(0):
+        raise ValueError(f"sort_pairs needs {what} with contiguous rows and one row stride")
+    return a.stride(0)
 
 
 def sort_pairs(
@@ -49,6 +88,8 @@ def sort_pairs(
     vals: torch.Tensor,  # [Q, P] f32
     *,
     k_start: int = 2,
+    k_stop: Optional[int] = None,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise ascending sort of (key, value) pairs.
 
@@ -57,25 +98,44 @@ def sort_pairs(
     sorted, ascending at even block index and descending at odd (the BM25
     gather produces exactly this with ``k_start = 2 * block``).
 
+    ``k_stop`` ends the network after stage ``k_stop``: every aligned
+    ``k_stop``-wide block comes out sorted, ascending at even block index
+    and descending at odd, which establishes ``k_start = 2 * k_stop`` for a
+    later, wider sort. Rows come back unchanged when ``k_start`` is past
+    ``min(k_stop, P)``, as in the Pallas network.
+
+    ``out`` (two [Q, P] views) receives the result and is returned; it may
+    be the inputs themselves, to sort in place, and its rows may lie in a
+    wider buffer (any row stride, contiguous rows). The BM25 over-cap
+    hybrid sorts its short tail this way inside the full row's slack.
+
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    _check(keys, vals, k_start)
+    _check(keys, vals, k_start, k_stop, out)
     if keys.device.type == "cpu":
-        return sort_pairs_plain(keys, vals)
+        got = sort_pairs_plain(keys, vals, k_start=k_start, k_stop=k_stop)
+        if out is None:
+            return got
+        out[0].copy_(got[0])
+        out[1].copy_(got[1])
+        return out
     if keys.device.type != "cuda":
         raise ValueError(f"no sort for device {keys.device}")
-    if not (keys.is_contiguous() and vals.is_contiguous()):
-        raise ValueError("sort_pairs needs contiguous rows")
+    ld_in = _row_stride(keys, vals, "keys and values")
+    out_k, out_v = out if out is not None else (torch.empty_like(keys), torch.empty_like(vals))
+    ld_out = _row_stride(out_k, out_v, "out")
     q, p = keys.shape
-    if k_start > p or q == 0:
-        return keys.clone(), vals.clone()
-    out_k = torch.empty_like(keys)
-    out_v = torch.empty_like(vals)
+    k_last = p if k_stop is None else min(p, k_stop)
+    if k_start > k_last or q == 0:
+        if out_k.data_ptr() != keys.data_ptr():
+            out_k.copy_(keys)
+            out_v.copy_(vals)
+        return out_k, out_v
     lib = kernels.library()
     with torch.cuda.device(keys.device):
         kernels.check(
             lib.bitonic_sort_pairs(
                 keys.data_ptr(), vals.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
-                q, p, k_start, kernels.stream_ptr(keys.device),
+                q, p, ld_in, ld_out, k_start, k_last, kernels.stream_ptr(keys.device),
             ),
             "bitonic_sort_pairs",
         )

@@ -1,10 +1,14 @@
-"""BM25 search over the bitonic postings store: gather -> sort -> segment
-top-k, each a CUDA kernel with its plain PyTorch version beside it.
+"""BM25 search kernels: the gathers that build query rows of postings, the
+segment top-k over sorted rows, and the chains of gather -> sort ->
+segment top-k. Each kernel has its plain PyTorch version beside it.
 
-Port of ``probing_rag_tpu/ops/pallas_sparse.py::bm25_search_bitonic`` and
+Port of ``probing_rag_tpu/ops/pallas_sparse.py``: ``bm25_search_bitonic``
+(``bm25_gather``), ``postings_gather_pallas`` (``postings_gather``),
+``postings_assemble_pallas`` (``postings_assemble``),
 ``segment_topk_pallas`` (with ``ops/sparse.py::sorted_segment_topk``'s
-contract). The wrappers take the plain version for CPU tensors and launch
-the kernel for CUDA tensors; there is no other switch.
+contract) and ``bm25_search_padded_fused``. The wrappers take the plain
+version for CPU tensors and launch the kernel for CUDA tensors; there is no
+other switch.
 """
 
 from __future__ import annotations
@@ -137,6 +141,226 @@ def bm25_gather(
     return out_doc, out_imp
 
 
+# ------------------------------------------------- aligned postings gather
+
+
+def _check_1d(arrays, dev, what: str) -> None:
+    for i, a in enumerate(arrays):
+        want = torch.int32 if i % 2 == 0 else torch.float32
+        if a.dtype != want or a.dim() != 1 or a.device != dev:
+            raise ValueError(f"{what} array {i}: need 1-D {want} on {dev}, got {a.dtype} "
+                             f"{tuple(a.shape)} on {a.device}")
+
+
+def _check_desc(desc, dev) -> Tuple[int, int]:
+    shape = desc[0].shape
+    for a in desc:
+        if a.dtype != torch.int32 or a.dim() != 2 or a.shape != shape or a.device != dev:
+            raise ValueError(f"descriptors: need [Q, TQ] int32 on {dev}, got {a.dtype} "
+                             f"{tuple(a.shape)} on {a.device}")
+    return shape
+
+
+def _check_cuda_arrays(arrays, name: str) -> None:
+    """The CUDA kernels read whole rows of contiguous arrays."""
+    if not all(a.is_contiguous() for a in arrays):
+        raise ValueError(f"{name} needs contiguous arrays")
+
+
+def postings_gather_plain(
+    doc_e, imp_e, starts, lens, doc_o=None, imp_o=None, wtblk=None,
+    *, pad: int, block: int, sentinel: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the aligned gather by torch indexing: each output
+    block's owning term by ``searchsorted`` over the row's inclusive prefix
+    of lengths, then that block of the term's slice (from O when the term
+    starts at an odd output block and O is given)."""
+    q, tq = starts.shape
+    dev = starts.device
+    nblk = pad // block
+    lens64 = lens.long()
+    end = torch.cumsum(lens64, dim=1)
+    b0 = (torch.arange(nblk, device=dev) * block).expand(q, nblk).contiguous()
+    if tq == 0:
+        return (torch.full((q, pad), sentinel, dtype=torch.int32, device=dev),
+                torch.zeros((q, pad), dtype=torch.float32, device=dev))
+    t = torch.searchsorted(end.contiguous(), b0, right=True)
+    valid = (t < tq)[..., None]  # [Q, nblk, 1]
+    t = t.clamp(max=tq - 1)
+    cum = torch.gather(end - lens64, 1, t)
+    first = torch.gather(starts.long(), 1, t) + (b0 - cum)
+    idx = first[..., None] + torch.arange(block, device=dev)
+    idx = torch.where(valid, idx, 0).clamp(0, doc_e.numel() - 1)
+    doc, imp = doc_e[idx], imp_e[idx]
+    if doc_o is not None:
+        odd = ((cum // block) % 2 == 1)[..., None]
+        doc = torch.where(odd, doc_o[idx], doc)
+        imp = torch.where(odd, imp_o[idx], imp)
+    doc = torch.where(valid, doc, sentinel).to(torch.int32)
+    imp = torch.where(valid, imp, 0.0)
+    if wtblk is not None:
+        imp = imp * wtblk[..., None]
+    return doc.reshape(q, pad), imp.reshape(q, pad).to(torch.float32)
+
+
+def postings_gather(
+    doc_e: torch.Tensor,  # [N] int32 postings (aligned CSR, or the store's E copy)
+    imp_e: torch.Tensor,  # [N] f32
+    starts: torch.Tensor,  # [Q, TQ] int32 slice starts, multiples of block
+    lens: torch.Tensor,  # [Q, TQ] int32 slice lengths, multiples of block (0 masked)
+    *,
+    pad: int,
+    sentinel: int,
+    block: int = 1024,
+    doc_o: Optional[torch.Tensor] = None,  # [N] int32: the store's O copy
+    imp_o: Optional[torch.Tensor] = None,
+    wtblk: Optional[torch.Tensor] = None,  # [Q, pad // block] f32 block weights
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Concatenate each query's term slices ``[start, start + len)`` into a
+    [Q, pad] (doc int32, impact f32) row: the contract of
+    ``postings_gather_pallas``. A term past ``pad`` is cut; slots past the
+    row total hold (sentinel, 0). With the O copy given, each term reads
+    from O when its slice starts at an odd output block and from E
+    otherwise, so over the block-alternated store every block comes out
+    sorted, ascending at even block index and descending at odd. ``wtblk``
+    scales each output block's impacts (the hybrid's dedup weights)."""
+    dev = starts.device
+    arrays = (doc_e, imp_e) + ((doc_o, imp_o) if doc_o is not None else ())
+    _check_1d(arrays, dev, "postings")
+    if (doc_o is None) != (imp_o is None) or (doc_o is not None and doc_o.numel() != doc_e.numel()):
+        raise ValueError("the O copy needs both arrays, as long as the E copy")
+    q, tq = _check_desc((starts, lens), dev)
+    if pad < block or pad % block:
+        raise ValueError(f"pad ({pad}) must be a multiple of block ({block})")
+    if wtblk is not None and (
+        wtblk.dtype != torch.float32 or wtblk.shape != (q, pad // block) or wtblk.device != dev
+    ):
+        raise ValueError(f"wtblk: need [{q}, {pad // block}] f32 on {dev}")
+    if dev.type == "cpu":
+        return postings_gather_plain(doc_e, imp_e, starts, lens, doc_o, imp_o, wtblk,
+                                     pad=pad, block=block, sentinel=sentinel)
+    if dev.type != "cuda":
+        raise ValueError(f"no postings gather for device {dev}")
+    _check_cuda_arrays(arrays + (starts, lens) + ((wtblk,) if wtblk is not None else ()),
+                       "postings_gather")
+    if block % 4 or any(a.data_ptr() % 16 for a in arrays):
+        raise ValueError("postings_gather reads 16-byte vectors: block must be a multiple "
+                         "of 4 and the postings arrays 16-byte aligned")
+    out_doc = torch.empty((q, pad), dtype=torch.int32, device=dev)
+    out_imp = torch.empty((q, pad), dtype=torch.float32, device=dev)
+    if q == 0:
+        return out_doc, out_imp
+    ends = torch.cumsum(lens, dim=1, dtype=torch.int64)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        kernels.check(
+            lib.postings_gather(
+                doc_e.data_ptr(), imp_e.data_ptr(),
+                doc_o.data_ptr() if doc_o is not None else None,
+                imp_o.data_ptr() if imp_o is not None else None,
+                starts.data_ptr(), ends.data_ptr(),
+                wtblk.data_ptr() if wtblk is not None else None,
+                q, tq, pad, block, sentinel,
+                out_doc.data_ptr(), out_imp.data_ptr(), kernels.stream_ptr(dev),
+            ),
+            "postings_gather",
+        )
+    kernels.LAUNCHES["postings_gather"] += 1
+    return out_doc, out_imp
+
+
+# ------------------------------------------------- compact short-term assembly
+
+
+def postings_assemble_plain(
+    doc_c, imp_c, src, rlen, wt=None, *, pad: int, sentinel: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the assembly: every posting's (row, column, source)
+    by ``repeat_interleave`` over the lengths, then one scatter."""
+    q, tq = src.shape
+    dev = src.device
+    doc = torch.full((q, pad), sentinel, dtype=torch.int32, device=dev)
+    imp = torch.zeros((q, pad), dtype=torch.float32, device=dev)
+    lens = rlen.long().reshape(-1)
+    n = int(lens.sum())
+    if n == 0:
+        return doc, imp
+    term = torch.repeat_interleave(torch.arange(q * tq, device=dev), lens, output_size=n)
+    rank = torch.arange(n, device=dev) - (torch.cumsum(lens, 0) - lens)[term]
+    col = (torch.cumsum(rlen.long(), 1) - rlen.long()).reshape(-1)[term] + rank
+    row = term // max(tq, 1)
+    s = src.long().reshape(-1)[term] + rank
+    vals = imp_c[s]
+    if wt is not None:
+        vals = vals * wt.reshape(-1)[term]
+    keep = col < pad
+    doc[row[keep], col[keep]] = doc_c[s[keep]]
+    imp[row[keep], col[keep]] = vals[keep]
+    return doc, imp
+
+
+def postings_assemble(
+    doc_c: torch.Tensor,  # [N] int32 compact postings (the store's guarded copy)
+    imp_c: torch.Tensor,  # [N] f32
+    src: torch.Tensor,  # [Q, TQ] int32 compact starts (0 masked)
+    rlen: torch.Tensor,  # [Q, TQ] int32 posting counts (0 masked)
+    wt: Optional[torch.Tensor] = None,  # [Q, TQ] f32 per-term weights
+    *,
+    pad: int,
+    sentinel: int,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack each query's short posting lists back to back into a [Q, pad]
+    (doc int32, impact f32) row, each impact times its term's weight, with
+    (sentinel, 0) past the row total: the contract of
+    ``postings_assemble_pallas`` (weights as f32). ``pad`` is at least the
+    largest row total (a posting past it is cut). ``out`` (two [Q, pad]
+    views with contiguous rows and one row stride, e.g. the last ``pad``
+    columns of a wider buffer) receives the rows and is returned."""
+    dev = src.device
+    _check_1d((doc_c, imp_c), dev, "compact postings")
+    q, tq = _check_desc((src, rlen), dev)
+    if wt is not None and (wt.dtype != torch.float32 or wt.shape != (q, tq) or wt.device != dev):
+        raise ValueError(f"wt: need [{q}, {tq}] f32 on {dev}")
+    if out is not None:
+        od, oi = out
+        if od.dtype != torch.int32 or oi.dtype != torch.float32 or od.shape != (q, pad) \
+                or oi.shape != (q, pad) or od.device != dev or oi.device != dev:
+            raise ValueError(f"out: need [{q}, {pad}] int32 and f32 views on {dev}")
+    if dev.type == "cpu":
+        got = postings_assemble_plain(doc_c, imp_c, src, rlen, wt, pad=pad, sentinel=sentinel)
+        if out is None:
+            return got
+        out[0].copy_(got[0])
+        out[1].copy_(got[1])
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"no postings assembly for device {dev}")
+    _check_cuda_arrays((doc_c, imp_c, src, rlen) + ((wt,) if wt is not None else ()),
+                       "postings_assemble")
+    if out is None:
+        out = (torch.empty((q, pad), dtype=torch.int32, device=dev),
+               torch.empty((q, pad), dtype=torch.float32, device=dev))
+    od, oi = out
+    if od.stride(1) != 1 or oi.stride(1) != 1 or od.stride(0) != oi.stride(0):
+        raise ValueError("postings_assemble writes rows that are contiguous, one stride apart")
+    if q == 0:
+        return out
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        kernels.check(
+            lib.postings_assemble(
+                doc_c.data_ptr(), imp_c.data_ptr(), src.data_ptr(), rlen.data_ptr(),
+                wt.data_ptr() if wt is not None else None,
+                q, tq, pad, od.stride(0), sentinel,
+                od.data_ptr(), oi.data_ptr(), kernels.stream_ptr(dev),
+            ),
+            "postings_assemble",
+        )
+    kernels.LAUNCHES["postings_assemble"] += 1
+    return out
+
+
 # ------------------------------------------------------------ segment top-k
 
 
@@ -222,4 +446,26 @@ def bm25_search_bitonic(
         pad=pad, block=block, sentinel=sentinel,
     )
     doc, imp = sort_pairs(doc, imp, k_start=2 * block)
+    return segment_topk(doc, imp, k=k, sentinel=sentinel)
+
+
+def bm25_search_padded_fused(
+    term_offsets: torch.Tensor,  # [T + 1] int32 aligned offsets (aligned_csr)
+    postings_doc: torch.Tensor,  # [A] int32 aligned postings
+    postings_impact: torch.Tensor,  # [A] f32
+    qterms: torch.Tensor,  # [Q, TQ] int32 term ids (0 where masked)
+    qmask: torch.Tensor,  # [Q, TQ] bool
+    *, pad: int, sentinel: int, k: int, block: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The "dma" engine mode's search over the aligned CSR: gather of each
+    term's aligned slice (padding entries are (sentinel, 0)) -> full sort
+    -> run sums + top-k. ``pad`` is a multiple of ``block`` at least the
+    largest row's aligned total. Returns (scores [Q, k], doc ids [Q, k])."""
+    off = term_offsets.long()
+    qt = qterms.long()
+    lens = torch.where(qmask, off[qt + 1] - off[qt], 0).to(torch.int32)
+    starts = torch.where(qmask, off[qt], 0).to(torch.int32)
+    doc, imp = postings_gather(postings_doc, postings_impact, starts, lens,
+                               pad=pad, sentinel=sentinel, block=block)
+    doc, imp = sort_pairs(doc, imp)
     return segment_topk(doc, imp, k=k, sentinel=sentinel)

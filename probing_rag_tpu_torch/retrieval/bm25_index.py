@@ -1,6 +1,6 @@
 """From-scratch BM25 inverted index: CSR term->posting arrays with
-precomputed per-posting impact scores, and the block-alternated postings
-store the CUDA search kernels read.
+precomputed per-posting impact scores, and the two postings layouts the
+CUDA search kernels read (the block-alternated store and the aligned CSR).
 
 Port of ``probing_rag_tpu/retrieval/bm25_index.py`` (numpy only, same
 on-disk format: an index written by the JAX package's ``index-build`` loads
@@ -222,6 +222,13 @@ class BM25Index:
             doc_ids=list(doc_ids) if doc_ids is not None else [str(i) for i in range(n_docs)],
         )
 
+    # ------------------------------------------------------------ aligned
+    def aligned_csr(self, alignment: int = 1024, guard: int = 4096):
+        return align_csr(
+            self.term_offsets, self.postings_doc, self.postings_impact,
+            sentinel=self.n_docs, alignment=alignment, guard=guard,
+        )
+
     # ------------------------------------------------------------ bitonic
     def bitonic_csr(self, min_len: int = 256, block: int = 1024):
         return build_bitonic_store(
@@ -281,6 +288,47 @@ class BM25Index:
             doc_lens=arrays["doc_lens"],
             doc_ids=json.loads((path / "doc_ids.json").read_text()),
         )
+
+
+def align_csr(
+    term_offsets: np.ndarray,
+    postings_doc: np.ndarray,
+    postings_impact: np.ndarray,
+    *,
+    sentinel: int,
+    alignment: int = 1024,
+    guard: int = 4096,
+):
+    """CSR copy with every posting list padded to an ``alignment`` multiple
+    using (sentinel-doc, 0-impact) entries, plus a ``guard`` tail: the
+    layout of the "dma" engine mode.
+
+    Aligned starts and aligned per-term lengths let the gather copy whole
+    blocks of one term (``ops/sparse.py::postings_gather``). Padding entries
+    sort after every real doc and contribute nothing to run totals. The
+    arrays equal the JAX package's element for element, guard included (the
+    CUDA gather never reads it). Returns (term_offsets int32 [T+1],
+    postings_doc, postings_impact).
+    """
+    n_terms = len(term_offsets) - 1
+    nnz = len(postings_doc)
+    lens = (term_offsets[1:] - term_offsets[:-1]).astype(np.int64)
+    pad_lens = ((lens + alignment - 1) // alignment) * alignment
+    a_offsets = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(pad_lens, out=a_offsets[1:])
+    total = int(a_offsets[-1]) + guard
+    if total >= 2**31:
+        raise ValueError("aligned postings exceed int32 indexing; shard the index")
+    a_doc = np.full(total, sentinel, np.int32)
+    a_imp = np.zeros(total, np.float32)
+    # vectorized scatter: position of each original posting in the aligned
+    # layout = aligned term start + rank within its term
+    term_of_posting = np.repeat(np.arange(n_terms), lens)
+    rank = np.arange(nnz) - np.repeat(term_offsets[:-1].astype(np.int64), lens)
+    pos = a_offsets[term_of_posting] + rank
+    a_doc[pos] = postings_doc
+    a_imp[pos] = postings_impact
+    return a_offsets.astype(np.int32), a_doc, a_imp
 
 
 @dataclass

@@ -139,21 +139,25 @@ def test_overcap_duplicate_and_oov_queries(indexes, monkeypatch):
     qids = [overcap, dup, np.asarray([light], np.int32)]
     eng = tbm25.BM25Engine(idx, device="cpu")
     res = eng.search_term_ids(qids, k=5)
-    assert eng.last_stats == {"n_queries": 3, "n_trimmed": 0}
+    assert eng.last_stats == {"n_queries": 3, "n_fallback": 0, "n_trimmed": 0}
     assert_matches_oracle(idx, qids, res, atol=1e-3)
-    # JAX routes the two rows over its 2048-slot cap to its exact fallback;
-    # the port searches every row through the one bitonic path
+    # under a 2048-slot cap both engines route the same two rows to their
+    # over-cap hybrid
     jeng = jbm25.BM25Engine(jidx, mode="bitonic", interpret=True, max_pad=2048)
     jres = jeng.search_term_ids(qids, k=5)
     assert jeng.last_stats["n_fallback"] == 2
     assert_same_results(res, jres)
+    eng = tbm25.BM25Engine(idx, device="cpu", max_pad=2048)
+    hres = eng.search_term_ids(qids, k=5)
+    assert eng.last_stats == jeng.last_stats == {"n_queries": 3, "n_fallback": 2, "n_trimmed": 0}
+    assert_same_results(hres, jres)
     jres = jbm25.BM25Engine(jidx, mode="xla").search_term_ids(qids, k=5)
     assert_same_results(res, jres)
     # a trimmed query keeps its most selective terms, as JAX does
     monkeypatch.setattr(tbm25, "FALLBACK_MAX_PAD", int(lens[heavy[0]]))
     eng = tbm25.BM25Engine(idx, device="cpu")
     res = eng.search_term_ids([overcap], k=5)
-    assert eng.last_stats == {"n_queries": 1, "n_trimmed": 1}
+    assert eng.last_stats == {"n_queries": 1, "n_fallback": 0, "n_trimmed": 1}
     kept, *_ = jbm25.trim_to_cap(lens.astype(np.int64), overcap.astype(np.int64),
                                  int(lens[heavy[0]]))
     assert_matches_oracle(idx, [kept], res, atol=1e-3)
