@@ -14,13 +14,17 @@ and the script exits non-zero:
    csrc`` and loads them.
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, on seeded inputs at the shapes the main path gives it, with times:
-   the sort (2 to 8M wide), the bitonic gather and segment top-k on the
-   phase-4 stream, the aligned gather in its plain form on the "dma"
-   mode's commonest bucket of that stream (with the sort against
-   ``torch.sort``), and the over-cap hybrid's kernels on one batch of
-   eight 1,500-token Zipf queries: the E/O gather of the long terms, the
-   weighted assembly of the short tails and the ``k_stop = 1024`` sort of
-   those tails.
+   the sort (2 to 8M wide, from k_start 2 and 2048, keys from 2^20 and
+   from 64 values; the schedule's rarer plans, in place and strided; its
+   passes timed one by one), the bitonic gather and segment top-k on the
+   phase-4 stream (and on rows whose runs cross every chunk boundary, with
+   equal scores in different chunks), the aligned
+   gather in its plain form on the "dma" mode's commonest bucket of that
+   stream (with the sort against ``torch.sort``), and the over-cap
+   hybrid's kernels on one batch of eight 1,500-token Zipf queries: the
+   E/O gather of the long terms, the weighted assembly of the short tails
+   and the ``k_stop = 1024`` sort of those tails, then the chain's sort
+   and segment top-k on the assembled rows, with their bounds.
 4. BM25 at scale: a seeded Zipf corpus of 100k docs x 60 tokens (50k
    vocabulary), 4096 four-term queries through the kernels, checked
    against the plain path and against the exact host oracle; then the same
@@ -90,6 +94,15 @@ K = 5
 # bitonic path; 8M the widest row the over-cap hybrid can plan
 SORT_WIDTHS = (2048, 32768, 524288, 1 << 21, 1 << 23)
 SORT_ROWS = {2048: 1024, 32768: 64, 524288: 4, 1 << 21: 2, 1 << 23: 1}
+# the sort's rarer plans (k_start past the tile, k_stop past it, in place,
+# strided) at this width; its passes timed one by one on (rows, width,
+# k_start): the main path's narrow sort, the dma mode's full sort, the
+# over-cap chain's sort, the widest row
+SORT_PLAN_WIDTH = 1 << 21
+SORT_PASS_CASES = ((64, 32768, 2048), (256, 16384, 2), (8, 1 << 21, 2048), (1, 1 << 23, 2))
+# the tile pass's stages up to this one are the network's compare-exchange
+# steps, in registers (bitonic_sort.cu kItems); those above, merges
+TILE_NETWORK_MAX = 16
 # phase 3's over-cap batch: queries of Zipf text, like the loop's later
 # searches (whole generations and prompts)
 OVERCAP_QUERIES, OVERCAP_TOKENS = 8, 1500
@@ -263,47 +276,147 @@ def lexsorted_pairs(keys, vals):
     return (s >> 32).to(torch.int32), (s & 0xFFFFFFFF).to(torch.int32)
 
 
-def phase_sort(results: dict) -> None:
+def sort_bound(q: int, p: int, k_start: int, k_last: int) -> dict:
+    """``bound`` of a sort of [q, p] rows from stage ``k_start`` through
+    ``k_last``: each pair read and written once; the operations are the
+    passes' compares (a tile pass's compare-exchanges, one compare a pair
+    for each merge level)."""
+    from probing_rag_tpu_torch.ops.sort import sort_schedule
+
+    ops = 0
+    for s in sort_schedule(p, k_start, k_last):
+        if s.kind == "tile":
+            for k in (1 << b for b in range(s.k_lo.bit_length() - 1, s.k_hi.bit_length())):
+                # the network's steps of stage k, or one merge level
+                ops += q * p // 2 * (k.bit_length() - 1) if k <= TILE_NETWORK_MAX else q * p
+        elif s.kind == "merge":
+            ops += q * p
+    return bound(2 * q * p * 8, ops, "f32")
+
+
+def sort_pass_times(keys, vals, k_start: int) -> str:
+    """Where a sort's time goes: each pass of its schedule alone (ms,
+    launched as the wrapper launches it, on the rows the pass before it
+    left), and a device copy of the same bytes, the floor of one pass."""
     import torch
 
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.ops import sort as sort_mod
+
+    q, p = keys.shape
+    bufs = {"in": (keys, vals, p),
+            "out": (torch.empty_like(keys), torch.empty_like(vals), p),
+            "scratch": (torch.empty_like(keys), torch.empty_like(vals), p)}
+    lib, stream = kernels.library(), kernels.stream_ptr(keys.device)
+    parts = []
+    for s in sort_mod.sort_schedule(p, k_start, p):
+        label = f"tile {s.k_lo}..{s.k_hi}" if s.kind == "tile" else f"merge {s.run}"
+        ms = cuda_ms(lambda s=s: sort_mod.launch_pass(lib, s, bufs, q, p, stream))
+        parts.append(f"{label} {ms:.4f}")
+    dk, dv, _ = bufs["out"]
+    copy_ms = cuda_ms(lambda: (dk.copy_(keys), dv.copy_(vals)))
+    return f"[{q}, {p}] k_start={k_start}: " + ", ".join(parts) + f"; copy {copy_ms:.4f} ms"
+
+
+def check_sorted_pairs(got, ref, what: str, block: int = 0) -> float:
+    """A sort's (keys, values) against the plain version's: keys equal and
+    each row's (key, value) pairs equal as multisets (per ``block`` when
+    given: a ``k_stop`` sort). Returns the max abs error (0)."""
+    import torch
+
+    sync()
+    if not torch.equal(got[0], ref[0]):
+        raise AssertionError(f"{what}: keys differ")
+    pairs = (lambda k, v: blockwise_pairs(k, v, block)) if block else lexsorted_pairs
+    gk, gv = pairs(*got)
+    rk, rv = pairs(*ref)
+    if not (torch.equal(gk, rk) and torch.equal(gv, rv)):
+        raise AssertionError(f"{what}: pairs differ")
+    return max(float((got[0] - ref[0]).abs().max()),
+               float((gv.view(torch.float32) - rv.view(torch.float32)).abs().max()))
+
+
+def phase_sort(results: dict) -> None:
+    """The sort against its plain version at every width from 2K to 8M, from
+    k_start 2 and 2048, with keys from 2^20 values and from 64 (equal runs
+    across tiles and merge windows); from a k_start past the tile; with a
+    k_stop between the tile and the row; in place; into a strided ``out``
+    and from an unaligned strided input. Times against ``torch.sort``, and
+    each pass of the sort's schedule alone."""
+    import torch
+
+    from probing_rag_tpu_torch.ops import sort as sort_mod
     from probing_rag_tpu_torch.ops.sort import sort_pairs, sort_pairs_plain
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def draw(q, p, k_start, key_hi):
+        keys = torch.randint(0, key_hi, (q, p), generator=gen, device=DEVICE, dtype=torch.int32)
+        vals = torch.rand((q, p), generator=gen, device=DEVICE)
+        return alternating_blocks(keys, vals, k_start // 2) if k_start > 2 else (keys, vals)
+
     errs: dict = {}
     for p in SORT_WIDTHS:
         q = SORT_ROWS[p]
         name = "bitonic_sort" if p <= 32768 else "bitonic_sort_wide"
-        for k_start in (2, 2048):
-            keys = torch.randint(0, 1 << 20, (q, p), generator=gen, device=DEVICE, dtype=torch.int32)
-            vals = torch.rand((q, p), generator=gen, device=DEVICE)
-            if k_start > 2:
-                keys, vals = alternating_blocks(keys, vals, k_start // 2)
-            got_k, got_v = sort_pairs(keys, vals, k_start=k_start)
-            ref_k, ref_v = sort_pairs_plain(keys, vals)
-            sync()
-            if not torch.equal(got_k, ref_k):
-                raise AssertionError(f"sort P={p} k_start={k_start}: keys differ")
-            gk, gv = lexsorted_pairs(got_k, got_v)
-            rk, rv = lexsorted_pairs(ref_k, ref_v)
-            if not (torch.equal(gk, rk) and torch.equal(gv, rv)):
-                raise AssertionError(f"sort P={p} k_start={k_start}: pairs differ")
-            err = max(float((got_k - ref_k).abs().max()),
-                      float((gv.view(torch.float32) - rv.view(torch.float32)).abs().max()))
+        for k_start, key_hi in ((2, 1 << 20), (2048, 1 << 20), (2, 64), (2048, 64)):
+            keys, vals = draw(q, p, k_start, key_hi)
+            what = f"sort [{q}, {p}] k_start={k_start} keys<{key_hi}"
+            err = check_sorted_pairs(sort_pairs(keys, vals, k_start=k_start),
+                                     sort_pairs_plain(keys, vals), what)
+            errs[name] = max(errs.get(name, 0.0), err)
+            if key_hi == 64:
+                print(f"  {what}: equal")
+                continue
             ms = cuda_ms(lambda: sort_pairs(keys, vals, k_start=k_start))
             plain_ms = cuda_ms(lambda: sort_pairs_plain(keys, vals))
-            print(f"  sort [{q}, {p}] k_start={k_start}: equal (max abs err {err}); "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            errs[name] = max(errs.get(name, 0.0), err)
-            if k_start == 2048 and p in (32768, 1 << 21):
-                # compare-exchanges of the merges from k_start to p, p/2 a pass
-                passes = sum(range(k_start.bit_length() - 1, p.bit_length()))
+            line = (f"  {what}: equal (max abs err {err}); kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms")
+            if k_start == 2048 and p in (32768, 1 << 21) or p == 1 << 23:
                 lib_ms = cuda_ms(lambda: torch.sort(keys, dim=1, stable=True))
-                results[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                 **bound(2 * q * p * 8, q * p // 2 * passes, "f32")}
-                print(f"    bound {results[name]['bound_ms']:.3f} ms "
-                      f"({results[name]['bound_by']}); torch.sort {lib_ms:.3f} ms")
+                b = sort_bound(q, p, k_start, p)
+                line += (f", bound {b['bound_ms']:.4f} ms ({b['bound_by']}), torch.sort "
+                         f"{lib_ms:.4f} ms")
+                if p == 1 << 23:  # beside the [2, 2M] numbers: the widest row
+                    results[name].update({f"{key}_8m_k_start_{k_start}": x for key, x in (
+                        ("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                        ("bound_ms", b["bound_ms"]))})
+                else:
+                    results[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b}
+            print(line, flush=True)
+
+    # the rarer plans: a k_start past the tile (the first merge reads odd
+    # runs backwards; in place with an odd count of merges, from a copy), a
+    # k_stop between the tile and the row (odd blocks written reversed), in
+    # place, a strided out and an unaligned strided input (4-byte copies)
+    p, q = SORT_PLAN_WIDTH, 2
+    for k_start, k_stop, key_hi in ((65536, None, 1 << 20), (32768, None, 64),
+                                    (2048, 65536, 1 << 20), (2, 1 << 18, 64)):
+        keys, vals = draw(q, p, k_start, key_hi)
+        ref = sort_pairs_plain(keys, vals, k_start=k_start, k_stop=k_stop)
+        blk = k_stop or 0
+        what = f"sort [{q}, {p}] k_start={k_start} k_stop={k_stop} keys<{key_hi}"
+        errs["bitonic_sort_wide"] = max(errs["bitonic_sort_wide"], check_sorted_pairs(
+            sort_pairs(keys, vals, k_start=k_start, k_stop=k_stop), ref, what, blk))
+        ik, iv = keys.clone(), vals.clone()
+        sort_pairs(ik, iv, k_start=k_start, k_stop=k_stop, out=(ik, iv))
+        check_sorted_pairs((ik, iv), ref, f"{what}, in place", blk)
+        wide_k = torch.zeros((q, 2 * p + 4), dtype=torch.int32, device=DEVICE)
+        wide_v = torch.zeros((q, 2 * p + 4), device=DEVICE)
+        wide_k[:, 1:p + 1], wide_v[:, 1:p + 1] = keys, vals
+        out = (wide_k[:, p + 4:], wide_v[:, p + 4:])
+        sort_pairs(wide_k[:, 1:p + 1], wide_v[:, 1:p + 1], k_start=k_start, k_stop=k_stop,
+                   out=out)
+        check_sorted_pairs(out, ref, f"{what}, unaligned strided input, strided out", blk)
+        print(f"  {what}: equal; in place and strided equal "
+              f"({len(sort_mod.sort_schedule(p, k_start, k_stop or p, in_place=True))} "
+              f"passes in place)")
     for name, err in errs.items():  # the largest over every width of the name
         results[name]["max_abs_err"] = err
+
+    for q, p, k_start in SORT_PASS_CASES:
+        print(f"  sort passes, ms: {sort_pass_times(*draw(q, p, k_start, 1 << 20), k_start)}",
+              flush=True)
 
 
 def build_zipf_index():
@@ -332,9 +445,7 @@ def phase_gather_segment(engine, queries, results: dict) -> None:
     import torch
 
     from probing_rag_tpu_torch.ops.sort import sort_pairs
-    from probing_rag_tpu_torch.ops.sparse import (
-        TOPK_MAX, bm25_gather, bm25_gather_plain, segment_topk, segment_topk_plain,
-    )
+    from probing_rag_tpu_torch.ops.sparse import TOPK_MAX, bm25_gather, bm25_gather_plain
     from probing_rag_tpu_torch.retrieval.bm25 import _dedup_term_ids, _next_pow2, _weight_blocks
 
     uniq, weights, _ = _dedup_term_ids(queries)
@@ -374,33 +485,129 @@ def phase_gather_segment(engine, queries, results: dict) -> None:
     empty = torch.full_like(doc[:1], sentinel)
     wide_doc = torch.cat([doc, empty])
     wide_imp = torch.cat([imp, torch.zeros_like(imp[:1])])
-    for k, d, v in ((K, doc, imp), (TOPK_MAX, wide_doc, wide_imp)):
-        gv, gi = segment_topk(d, v, k=k, sentinel=sentinel)
-        rv1, ri1 = segment_topk_plain(d, v, k=k + 1, sentinel=sentinel)
-        sync()
-        rv, ri = rv1[:, :k], ri1[:, :k]
-        # summation order differs (the plain version's scatter_add_ uses
-        # atomics on the card): scores allclose; ids compared where the plain
-        # score is distinct from its neighbours, the (k+1)-th included
-        if not torch.allclose(gv, rv, rtol=1e-5, atol=1e-4):
-            raise AssertionError(f"segment top-k k={k}: scores differ")
-        gap = (rv1[:, 1:] - rv1[:, :-1]).abs() > 1e-4  # [Q, k]
-        distinct = gap.clone()
-        distinct[:, 1:] &= gap[:, :-1]
-        bad = int((gi[distinct] != ri[distinct]).sum())
-        if bad:
-            raise AssertionError(f"segment top-k k={k}: {bad} ids differ where scores are distinct")
-        if d is wide_doc and not (bool((gi[-1] == -1).all()) and bool((gv[-1] == 0).all())):
-            raise AssertionError("segment top-k: the sentinel-only row is not empty")
-        if k == K:
-            err = float((gv - rv).abs().max())
+    err = check_segment(doc, imp, K, sentinel, f"segment top-k [{len(rows)}, {pad}]")
+    check_segment(wide_doc, wide_imp, TOPK_MAX, sentinel, "segment top-k with an empty row",
+                  empty_rows=(-1,))
+    # rows that test which block owns a run: a run across every chunk
+    # boundary, a real part that ends mid-chunk, a sentinel-only row, equal
+    # scores in different chunks
+    bd, bi, ties = segment_boundary_rows(SEG_BOUNDARY_WIDTH)
+    for k in (K, TOPK_MAX):
+        err = max(err, check_segment(bd, bi, k, SEG_BOUNDARY_SENTINEL,
+                                     f"segment top-k boundary rows k={k}",
+                                     empty_rows=(2,), exact_rows=ties))
+    print(f"  segment top-k [{len(rows)}, {pad}]: max abs err {err:.3g} (k={K}; k={TOPK_MAX} "
+          f"with an empty row, and the boundary rows [{bd.shape[0]}, {bd.shape[1]}] at k={K} "
+          f"and k={TOPK_MAX}, also agree)")
+    results["segment_topk"] = {"max_abs_err": err, "library_ms": None,
+                               **segment_times(doc, imp, sentinel, f"[{len(rows)}, {pad}]")}
+
+
+def check_segment(doc, imp, k: int, sentinel: int, what: str, *, empty_rows=(),
+                  exact_rows=()) -> float:
+    """segment_topk against its plain version: scores allclose (rtol 1e-5,
+    atol 1e-4: the plain version's ``scatter_add_`` sums in another order on
+    the card); ids equal where the plain score is distinct from its
+    neighbours, the (k+1)-th included; ``empty_rows`` all (0, -1);
+    ``exact_rows`` (sums of exact dyadic values, ties included) equal in
+    scores and ids. Returns the max abs error."""
+    import torch
+
+    from probing_rag_tpu_torch.ops.sparse import segment_topk, segment_topk_plain
+
+    gv, gi = segment_topk(doc, imp, k=k, sentinel=sentinel)
+    rv1, ri1 = segment_topk_plain(doc, imp, k=k + 1, sentinel=sentinel)
+    sync()
+    rv, ri = rv1[:, :k], ri1[:, :k]
+    if not torch.allclose(gv, rv, rtol=1e-5, atol=1e-4):
+        raise AssertionError(f"{what}: scores differ")
+    gap = (rv1[:, 1:] - rv1[:, :-1]).abs() > 1e-4  # [Q, k]
+    distinct = gap.clone()
+    distinct[:, 1:] &= gap[:, :-1]
+    bad = int((gi[distinct] != ri[distinct]).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} ids differ where scores are distinct")
+    for r in empty_rows:
+        if not (bool((gi[r] == -1).all()) and bool((gv[r] == 0).all())):
+            raise AssertionError(f"{what}: the sentinel-only row {r} is not empty")
+    for r in exact_rows:
+        if not (torch.equal(gv[r], rv[r]) and torch.equal(gi[r], ri[r])):
+            raise AssertionError(f"{what}: row {r} of equal scores differs: {gv[r].tolist()} "
+                                 f"{gi[r].tolist()} vs {rv[r].tolist()} {ri[r].tolist()}")
+    return float((gv - rv).abs().max())
+
+
+# the boundary rows: 32 chunks of 4096 slots (16 of 8192, 8 of 16384)
+SEG_BOUNDARY_WIDTH = 1 << 17
+SEG_BOUNDARY_SENTINEL = 1 << 20
+
+
+def segment_boundary_rows(p: int):
+    """Sorted (doc, impact) rows for the segment top-k's chunk ownership,
+    on the card: row 0 pairs every even slot with the one before it, so a
+    run crosses every chunk boundary; row 1's real part ends mid-chunk
+    (5 x 4096 + 1234 slots); row 2 is the sentinel only; row 3 has six docs
+    of equal top score (10.0, from exact dyadic postings) with heads in six
+    chunks, one of them a run across a boundary, among runs of 1-3 postings
+    of at most 3 each; row 4 has runs of 1-16 postings. Returns (doc, imp,
+    the rows whose sums are exact: (3,))."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 7)
+    s = SEG_BOUNDARY_SENTINEL
+    doc = np.full((5, p), s, np.int32)
+    imp = np.zeros((5, p), np.float32)
+    doc[0] = (np.arange(p) + 1) // 2
+    imp[0] = rng.random(p) * 3
+
+    def runs(n, max_len):
+        lens = rng.integers(1, max_len + 1, n)
+        d = np.repeat(np.arange(n) * 3 + rng.integers(0, 3, n), lens)
+        return d.astype(np.int32)
+
+    real = 5 * 4096 + 1234
+    doc[1, :real] = runs(real, 4)[:real]
+    imp[1, :real] = rng.random(real) * 3
+    d3 = runs(p, 3)[:p]
+    doc[3] = d3
+    imp[3] = (rng.integers(0, 12, p) / 4).astype(np.float32)  # dyadic, at most 2.75
+    heads = np.flatnonzero(np.r_[True, d3[1:] != d3[:-1]])
+    starts = [int(heads[np.searchsorted(heads, c * 4096 + 100)]) for c in (1, 4, 9, 17, 23)]
+    b = 12 * 4096
+    doc[3, b] = doc[3, b - 1]  # the run at slot b - 1 goes on over the boundary
+    cross = b - 1
+    while doc[3, cross - 1] == doc[3, b]:
+        cross -= 1
+    for h in starts + [cross]:
+        end = h + 1
+        while end < p and doc[3, end] == doc[3, h]:
+            end += 1
+        imp[3, h:end] = 0.0
+        imp[3, h] = 2.5
+        imp[3, h + 1 if end > h + 1 else h] += 7.5  # 10.0 exactly
+    d4 = runs(p, 16)[:p]
+    doc[4] = d4
+    imp[4] = rng.random(p) * 3
+    put = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    return put(doc), put(imp), (3,)
+
+
+def segment_times(doc, imp, sentinel: int, shape: str) -> dict:
+    """segment_topk's time at k = K and its plain version's; the bound
+    reads each row's slots up to its first sentinel (the kernel stops
+    there) and writes k pairs. Returns the kernels-line fields."""
+    from probing_rag_tpu_torch.ops.sparse import SEG_CHUNK, segment_topk, segment_topk_plain
+
     ms = cuda_ms(lambda: segment_topk(doc, imp, k=K, sentinel=sentinel))
     plain_ms = cuda_ms(lambda: segment_topk_plain(doc, imp, k=K, sentinel=sentinel))
-    print(f"  segment top-k [{len(rows)}, {pad}]: max abs err {err:.3g} (k={K}; k={TOPK_MAX} "
-          f"and an empty row also agree); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    results["segment_topk"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "library_ms": None,
-                               **bound(doc.numel() * 8 + len(rows) * K * 8, doc.numel(), "f32")}
+    real = int((doc != sentinel).sum())
+    q, p = doc.shape
+    b = bound(real * 8 + q * K * 8, real, "f32")
+    print(f"  segment top-k {shape}, k={K}, {real} real slots: kernel {ms:.4f} ms (chunk "
+          f"{SEG_CHUNK}), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+          f"all {q * p} slots: {q * p * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, **b}
 
 
 def blockwise_pairs(keys, vals, width: int):
@@ -485,7 +692,6 @@ def phase_hybrid_kernels(engine, index, results: dict, dma_gather: dict) -> None
     from probing_rag_tpu_torch.ops.sort import sort_pairs, sort_pairs_plain
     from probing_rag_tpu_torch.ops.sparse import (
         postings_assemble, postings_assemble_plain, postings_gather, postings_gather_plain,
-        segment_topk,
     )
     from probing_rag_tpu_torch.retrieval.bm25 import _hybrid_rows, _weight_blocks
 
@@ -552,11 +758,22 @@ def phase_hybrid_kernels(engine, index, results: dict, dma_gather: dict) -> None
 
     doc, imp, k_start = rows()
     sd, si = sort_pairs(doc, imp, k_start=k_start)
+    check_sorted_pairs((sd, si), sort_pairs_plain(doc, imp), f"the chain's sort [{m}, {pad_big}]")
+    check_segment(sd, si, K, sentinel, f"the chain's segment top-k [{m}, {pad_big}]")
+    sort_ms = cuda_ms(lambda: sort_pairs(doc, imp, k_start=k_start))
+    sort_lib = cuda_ms(lambda: torch.sort(doc, dim=1, stable=True))
+    sb = sort_bound(m, pad_big, k_start, pad_big)
+    seg = segment_times(sd, si, sentinel, f"(the chain's) [{m}, {pad_big}]")
     times = {"rows (gather + assemble + k_stop sort)": cuda_ms(rows),
-             f"sort k_start {k_start}": cuda_ms(lambda: sort_pairs(doc, imp, k_start=k_start)),
-             f"segment top-k k={K}": cuda_ms(lambda: segment_topk(sd, si, k=K, sentinel=sentinel))}
+             f"sort k_start {k_start}": sort_ms, f"segment top-k k={K}": seg["ms"]}
     print(f"  the chunk's hybrid chain [{m}, {pad_big}]: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f"; the sort's bound {sb['bound_ms']:.4f} ms, torch.sort {sort_lib:.4f} ms")
+    chain = f"[{m}, {pad_big}]"
+    results["bitonic_sort_wide"].update(chain_shape=chain, chain_ms=sort_ms,
+                                        chain_library_ms=sort_lib, chain_bound_ms=sb["bound_ms"])
+    results["segment_topk"].update(chain_shape=chain, chain_ms=seg["ms"],
+                                   chain_plain_ms=seg["plain_ms"], chain_bound_ms=seg["bound_ms"])
 
 
 def assert_same_topk(res, ref, what: str) -> None:
@@ -1515,9 +1732,12 @@ def main() -> int:
         launches["matmul_int8"] = phase_quantized(lm, index, questions, results)["matmul_int8"]
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # every kernel's fields, then the extra shapes some carry (the wide
+    # sort's 8M row, the over-cap chain's sort and segment top-k)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name], **{k: r[k] for k in keys}}
+         "replaces": REPLACES[name], "launches": launches[name], **{k: r[k] for k in keys},
+         **{k: v for k, v in r.items() if k not in keys}}
         for name, r in results.items()
     ]}
     if sorted(results) != sorted(SOURCES):

@@ -53,9 +53,11 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "bm25_gather": [_P] * 15 + [_I, _I, _LL, _I, _I, _P, _P, _P],
     # keys in, values in, keys out, values out, q, p, row strides in and
-    # out, k_start, k_stop, stream
-    "bitonic_sort_pairs": [_P] * 4 + [_I] + [_LL] * 5 + [_P],
-    "segment_topk": [_P, _P, _I, _LL, _I, _I, _P, _P, _P],
+    # out, then tile, k_lo, k_hi, tile_asc | run, desc_odd, rev_odd; stream
+    "sort_tile_pass": [_P] * 4 + [_I] + [_LL] * 3 + [_I, _LL, _LL, _I, _P],
+    "sort_merge_pass": [_P] * 4 + [_I] + [_LL] * 4 + [_I, _I, _P],
+    # doc, imp, q, p, k, sentinel, chunk, nchunks, partial v/i, out v/i, stream
+    "segment_topk": [_P, _P, _I, _LL, _I, _I, _LL, _I] + [_P] * 5,
     "dense_topk": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _I] + [_P] * 5,
     "ivf_topk": [_P] * 6 + [_I] * 9 + [_P] * 5,
     "matmul_int8": [_P] * 5 + [_I, _I, _LL, _I, _I, _I, _I, _P],

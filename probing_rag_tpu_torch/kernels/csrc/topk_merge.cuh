@@ -1,5 +1,5 @@
-// Second pass of the dense searches: merge the per-block partial top-k
-// lists of each query into its final list.
+// Second pass of the dense searches and of the segment top-k: merge the
+// per-block partial top-k lists of each query into its final list.
 #pragma once
 
 #include "common.cuh"
@@ -19,11 +19,11 @@
 // gives every lane the same winner, lane 0 writes it, and the winning lane
 // steps past it in its list and rescans its heads. Only the entries that
 // reach the output (plus one head per list) are read, whatever kp is.
-// Empty slots come out as (-inf, -1).
+// Empty slots come out as (empty_v, -1).
 static __global__ void merge_partial_topk_kernel(
     const float* __restrict__ part_v, const int* __restrict__ part_i,
     int nparts, int nq, int kp, int k_out, float* __restrict__ out_v,
-    int* __restrict__ out_i) {
+    int* __restrict__ out_i, float empty_v) {
   const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (q >= nq) return;  // the whole warp
@@ -66,7 +66,7 @@ static __global__ void merge_partial_topk_kernel(
     if (!(wv > -INFINITY)) {  // every list is spent: the rest is empty
       if (lane == 0)
         for (int r = i; r < k_out; ++r) {
-          out_v[(size_t)q * k_out + r] = -INFINITY;
+          out_v[(size_t)q * k_out + r] = empty_v;
           out_i[(size_t)q * k_out + r] = -1;
         }
       return;  // wv is the same in every lane
@@ -85,11 +85,12 @@ static __global__ void merge_partial_topk_kernel(
 static inline cudaError_t launch_merge_partial_topk(const float* part_v, const int* part_i,
                                                     int nparts, int nq, int kp, int k_out,
                                                     float* out_v, int* out_i,
-                                                    cudaStream_t stream) {
+                                                    cudaStream_t stream,
+                                                    float empty_v = -INFINITY) {
   if (nparts < 1 || nparts > 32 * MERGE_LISTS || k_out > kp) return cudaErrorInvalidValue;
   const int threads = 128;  // four queries a block
   const unsigned blocks = (unsigned)(((long long)nq * 32 + threads - 1) / threads);
   merge_partial_topk_kernel<<<blocks, threads, 0, stream>>>(part_v, part_i, nparts, nq, kp,
-                                                            k_out, out_v, out_i);
+                                                            k_out, out_v, out_i, empty_v);
   return cudaGetLastError();
 }

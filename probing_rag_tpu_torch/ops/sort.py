@@ -1,16 +1,19 @@
-"""Row-wise (int32 key, f32 value) sort: the CUDA bitonic network and its
-plain PyTorch version.
+"""Row-wise (int32 key, f32 value) sort: the CUDA sort and its plain
+PyTorch version.
 
 Port of ``probing_rag_tpu/ops/pallas_sort.py`` (``sort_pairs_pallas`` and
-``sort_pairs_pallas_wide``): one CUDA network
-(``kernels/csrc/bitonic_sort.cu``) covers every power-of-two width from 2
-to ``MAX_SORT_WIDTH``. Keys come out ascending and every (key, value) pair
-is preserved; the order of values within one key is free.
+``sort_pairs_pallas_wide``): one CUDA sort (``kernels/csrc/bitonic_sort.cu``)
+covers every power-of-two width from 2 to ``MAX_SORT_WIDTH``: the bitonic
+network inside shared-memory tiles of ``SORT_TILE`` pairs, then one merge
+pass for each doubling of the sorted runs above the tile
+(:func:`sort_schedule` plans them). Keys come out ascending and every
+(key, value) pair is preserved; the order of values within one key is free.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -25,6 +28,90 @@ MAX_SORT_WIDTH = 1 << 23
 # rows wider than this are the TPU's "wide" sort (_bitonic_wide_kernel);
 # the launch counts keep the two apart
 NARROW_SORT_MAX = 1 << 15
+# pairs one block sorts in shared memory (bitonic_sort.cu takes 2..16384)
+SORT_TILE = 16384
+
+
+@dataclass(frozen=True)
+class SortPass:
+    """One launch of the CUDA sort. ``src`` and ``dst`` name the buffers:
+    ``"in"`` (the inputs), ``"out"`` and ``"scratch"`` (a contiguous pair
+    the wrapper allocates). ``"tile"`` runs the stages ``k_lo`` .. ``k_hi``
+    on tiles of ``tile`` pairs in shared memory (every tile ascending when
+    ``tile_asc``);
+    ``"merge"`` merges sorted runs of ``run`` pairs into runs of ``2 *
+    run`` (odd input runs stored descending when ``desc_odd``, odd output
+    runs written descending when ``rev_odd``); ``"copy"`` copies."""
+
+    kind: str
+    src: str
+    dst: str
+    tile: int = 0
+    k_lo: int = 0
+    k_hi: int = 0
+    tile_asc: bool = False
+    run: int = 0
+    desc_odd: bool = False
+    rev_odd: bool = False
+
+
+def sort_schedule(p: int, k_start: int, k_last: int, *, in_place: bool = False
+                  ) -> List[SortPass]:
+    """The passes that sort [Q, p] rows from stage ``k_start`` through
+    stage ``k_last`` (``min(k_stop, p)``), each a round trip through device
+    memory. Up to the tile (``min(p, tile)``) one tile pass does it all, its
+    blocks alternating by index in the row. Wider, the tile pass (skipped
+    when ``k_start`` is past the tile) leaves every tile ascending, and each
+    merge pass doubles the runs up to ``k_last``: at most ``log2(p / tile)
+    + 1`` passes. The first merge after a skipped tile pass reads the odd
+    runs of ``k_start // 2`` backwards (the ``k_start`` precondition leaves
+    them descending); below a ``k_stop`` the last merge writes odd blocks
+    reversed. The passes alternate between ``"out"`` and ``"scratch"``, in
+    the parity that makes the last one write ``"out"``. A merge never reads
+    the rows it writes: sorting in place (``in_place``, ``"in"`` is
+    ``"out"``), a first merge that would write ``"out"`` reads a copy."""
+    if k_start > k_last:
+        return []
+    tile = min(p, SORT_TILE)
+    if k_last <= tile:
+        return [SortPass("tile", "in", "out", tile=tile, k_lo=k_start, k_hi=k_last)]
+    steps = []
+    if k_start <= tile:
+        steps.append(dict(kind="tile", tile=tile, k_lo=k_start, k_hi=tile, tile_asc=True))
+        run = tile
+    else:
+        run = k_start // 2
+    while run < k_last:
+        steps.append(dict(kind="merge", run=run, desc_odd=not steps,
+                          rev_odd=2 * run == k_last < p))
+        run *= 2
+    n = len(steps)
+    passes, src = [], "in"
+    if in_place and steps[0]["kind"] == "merge" and n % 2 == 1:
+        passes.append(SortPass("copy", "in", "scratch"))
+        src = "scratch"
+    for i, step in enumerate(steps):
+        dst = "out" if (n - 1 - i) % 2 == 0 else "scratch"
+        passes.append(SortPass(src=src, dst=dst, **step))
+        src = dst
+    return passes
+
+
+def launch_pass(lib, s: SortPass, bufs: dict, q: int, p: int, stream: int) -> None:
+    """Launches one pass of :func:`sort_schedule` on [q, p] rows. ``bufs``
+    maps each buffer name to its (keys, values, row stride) on the card."""
+    sk, sv, sld = bufs[s.src]
+    dk, dv, dld = bufs[s.dst]
+    if s.kind == "copy":
+        dk.copy_(sk)
+        dv.copy_(sv)
+        return
+    ptrs = (sk.data_ptr(), sv.data_ptr(), dk.data_ptr(), dv.data_ptr(), q, p, sld, dld)
+    if s.kind == "tile":
+        code = lib.sort_tile_pass(*ptrs, s.tile, s.k_lo, s.k_hi, int(s.tile_asc), stream)
+    else:
+        code = lib.sort_merge_pass(*ptrs, s.run, int(s.desc_odd), int(s.rev_odd), stream)
+    kernels.check(code, f"sort_{s.kind}_pass")
 
 
 def sort_pairs_plain(
@@ -109,7 +196,8 @@ def sort_pairs(
     wider buffer (any row stride, contiguous rows). The BM25 over-cap
     hybrid sorts its short tail this way inside the full row's slack.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the passes of
+    :func:`sort_schedule`."""
     _check(keys, vals, k_start, k_stop, out)
     if keys.device.type == "cpu":
         got = sort_pairs_plain(keys, vals, k_start=k_start, k_stop=k_stop)
@@ -125,19 +213,21 @@ def sort_pairs(
     ld_out = _row_stride(out_k, out_v, "out")
     q, p = keys.shape
     k_last = p if k_stop is None else min(p, k_stop)
+    in_place = out_k.data_ptr() == keys.data_ptr()
     if k_start > k_last or q == 0:
-        if out_k.data_ptr() != keys.data_ptr():
+        if not in_place:
             out_k.copy_(keys)
             out_v.copy_(vals)
         return out_k, out_v
+    passes = sort_schedule(p, k_start, k_last, in_place=in_place)
+    bufs = {"in": (keys, vals, ld_in), "out": (out_k, out_v, ld_out)}
+    if any("scratch" in (s.src, s.dst) for s in passes):
+        bufs["scratch"] = (torch.empty((q, p), dtype=torch.int32, device=keys.device),
+                           torch.empty((q, p), dtype=torch.float32, device=keys.device), p)
     lib = kernels.library()
+    stream = kernels.stream_ptr(keys.device)
     with torch.cuda.device(keys.device):
-        kernels.check(
-            lib.bitonic_sort_pairs(
-                keys.data_ptr(), vals.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
-                q, p, ld_in, ld_out, k_start, k_last, kernels.stream_ptr(keys.device),
-            ),
-            "bitonic_sort_pairs",
-        )
+        for s in passes:
+            launch_pass(lib, s, bufs, q, p, stream)
     kernels.LAUNCHES["bitonic_sort" if p <= NARROW_SORT_MAX else "bitonic_sort_wide"] += 1
     return out_k, out_v

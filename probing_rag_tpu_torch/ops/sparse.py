@@ -21,6 +21,11 @@ from probing_rag_tpu_torch import kernels
 from probing_rag_tpu_torch.ops.sort import sort_pairs
 
 TOPK_MAX = 16  # kernels/csrc/common.cuh TOPK_MAX
+# slots one block of segment_topk.cu takes (a multiple of its 4096-slot
+# stage), and the most partial lists a row may have (kernels/csrc/
+# topk_merge.cuh: 32 lanes x MERGE_LISTS)
+SEG_CHUNK = 8192
+SEG_MAX_PARTS = 1024
 
 # ------------------------------------------------------------------ gather
 
@@ -392,6 +397,19 @@ def segment_topk_plain(
     return out_v, out_i
 
 
+def segment_plan(q: int, p: int, k: int) -> Tuple[int, int, Tuple[int, int, int]]:
+    """How the CUDA segment top-k splits [q, p] rows: (slots a block
+    takes, blocks a row, shape of the partial lists ``[chunks, q, k]``).
+    The chunk starts at ``SEG_CHUNK`` and doubles until a row has at most
+    ``SEG_MAX_PARTS`` chunks, the most the merge launch takes; an empty row
+    still has one (empty) chunk."""
+    chunk = SEG_CHUNK
+    while -(-p // chunk) > SEG_MAX_PARTS:
+        chunk *= 2
+    n = max(1, -(-p // chunk))
+    return chunk, n, (n, q, k)
+
+
 def segment_topk(
     doc: torch.Tensor,  # [Q, P] int32, sorted ascending per row
     imp: torch.Tensor,  # [Q, P] f32
@@ -399,7 +417,9 @@ def segment_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row top-k of run sums over sorted postings. Returns (scores
     [Q, k] f32, 0 where empty; doc ids [Q, k] int32, -1 where empty).
-    Ranking: score descending, then doc id ascending."""
+    Ranking: score descending, then doc id ascending. On the card the rows
+    are split into chunks (:func:`segment_plan`), each with its partial
+    list, and a second launch merges each row's lists."""
     if doc.dtype != torch.int32 or imp.dtype != torch.float32:
         raise TypeError(f"need int32 docs and f32 impacts, got {doc.dtype}, {imp.dtype}")
     if doc.dim() != 2 or doc.shape != imp.shape or doc.device != imp.device:
@@ -417,12 +437,16 @@ def segment_topk(
     out_i = torch.empty((q, k), dtype=torch.int32, device=doc.device)
     if q == 0:
         return out_v, out_i
+    chunk, nchunks, part_shape = segment_plan(q, p, k)
+    part_v = torch.empty(part_shape, dtype=torch.float32, device=doc.device)
+    part_i = torch.empty(part_shape, dtype=torch.int32, device=doc.device)
     lib = kernels.library()
     with torch.cuda.device(doc.device):
         kernels.check(
             lib.segment_topk(
-                doc.data_ptr(), imp.data_ptr(), q, p, k, sentinel,
-                out_v.data_ptr(), out_i.data_ptr(), kernels.stream_ptr(doc.device),
+                doc.data_ptr(), imp.data_ptr(), q, p, k, sentinel, chunk, nchunks,
+                part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                kernels.stream_ptr(doc.device),
             ),
             "segment_topk",
         )
