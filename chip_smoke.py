@@ -56,15 +56,24 @@ and the script exits non-zero:
    engine, 8 questions each, all 4 retrieval rounds, each loop with its
    own launch counts; then the flat loop's first and last searches again
    through the flat bf16, flat int8 + rerank, IVF bf16 and IVF int8
-   engines, each against the same engine on the CPU.
+   engines, each against the same engine on the CPU. Then the port's
+   Porter stemmer against the committed NLTK golden (no NLTK needed), and
+   a default (stemming) BM25 index over the same texts, one batch of the
+   loop's questions on the card against the CPU.
 8. quantized main path: phase 5's bf16 weights quantized on the card
    (per-channel int8); the int8-weight matmul kernel against its plain
    version at every product of a Gemma-2B decode step (M = 8, the tied
-   head transposed), at prefill (M = 8 x the padded prompt length), at
-   ragged shapes and in f32; quantized tiny f32 forwards (int8 and rank-1
-   int4 weights, int8 and int4 KV, w8a8 prefill) against the CPU; the
-   probing loop with ``--quantize int8 --kv-int8`` over the phase-4 BM25
-   index (8 questions, all 4 rounds) with its own launch counts; then
+   head transposed), at every prefill product (M = 8 x the padded prompt
+   length), at a ragged prefill M and a transposed weight at prefill M, at
+   ragged shapes (wgmma with ragged K and N, ragged shapes for the tail)
+   and in f32, each case with the regime the planner gave it (wgmma,
+   small-M, tail); the small-M and wgmma regimes timed on the same
+   products at M from 16 to 512 (where the wgmma regime starts);
+   quantized tiny f32 forwards (int8 and rank-1 int4 weights, int8 and
+   int4 KV, w8a8 prefill) against the CPU; the probing loop with
+   ``--quantize int8 --kv-int8`` over the phase-4 BM25 index (8
+   questions, all 4 rounds) with its own launch counts, and the prefill
+   and decode seconds of each of its generate calls; then
    prefill seconds, decode tokens/s at batch 8 and peak memory for bf16,
    int8 + int8 KV, int8 + act_int8_rows 512 + int8 KV and rank-1 int4 +
    int4 KV.
@@ -74,6 +83,9 @@ head start (``cuda_ms``). The kernels line lists, for each kernel, its
 launches on its path, its max abs error, kernel / plain / library ms and
 its bound (``bound``). The line before the last is the card's name and
 power limit; the last line is the result as one JSON object.
+
+``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
+matmul_int8 cases alone.
 """
 
 from __future__ import annotations
@@ -1305,6 +1317,39 @@ def assert_same_search(res, ref, what: str) -> None:
         raise AssertionError(f"{what}: {bad} ids differ from the CPU engine where scores are distinct")
 
 
+def phase_stemming(texts, questions) -> None:
+    """The port's Porter stemmer against the committed golden
+    (``tests/fixtures/porter_stems.json``, NLTK's stems; NLTK is not needed
+    here), in both modes; then a default ``BM25Config()`` index, which
+    stems, over the phase-7 text corpus, and one batch of ``questions``
+    through it on the card against the same engine on the CPU."""
+    from pathlib import Path
+
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+    from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
+    from probing_rag_tpu_torch.retrieval.porter import MODES, PorterStemmer
+
+    golden = json.loads((Path(__file__).resolve().parent / "tests" / "fixtures" /
+                         "porter_stems.json").read_text())["stems"]
+    for col, mode in enumerate(MODES):
+        stemmer = PorterStemmer(mode)
+        bad = [(w, v[col], stemmer.stem(w)) for w, v in golden.items() if stemmer.stem(w) != v[col]]
+        if bad:
+            raise AssertionError(f"Porter stemmer ({mode}) differs from the golden: {bad[:5]}")
+    config = BM25Config()
+    if not config.stem:
+        raise AssertionError("BM25Config() no longer stems")
+    t0 = time.time()
+    index = BM25Index.build(texts, config)
+    build_s = time.time() - t0
+    res = BM25Engine(index, device=DEVICE).search(questions, k=K)
+    assert_same_topk(res, BM25Engine(index, device="cpu").search(questions, k=K + 1),
+                     "stemming index search")
+    print(f"  Porter stemmer: {len(golden)} golden words equal in modes {', '.join(MODES)}; "
+          f"default BM25Config (stemming) index over {len(texts)} texts: {build_s:.1f}s, "
+          f"{index.n_terms} terms; {len(questions)} questions on the card equal to the CPU")
+
+
 def phase_dense_main_path(docs_tokens, lm) -> dict:
     """``rag-run --dense`` and ``rag-run --dense --dense-ivf`` at Contriever
     and Gemma-2B width through the pipeline API, then the flat loop's first
@@ -1397,6 +1442,7 @@ def phase_dense_main_path(docs_tokens, lm) -> dict:
             assert_same_search(res, cpu.search_embeddings(qemb, k=K), f"{label} search, {name}")
         print(f"  {label} loop search again ({len(queries)} queries) through "
               f"{', '.join(e[0] for e in engines)}: each equal to its CPU engine")
+    phase_stemming(texts, questions)
     return {"dense_topk": flat_counts["dense_topk"], "ivf_topk": ivf_counts["ivf_topk"]}
 
 
@@ -1412,59 +1458,86 @@ def mm_operands(gen, m: int, k: int, n: int, transpose_rhs: bool, dt):
     return x, q, s
 
 
-def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
-    """matmul_int8 against its plain version on the card at every product
-    of a Gemma-2B decode step (M = 8, the tied head transposed), at the
-    prefill's M = 8 x prompt length, at ragged M, N and K, and in the f32
-    mode at the tiny config's widths. Tolerance, bf16: the f32 sums run in
-    another order, so a sum may round to the neighbouring bf16 value (2^-8
-    relative) and the scaled product rounds once more (up to 2^-7): rtol
-    2^-6, atol 1e-5 of the largest output; and at most 1% of the outputs
-    may differ at all, which holds the op order (scaling the f32 sum before
-    rounding it would change many more). f32: rtol 1e-5, the same atol."""
+def mm_check(got, ref, dt, what: str) -> tuple:
+    """Holds a matmul_int8 result to its plain version (phase 8's
+    tolerance). Returns (max abs err, share of outputs that differ)."""
     import torch
 
-    from probing_rag_tpu_torch.ops.matmul import matmul_int8, matmul_int8_plain
+    differ = float((got != ref).float().mean())
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    bf16 = dt == torch.bfloat16
+    if not torch.allclose(got, ref, rtol=2**-6 if bf16 else 1e-5, atol=1e-5 * float(ref.abs().max())) \
+            or (bf16 and differ > 0.01):
+        raise AssertionError(f"matmul_int8 {what}: max abs err {err}, {differ:.4f} of the outputs differ")
+    return err, differ
+
+
+def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
+    """matmul_int8 against its plain version on the card at every product
+    of a Gemma-2B decode step (M = 8, the tied head transposed), at every
+    product of the prefill (M = 8 x the padded prompt length), at a ragged
+    prefill M (not a multiple of 128) and a transposed [N, K] weight at
+    prefill M, at ragged shapes in each regime (wgmma: K past the last
+    64-deep step, N not a multiple of the tile or of 8, the 128-wide tile;
+    small-M and tail: ragged M, N and K), and in the f32 mode at the tiny
+    config's widths. Each case must take the regime listed with it, and
+    prints the plan it was launched with (``ops.matmul.last_plan``).
+    Tolerance, bf16: the f32 sums run in another order, so a sum may round
+    to the neighbouring bf16 value (2^-8 relative) and the scaled product
+    rounds once more (up to 2^-7): rtol 2^-6, atol 1e-5 of the largest
+    output; and at most 1% of the outputs may differ at all, which holds
+    the op order (scaling the f32 sum before rounding it would change many
+    more). f32: rtol 1e-5, the same atol. Then the threshold sweep
+    (``phase_matmul_threshold``)."""
+    import torch
+
+    from probing_rag_tpu_torch.ops import matmul as mm
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(f"decode {name}", MM_DECODE_M, k, n, False, bf16)
+    cases = [(f"decode {name}", MM_DECODE_M, k, n, False, bf16, "small_m")
              for name, (k, n) in GEMMA_MM.items()]
-    cases += [("decode tied head", MM_DECODE_M, *TIED_HEAD, True, bf16)]
-    cases += [(f"prefill {name}", prefill_m, *GEMMA_MM[name], False, bf16)
-              for name in ("w_gate/w_up", "w_down")]
-    cases += [("ragged M and N", 37, 2048, 1000, False, bf16),
-              ("ragged M and N, transposed", 37, 2048, 1000, True, bf16),
-              ("ragged K", 5, 200, 300, False, bf16), ("ragged K, transposed", 5, 200, 300, True, bf16),
-              ("tiny f32 w_gate", 20, 64, 128, False, f32),
-              ("tiny f32 tied head", 20, 64, 512, True, f32),
-              ("tiny f32 ragged", 7, 40, 30, False, f32)]
+    cases += [("decode tied head", MM_DECODE_M, *TIED_HEAD, True, bf16, "small_m")]
+    cases += [(f"prefill {name}", prefill_m, *GEMMA_MM[name], False, bf16, "wgmma")
+              for name in GEMMA_MM]
+    cases += [("prefill ragged M", prefill_m + 5, *GEMMA_MM["w_gate/w_up"], False, bf16, "wgmma"),
+              ("prefill transposed", prefill_m, *GEMMA_MM["w_gate/w_up"], True, bf16, "wgmma")]
+    cases += [("ragged K and N, wgmma", 4096, 200, 1008, False, bf16, "wgmma"),
+              ("ragged N, transposed, wgmma", 4096, 2048, 1001, True, bf16, "wgmma"),
+              ("N 128, wgmma", 4096, 2048, 128, False, bf16, "wgmma"),
+              ("ragged M and N", 37, 2048, 1000, False, bf16, "tail"),
+              ("ragged M and N, transposed", 37, 2048, 1000, True, bf16, "small_m"),
+              ("ragged K", 5, 200, 300, False, bf16, "tail"),
+              ("ragged K, transposed", 5, 200, 300, True, bf16, "tail"),
+              ("tiny f32 w_gate", 20, 64, 128, False, f32, "f32"),
+              ("tiny f32 tied head", 20, 64, 512, True, f32, "f32"),
+              ("tiny f32 ragged", 7, 40, 30, False, f32, "f32")]
     max_err = 0.0
-    for label, m, k, n, tr, dt in cases:
+    for label, m, k, n, tr, dt, regime in cases:
         x, q, s = mm_operands(gen, m, k, n, tr, dt)
-        got = matmul_int8(x, q, s, dt=dt, transpose_rhs=tr)
-        ref = matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr)
+        mm.last_plan = None
+        got = mm.matmul_int8(x, q, s, dt=dt, transpose_rhs=tr)
+        plan = mm.last_plan
+        ref = mm.matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr)
         sync()
-        differ = float((got != ref).float().mean())
-        got, ref32 = got.float(), ref.float()
-        atol = 1e-5 * float(ref32.abs().max())
-        err = float((got - ref32).abs().max())
-        if not torch.allclose(got, ref32, rtol=2**-6 if dt == bf16 else 1e-5, atol=atol) \
-                or (dt == bf16 and differ > 0.01):
-            raise AssertionError(f"matmul_int8 {label}: max abs err {err}, {differ:.4f} of the "
-                                 f"outputs differ")
+        if DEVICE == "cuda" and plan.regime != regime:
+            raise AssertionError(f"matmul_int8 {label}: regime {plan.regime}, expected {regime}")
+        err, differ = mm_check(got, ref, dt, f"{label} ({plan.regime if plan else 'plain'})")
         max_err = max(max_err, err)
-        del got, ref, ref32
-        ms = cuda_ms(lambda: matmul_int8(x, q, s, dt=dt, transpose_rhs=tr))
-        plain_ms = cuda_ms(lambda: matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr))
+        del got, ref
+        ms = cuda_ms(lambda: mm.matmul_int8(x, q, s, dt=dt, transpose_rhs=tr))
+        plain_ms = cuda_ms(lambda: mm.matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr))
         b = bound(x.numel() * x.element_size() + q.numel() + n * 4 + m * n * x.element_size(),
                   2 * m * n * k, "bf16" if dt == bf16 else "f32")
-        line = (f"  matmul_int8 {label} [{m} x {k} -> {n}]: max abs err {err:.3g} "
+        how = (f"{plan.regime} (tile {plan.bm} x {plan.bn}, {plan.splits} splits, {plan.grid} "
+               f"blocks)") if plan else "plain"
+        line = (f"  matmul_int8 {label} [{m} x {k} -> {n}], {how}: max abs err {err:.3g} "
                 f"({differ:.4f} of the outputs differ); kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                 f"({b['bound_by']})")
-        lib_ms = None
-        if dt == bf16 and not label.startswith("ragged"):
+        lib_ms = cublas_ms = None
+        if label.startswith(("decode", "prefill")):
             # yardsticks: one PyTorch call of the w8a16 function, where it
             # runs on the card ([N, K] weights, bf16 scales); cuBLAS on bf16
             # weights (a different function: twice the weight bytes)
@@ -1478,13 +1551,104 @@ def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
             except (RuntimeError, NotImplementedError) as e:
                 line += f"; torch._weight_int8pack_mm: none on this card ({str(e).splitlines()[0][:60]})"
             wb = (q.T if tr else q).to(bf16)
-            line += f"; cuBLAS bf16-weight matmul {cuda_ms(lambda: x @ wb):.4f} ms"
+            cublas_ms = cuda_ms(lambda: x @ wb)
+            line += f"; cuBLAS bf16-weight matmul {cublas_ms:.4f} ms"
             del qnk, wb
         print(line, flush=True)
         if label == "decode w_gate/w_up":
             results["matmul_int8"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b}
+        if label == "prefill w_gate/w_up":
+            prefill = {"prefill_ms": ms, "prefill_bound_ms": b["bound_ms"],
+                       "prefill_cublas_bf16_ms": cublas_ms}
         del x, q, s
-    results["matmul_int8"]["max_abs_err"] = max_err
+    results["matmul_int8"].update(prefill, max_abs_err=max_err)
+    phase_matmul_threshold(gen)
+
+
+# the threshold sweep's row counts and products (K, N)
+MM_SWEEP_M = (16, 32, 48, 64, 96, 128, 192, 256, 512)
+MM_SWEEP_SHAPES = {"wq/wo": GEMMA_MM["wq/wo"], "w_gate/w_up": GEMMA_MM["w_gate/w_up"],
+                   "w_down": GEMMA_MM["w_down"]}
+
+
+def phase_matmul_threshold(gen) -> None:
+    """Where the wgmma regime starts (``WGMMA_MIN_M``, ``WGMMA_MIN_TILES``):
+    at each M of ``MM_SWEEP_M`` and each product of ``MM_SWEEP_SHAPES``,
+    the product run in the small-M regime and in the wgmma regime (the
+    thresholds moved for the call), each held to the plain version, with
+    their times and the regime the planner picks."""
+    import torch
+
+    from probing_rag_tpu_torch.ops import matmul as mm
+
+    bf16 = torch.bfloat16
+    keep = mm.WGMMA_MIN_M, mm.WGMMA_MIN_TILES
+    try:
+        for name, (k, n) in MM_SWEEP_SHAPES.items():
+            row = []
+            for m in MM_SWEEP_M:
+                x, q, s = mm_operands(gen, m, k, n, False, bf16)
+                ref = mm.matmul_int8_plain(x, q, s, dt=bf16)
+                mm.matmul_int8(x, q, s, dt=bf16)
+                picked = mm.last_plan.regime if mm.last_plan else "plain"
+                times = {}
+                for regime, thresholds in (("small_m", (1 << 40, 0)), ("wgmma", (0, 0))):
+                    mm.WGMMA_MIN_M, mm.WGMMA_MIN_TILES = thresholds
+                    got = mm.matmul_int8(x, q, s, dt=bf16)
+                    sync()
+                    if DEVICE == "cuda" and mm.last_plan.regime != regime:
+                        raise AssertionError(f"threshold sweep: {mm.last_plan.regime} for {regime}")
+                    mm_check(got, ref, bf16, f"threshold sweep {name} M {m} {regime}")
+                    times[regime] = cuda_ms(lambda: mm.matmul_int8(x, q, s, dt=bf16), reps=20)
+                    mm.WGMMA_MIN_M, mm.WGMMA_MIN_TILES = keep
+                row.append(f"M {m} {times['small_m']:.4f} / {times['wgmma']:.4f} ({picked})")
+                del x, q, s, ref, got
+            print(f"  matmul_int8 threshold sweep {name} [M x {k} -> {n}], ms small-M / wgmma "
+                  f"(the planner's pick): {'; '.join(row)}", flush=True)
+    finally:
+        mm.WGMMA_MIN_M, mm.WGMMA_MIN_TILES = keep
+
+
+class GenerateTimes:
+    """Times each generate call's prefill and decode loop (``models/
+    decode.py``'s ``_prefill_impl`` and ``_decode_loop_impl``, wrapped
+    with a sync on each side while the context is open): a loop's seconds
+    read as the sum of its rounds. ``rounds``: (prefill rows x length,
+    prefill s, tokens generated by the longest row, decode s)."""
+
+    def __enter__(self):
+        from probing_rag_tpu_torch.models import decode
+
+        self.rounds, self.saved = [], (decode._prefill_impl, decode._decode_loop_impl)
+        prefill, loop = self.saved
+
+        def timed_prefill(params, tokens, *args, **kw):
+            sync()
+            t0 = time.time()
+            out = prefill(params, tokens, *args, **kw)
+            sync()
+            self.rounds.append([tuple(tokens.shape), time.time() - t0])
+            return out
+
+        def timed_loop(*args, **kw):
+            t0 = time.time()
+            out = loop(*args, **kw)
+            sync()
+            self.rounds[-1] += [int(out[4].max()), time.time() - t0]
+            return out
+
+        decode._prefill_impl, decode._decode_loop_impl = timed_prefill, timed_loop
+        return self
+
+    def __exit__(self, *exc):
+        from probing_rag_tpu_torch.models import decode
+
+        decode._prefill_impl, decode._decode_loop_impl = self.saved
+        return False
+
+    def line(self) -> str:
+        return "; ".join(f"{b} x {t}: prefill {p:.3f}s, {n} tokens {d:.3f}s"
+                         for (b, t), p, n, d in self.rounds)
 
 
 def phase_quant_reference() -> dict:
@@ -1609,13 +1773,15 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
     kernels.reset_launches()
     sync()
     t0 = time.time()
-    result = pipe.run(questions)
+    with GenerateTimes() as rounds:
+        result = pipe.run(questions)
     sync()
     wall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
     print(f"  int8 + int8 KV probing loop over {len(questions)} questions: {wall:.1f}s wall, of "
           f"which BM25 search {retriever.seconds:.3f}s ({len(retriever.calls)} calls); "
           f"retr_count {result.retr_count_list}; kernel launches {launches}")
+    print(f"  its generate calls: {rounds.line()}", flush=True)
     if result.retr_count_list != [3] * len(questions):
         raise AssertionError(f"quantized loop: retr_count {result.retr_count_list} != all 3")
     if not all(isinstance(p, str) and p for p in result.pred_list):
@@ -1666,8 +1832,14 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--matmul", action="store_true",
+                    help="only phases 1, 2 and the matmul_int8 cases of phase 8")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1689,6 +1861,11 @@ def main() -> int:
         print(f"  build + load {time.time() - t0:.1f}s")
 
     results: dict = {}
+    if args.matmul:
+        with Phase("8 matmul_int8 kernels"):
+            phase_matmul_kernels(results, 8 * 3712)
+        print(json.dumps(results))
+        return 0
     with Phase("3 kernels vs plain"):
         import numpy as np
 

@@ -60,7 +60,9 @@ _SIGNATURES = {
     "segment_topk": [_P, _P, _I, _LL, _I, _I, _LL, _I] + [_P] * 5,
     "dense_topk": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _I] + [_P] * 5,
     "ivf_topk": [_P] * 6 + [_I] * 9 + [_P] * 5,
-    "matmul_int8": [_P] * 5 + [_I, _I, _LL, _I, _I, _I, _I, _P],
+    # x, q, s, out; mode, transpose, regime, m, n, k, bm, bn, splits, grid;
+    # stream
+    "matmul_int8": [_P] * 4 + [_I, _I, _I, _LL] + [_I] * 6 + [_P],
     "postings_gather": [_P] * 7 + [_I, _I, _LL, _I, _I, _P, _P, _P],
     "postings_assemble": [_P] * 5 + [_I, _I, _LL, _LL, _I, _P, _P, _P],
 }

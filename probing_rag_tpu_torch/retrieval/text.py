@@ -1,8 +1,9 @@
 """Text analysis for the sparse index: tokenize -> lowercase -> stopword
 filter -> (optional) Porter stem.
 
-Port of ``probing_rag_tpu/retrieval/text.py`` (stdlib only; stemming needs
-nltk's Porter stemmer, imported only when ``stem=True``). It replaces the
+Port of ``probing_rag_tpu/retrieval/text.py`` (stdlib only; stemming uses
+the port's own Porter stemmer, ``retrieval/porter.py``, which gives NLTK's
+stems without NLTK). It replaces the
 analyzer chain the reference gets implicitly from llama-index's
 BM25Retriever (exp_rag.py:236-242), which lowercases, splits, removes
 English stopwords, and Porter-stems. Analysis runs on the host at index
@@ -17,6 +18,8 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+from probing_rag_tpu_torch.retrieval.porter import PorterStemmer
 
 # Standard NLTK English stopword list (public domain word list).
 ENGLISH_STOPWORDS = frozenset(
@@ -37,15 +40,10 @@ yours yourself yourselves""".split()
 _TOKEN_RE = re.compile(r"\w+", re.UNICODE)
 
 
-def _porter_stemmer(mode: str):
-    # nltk ships the stemmer itself (no corpus download needed). "original"
-    # selects Porter's published algorithm — the variant the C++ native
-    # builder implements (probing_rag_tpu/native/indexer.cpp).
-    from nltk.stem import PorterStemmer
-
-    if mode == "original":
-        return PorterStemmer(mode="ORIGINAL_ALGORITHM")
-    return PorterStemmer()
+def _porter_stemmer(mode: str) -> PorterStemmer:
+    # "nltk": NLTK's default extensions; "original": Porter's published
+    # algorithm, the variant the JAX package's C++ native builder implements
+    return PorterStemmer(mode)
 
 
 @dataclass

@@ -1,7 +1,8 @@
-"""The port imports nothing of the JAX package: every ``.py`` under
-``probing_rag_tpu_torch/`` and ``chip_smoke.py`` is scanned (by its syntax
-tree, so imports inside functions count too) for ``import probing_rag_tpu``,
-``from probing_rag_tpu[.x] import ...`` and any import of jax."""
+"""The port imports nothing of the JAX package, and not nltk (absent where
+the port runs on the card): every ``.py`` under ``probing_rag_tpu_torch/``
+and ``chip_smoke.py`` is scanned (by its syntax tree, so imports inside
+functions count too) for ``import probing_rag_tpu``, ``from
+probing_rag_tpu[.x] import ...`` and any import of jax or nltk."""
 
 import ast
 from pathlib import Path
@@ -14,7 +15,7 @@ FILES = sorted((REPO / "probing_rag_tpu_torch").rglob("*.py")) + [REPO / "chip_s
 
 def forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("probing_rag_tpu", "jax", "jaxlib")
+    return top in ("probing_rag_tpu", "jax", "jaxlib", "nltk")
 
 
 def imported_modules(path: Path):
@@ -35,8 +36,8 @@ def test_port_imports_nothing_of_the_jax_package(path):
 def test_scanner_catches_the_forbidden_forms(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import probing_rag_tpu\nfrom probing_rag_tpu.data import prompts\n"
-                   "def f():\n    import jax.numpy\n"
+                   "def f():\n    import jax.numpy\n    from nltk.stem import PorterStemmer\n"
                    "import probing_rag_tpu_torch\nfrom probing_rag_tpu_torch.data import qa\n")
     assert [m for _, m in imported_modules(src) if forbidden(m)] == [
-        "probing_rag_tpu", "probing_rag_tpu.data", "jax.numpy"]
+        "probing_rag_tpu", "probing_rag_tpu.data", "jax.numpy", "nltk.stem"]
     assert len(FILES) > 30
