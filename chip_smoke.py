@@ -41,11 +41,18 @@ and the script exits non-zero:
 6. dense kernels vs plain: the flat dense top-k at 500,000 x 768 with 256
    queries (ip and l2 bf16, the int8 rerank pool, int8 x int8), the f32
    coarse quantizer (64 x 4096 x 768, nprobe 32 and 128), the probing
-   loop's own shape (8 x 100,000 x 768 l2 bf16) and depths of 32 and 100;
-   the IVF top-k over a clustered 1,000,000 x 768 corpus (k-means on the
-   card, nlist 4096, nprobe 32, block 256) at 64 and 8 queries, bf16 and
-   int8. Each against its plain version: scores allclose, ids equal where
-   the scores are distinct, recall@10 = 1.0. A coarse probe of nprobe 512
+   loop's own shape (8 x 100,000 x 768 l2 bf16, timed with its bound), 1,
+   9, 65 and 257 queries (the planner's tile edges), 72 and 144 (tiles
+   whose last column is a real query), a store length that
+   is no multiple of the 128-row step, lists of 256 in bf16, and depths of
+   32 and 100; a yardstick the port never calls, ``torch.topk(q @ emb.T,
+   k)`` at ip bf16; the IVF top-k over a clustered 1,000,000 x 768 corpus
+   (k-means on the card, nlist 4096, nprobe 32, block 256) at 64, 8 (the
+   loop's, timed with its bound and bytes), 72 and 68 queries, bf16 and
+   int8. Each case prints the regime the planner chose (``ops/dense.py::
+   plan_dense``, ``ops/ivf.py::plan_ivf``), which must be the one it lists,
+   and is held to its plain version: scores allclose, ids equal where the
+   scores are distinct, recall@10 = 1.0, int8 x int8 bit-equal. A coarse probe of nprobe 512
    (above dense_topk's 256: the full-row probe) against the CPU probe, and
    the search it plans. Then IVF engines at depth 40 and block 48 against
    the same engines on the CPU.
@@ -123,11 +130,18 @@ OVERCAP_QUERIES, OVERCAP_TOKENS = 8, 1500
 DENSE_N, DENSE_Q, DENSE_D = 500_000, 256, 768
 QUANT_Q, QUANT_NLIST = 64, 4096
 IVF_N, IVF_CLUSTERS, IVF_NLIST, IVF_NPROBE, IVF_BLOCK = 1_000_000, 4096, 4096, 32, 256
-IVF_QS = (64, 8)
+IVF_QS = (64, 8, 72, 68)  # the service's Q, the loop's, nine full tiles, a partial ninth
 DENSE_K = 10
 N_DENSE_QUESTIONS = 8
 WIDE_NPROBE = 128  # a faiss nprobe above the rerank pool's 32
 WIDEST_NPROBE = 512  # above dense_topk's 256-long lists: the full-row probe
+# query counts at the edges of the flat kernel's query tiles (widths 8,
+# 16 and 72 with padding columns, three tiles of 86 at width 88), counts
+# whose tiles' last column is a real query on the thread-per-query
+# insertion path (72; two tiles of 72), and a store length cut to no
+# multiple of its 128-row step
+EDGE_QS = (1, 9, 65, 257, 72, 144)
+RAGGED_N_CUT = 63
 # depths that are not a multiple of the kernels' 64-deep step, and IVF
 # blocks that are not a multiple of the IVF kernel's 32-row step
 TAIL_DS, TAIL_N, TAIL_Q = (32, 100), 20_011, 37
@@ -1091,9 +1105,11 @@ def check_topk(got, ref, what: str, rtol: float = 1e-4, atol: float = 1e-3):
 
 def phase_dense_kernels(results: dict) -> None:
     """The flat dense top-k against its plain version at bench_dense.py's
-    shape and the coarse quantizer's."""
+    shape, the coarse quantizer's and the probing loop's, and at the edges
+    of the planner's query tiles; each case prints the regime it ran."""
     import torch
 
+    from probing_rag_tpu_torch.ops import dense as dense_mod
     from probing_rag_tpu_torch.ops.dense import (
         dense_topk, dense_topk_plain, dense_topk_rerank, prepare_dense_store,
     )
@@ -1103,59 +1119,94 @@ def phase_dense_kernels(results: dict) -> None:
     q = torch.randn((DENSE_Q, DENSE_D), generator=gen, device=DEVICE)
     cent = torch.randn((QUANT_NLIST, DENSE_D), generator=gen, device=DEVICE)
     cq = torch.randn((QUANT_Q, DENSE_D), generator=gen, device=DEVICE)
+    q_edge = torch.randn((max(EDGE_QS), DENSE_D), generator=gen, device=DEVICE)
     bf16 = torch.bfloat16
+    l2_bf16 = prepare_dense_store(emb, metric="l2", store_dtype=bf16)
+    ip_bf16 = prepare_dense_store(emb, metric="ip", store_dtype=bf16)
+    # (label, queries, store, arguments, the regime the planner must pick)
     cases = [
-        ("ip bf16", q, prepare_dense_store(emb, metric="ip", store_dtype=bf16),
-         dict(k=DENSE_K, metric="ip")),
-        ("l2 bf16", q, prepare_dense_store(emb, metric="l2", store_dtype=bf16),
-         dict(k=DENSE_K, metric="l2")),
+        ("ip bf16", q, ip_bf16, dict(k=DENSE_K, metric="ip"), "wgmma"),
+        ("l2 bf16", q, l2_bf16, dict(k=DENSE_K, metric="l2"), "wgmma"),
         ("l2 int8, rerank pool", q, prepare_dense_store(emb, metric="l2", store_dtype=torch.int8),
-         dict(k=32, k_pad=32, metric="l2")),
+         dict(k=32, k_pad=32, metric="l2"), "wgmma"),
         ("ip int8 x int8", q, prepare_dense_store(emb, metric="ip", store_dtype=torch.int8),
-         dict(k=DENSE_K, metric="ip", mxu_int8=True)),
+         dict(k=DENSE_K, metric="ip", mxu_int8=True), "wgmma"),
         ("l2 f32 coarse quantizer", cq, prepare_dense_store(cent, metric="l2"),
-         dict(k=IVF_NPROBE, k_pad=IVF_NPROBE, metric="l2")),
+         dict(k=IVF_NPROBE, k_pad=IVF_NPROBE, metric="l2"), "staged"),
         ("l2 f32 coarse quantizer, wide nprobe", cq, prepare_dense_store(cent, metric="l2"),
-         dict(k=WIDE_NPROBE, k_pad=WIDE_NPROBE, metric="l2")),
+         dict(k=WIDE_NPROBE, k_pad=WIDE_NPROBE, metric="l2"), "staged"),
         # the probing loop's own traffic: 8 queries over the phase-7 index size
         ("l2 bf16, the loop's shape", q[:N_DENSE_QUESTIONS].contiguous(),
          prepare_dense_store(emb[:N_DOCS], metric="l2", store_dtype=bf16),
-         dict(k=K, metric="l2")),
+         dict(k=K, metric="l2"), "wgmma"),
+        # the planner's tile edges: widths 8, 16, 72 and 3 x 88; full tiles of 72
+        *[(f"l2 bf16, {nq} queries", q_edge[:nq].contiguous(), l2_bf16,
+           dict(k=DENSE_K, metric="l2"), "wgmma") for nq in EDGE_QS],
+        # a store length that is no multiple of the 128-row step or a chunk
+        (f"ip bf16, n {DENSE_N - RAGGED_N_CUT}", q, ip_bf16,
+         dict(k=DENSE_K, metric="ip", n_total=DENSE_N - RAGGED_N_CUT), "wgmma"),
+        # the widest lists (the coarse quantizer's nprobe 256), in bf16
+        ("l2 bf16, k 256", q, l2_bf16, dict(k=256, k_pad=256, metric="l2"), "wgmma"),
     ]
     # widths that are not a multiple of the kernel's 64-deep step (the
-    # CLI's tiny encoder has D = 32)
+    # CLI's tiny encoder has D = 32); D = 100 has a pitch TMA cannot take
     for d in TAIL_DS:
         te = torch.randn((TAIL_N, d), generator=gen, device=DEVICE)
         tq = torch.randn((TAIL_Q, d), generator=gen, device=DEVICE)
         i8 = torch.int8
+        tma = "wgmma" if d * 2 % 16 == 0 else "staged"  # bf16 pitch
+        tma8 = "wgmma" if d % 16 == 0 else "staged"  # int8 pitch
         cases += [
             (f"l2 bf16 D={d}", tq, prepare_dense_store(te, metric="l2", store_dtype=bf16),
-             dict(k=K, metric="l2")),
+             dict(k=K, metric="l2"), tma),
             (f"ip int8 D={d}", tq, prepare_dense_store(te, metric="ip", store_dtype=i8),
-             dict(k=K, k_pad=32, metric="ip")),
-            (f"l2 f32 D={d}", tq, prepare_dense_store(te, metric="l2"), dict(k=K, metric="l2")),
+             dict(k=K, k_pad=32, metric="ip"), tma8),
+            (f"l2 f32 D={d}", tq, prepare_dense_store(te, metric="l2"), dict(k=K, metric="l2"),
+             "staged"),
             (f"ip int8 x int8 D={d}", tq, prepare_dense_store(te, metric="ip", store_dtype=i8),
-             dict(k=K, metric="ip", mxu_int8=True)),
+             dict(k=K, metric="ip", mxu_int8=True), tma8),
         ]
     max_err = 0.0
-    for label, qq, st, kw in cases:
-        kw = dict(kw, sq_norms=st.sq_norms, scales=st.scales, n_total=st.n_docs)
+    for label, qq, st, kw, regime in cases:
+        kw = dict(dict(sq_norms=st.sq_norms, scales=st.scales, n_total=st.n_docs), **kw)
+        dense_mod.last_plan = None
         got = dense_topk(qq, st.embeddings, **kw)
+        plan = dense_mod.last_plan
         ref = dense_topk_plain(qq, st.embeddings, **kw)
         sync()
         err, recall = check_topk(got, ref, f"dense_topk {label}")
+        if label.startswith("ip int8 x int8") and err != 0.0:
+            raise AssertionError(f"dense_topk {label}: int8 x int8 differs from plain by {err}")
+        if DEVICE == "cuda" and plan.regime != regime:
+            raise AssertionError(f"dense_topk {label}: regime {plan.regime}, expected {regime}")
         max_err = max(max_err, err)
         ms = cuda_ms(lambda qq=qq, st=st, kw=kw: dense_topk(qq, st.embeddings, **kw))
         plain_ms = cuda_ms(lambda qq=qq, st=st, kw=kw: dense_topk_plain(qq, st.embeddings, **kw))
-        shape = f"[{qq.shape[0]} x {st.n_docs} x {qq.shape[1]}]"
-        print(f"  dense_topk {label} {shape}, k {kw['k']}: max abs err {err:.3g}, recall@10 "
-              f"{recall}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        nq, d = qq.shape
+        n = kw["n_total"]
+        shape = f"[{nq} x {n} x {d}]"
+        how = "plain" if plan is None else plan.regime if plan.regime == "staged" else (
+            f"wgmma: {plan.qtiles} x {plan.qt} queries at width {plan.ntile}, {plan.nchunks} "
+            f"chunks, {plan.stages} stages of {plan.boxes}, "
+            f"{'resident' if plan.resident else 'streamed'} queries")
+        print(f"  dense_topk {label} {shape}, k {kw['k']} ({how}): max abs err {err:.3g}, "
+              f"recall@10 {recall}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+        elt = st.embeddings.element_size()
         if label == "ip bf16":
-            nq, d = qq.shape
             results["dense_topk"] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                **bound(st.n_docs * d * 2 + nq * d * 2 + nq * kw["k"] * 8,
-                        2 * nq * st.n_docs * d, "bf16")}
+                **bound(n * d * elt + nq * d * 2 + nq * kw["k"] * 8, 2 * nq * n * d, "bf16")}
+            # a yardstick, never called by the port: cuBLAS scores, then top-k
+            qb = qq.to(bf16)
+            yard = cuda_ms(lambda: torch.topk(qb @ st.embeddings.T, kw["k"], dim=1))
+            print(f"  yardstick torch.topk(q @ emb.T, {kw['k']}) (two calls, [{nq} x {n}] "
+                  f"scores written): {yard:.4f} ms")
+            results["dense_topk"]["yardstick_ms"] = yard
+        if label == "l2 bf16, the loop's shape":
+            lb = bound(n * d * elt + n * 4 + nq * d * 2 + nq * kw["k"] * 8, 2 * nq * n * d, "bf16")
+            results["dense_topk"].update(loop_ms=ms, loop_plain_ms=plain_ms,
+                                         loop_bound_ms=lb["bound_ms"])
+            print(f"  the loop's shape: bound {lb['bound_ms']:.4f} ms ({lb['bound_by']})")
         if label.startswith("l2 int8"):
             rerank_emb = emb.to(bf16)
             rr = cuda_ms(lambda: dense_topk_rerank(
@@ -1182,6 +1233,7 @@ def phase_ivf_kernels(results: dict) -> None:
     import numpy as np
     import torch
 
+    from probing_rag_tpu_torch.ops import ivf as ivf_mod
     from probing_rag_tpu_torch.ops.ivf import QT, ivf_topk, ivf_topk_plain
     from probing_rag_tpu_torch.retrieval.ivf import IVFDenseIndex, IVFEngine
 
@@ -1209,24 +1261,34 @@ def phase_ivf_kernels(results: dict) -> None:
             args = (qpad, dd, eng._emb, eng._ids)
             kw = dict(k=DENSE_K, metric="ip", block=IVF_BLOCK, sq_norms=eng._sqn,
                       scales=eng._scales)
-            got, ref = ivf_topk(*args, **kw), ivf_topk_plain(*args, **kw)
+            ivf_mod.last_plan = None
+            got = ivf_topk(*args, **kw)
+            plan = ivf_mod.last_plan
+            ref = ivf_topk_plain(*args, **kw)
             sync()
             label = f"ivf_topk {str(dt)[6:]} Q={nq}"
             err, recall = check_topk(got, ref, label)
+            if DEVICE == "cuda" and plan.regime != "wgmma":
+                raise AssertionError(f"{label}: regime {plan.regime}, expected wgmma")
             max_err = max(max_err, err)
             ms = cuda_ms(lambda args=args, kw=kw: ivf_topk(*args, **kw))
             plain_ms = cuda_ms(lambda args=args, kw=kw: ivf_topk_plain(*args, **kw))
             real = int((desc != index.pad_block).sum())
-            mb = real * IVF_BLOCK * DENSE_D * eng._emb.element_size() / 1e6
-            print(f"  {label}: [{t} tiles x {desc.shape[1]} descriptors, {real} real blocks, "
-                  f"{mb:.0f} MB read]: max abs err {err:.3g}, recall@10 {recall}; "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            rows = real * IVF_BLOCK  # each tile of 8 queries scores its own blocks
+            nbytes = rows * (DENSE_D * eng._emb.element_size() + 4) + nq * DENSE_D * 2 \
+                + nq * DENSE_K * 8
+            how = "plain" if plan is None else (
+                f"{plan.regime}: {plan.nsplit} blocks a tile of {plan.per_split} items")
+            print(f"  {label} ({how}): [{t} tiles x {desc.shape[1]} descriptors, {real} real "
+                  f"blocks, {nbytes / 1e6:.0f} MB read]: max abs err {err:.3g}, recall@10 "
+                  f"{recall}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+            bnd = bound(nbytes, 2 * QT * rows * DENSE_D, "bf16")  # int8 rows widen to bf16
             if dt == torch.bfloat16 and nq == IVF_QS[0]:
-                rows = real * IVF_BLOCK  # each tile of 8 queries scores its own blocks
-                results["ivf_topk"] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                    **bound(rows * (DENSE_D * 2 + 4) + nq * DENSE_D * 2 + nq * DENSE_K * 8,
-                            2 * QT * rows * DENSE_D, "bf16")}
+                results["ivf_topk"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, **bnd}
+            if dt == torch.bfloat16 and nq == N_DENSE_QUESTIONS:
+                results["ivf_topk"].update(loop_ms=ms, loop_plain_ms=plain_ms,
+                                           loop_bound_ms=bnd["bound_ms"], loop_mb=nbytes / 1e6)
+                print(f"  the loop's Q {nq}: bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         del eng
     # a probe wider than dense_topk's lists (a full score row and a sort)
     # on the card against the same probe on the CPU, then the search it plans
@@ -1261,6 +1323,7 @@ def phase_ivf_kernels(results: dict) -> None:
     # a depth that is not a multiple of 64 and a block that is not a
     # multiple of 32, with the wide coarse probe: engines on the card
     # against the same engines on the CPU
+    regimes = set()
     small = torch.randn((TAIL_IVF_N, TAIL_IVF_D), generator=gen, device=DEVICE)
     tq = (small[:TAIL_Q] + 0.1 * torch.randn((TAIL_Q, TAIL_IVF_D), generator=gen,
                                              device=DEVICE)).cpu().numpy()
@@ -1271,13 +1334,15 @@ def phase_ivf_kernels(results: dict) -> None:
             for nprobe in (8, WIDE_NPROBE):
                 card = IVFEngine(tix, nprobe=nprobe, device=DEVICE, store_dtype=dt)
                 cpu = IVFEngine(tix, nprobe=nprobe, device="cpu", store_dtype=dt)
+                ivf_mod.last_plan = None
                 assert_same_search(card.search_embeddings(tq, k=DENSE_K),
                                    cpu.search_embeddings(tq, k=DENSE_K),
                                    f"IVF D={TAIL_IVF_D} block {TAIL_IVF_BLOCK} {metric} {dt} "
                                    f"nprobe {nprobe}")
+                regimes.add(f"{str(dt)[6:]} {getattr(ivf_mod.last_plan, 'regime', 'plain')}")
     print(f"  IVF engines at D={TAIL_IVF_D}, block {TAIL_IVF_BLOCK}, nlist {TAIL_IVF_NLIST} "
           f"(ip and l2; bf16, int8, f32; nprobe 8 and {min(WIDE_NPROBE, TAIL_IVF_NLIST)}): "
-          f"each equal to its CPU engine")
+          f"each equal to its CPU engine; regimes {sorted(regimes)}")
 
 
 def encoder_config():

@@ -1,7 +1,8 @@
 """Build and load layer for the hand-written CUDA kernels in ``csrc/``.
 
 The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
-``nvcc`` process per source, all started together, and linked into one
+``nvcc`` process per source (per part of a source that names parts), all
+started together, and linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``_build/`` beside this file, and is reused while
 a hash of the sources and flags is unchanged. Nothing is built or imported
@@ -21,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -58,8 +60,14 @@ _SIGNATURES = {
     "sort_merge_pass": [_P] * 4 + [_I] + [_LL] * 4 + [_I, _I, _P],
     # doc, imp, q, p, k, sentinel, chunk, nchunks, partial v/i, out v/i, stream
     "segment_topk": [_P, _P, _I, _LL, _I, _I, _LL, _I] + [_P] * 5,
-    "dense_topk": [_P] * 4 + [_I, _I, _LL, _I, _LL, _I, _I, _I] + [_P] * 5,
-    "ivf_topk": [_P] * 6 + [_I] * 9 + [_P] * 5,
+    # q, store, sqn, scales; mode, regime, nq, n, d, qt, ntile, chunk_rows,
+    # nchunks, kp, stages, boxes, cap, resident, smem; partial v/i, out v/i,
+    # stream
+    "dense_topk": [_P] * 4 + [_I, _I, _I, _LL, _I, _I, _I, _LL] + [_I] * 7 + [_P] * 5,
+    # q, desc, store, ids, sqn, scales; mode, regime, nt, pb, pieces,
+    # per_split, nsplit, block, d, pad_block, k, stages, smem; partial v/i,
+    # out v/i, stream
+    "ivf_topk": [_P] * 6 + [_I] * 13 + [_P] * 5,
     # x, q, s, out; mode, transpose, regime, m, n, k, bm, bn, splits, grid;
     # stream
     "matmul_int8": [_P] * 4 + [_I, _I, _I, _LL] + [_I] * 6 + [_P],
@@ -85,10 +93,18 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _parts(src: Path) -> int:
+    """The ``// nvcc-parts: K`` line of a source: it compiles K times, with
+    ``-DNVCC_PART=0 .. K-1 -DNVCC_PARTS=K`` (1 without the line)."""
+    found = re.search(r"^// nvcc-parts: (\d+)$", src.read_text(), re.M)
+    return int(found.group(1)) if found else 1
+
+
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libprobing_kernels_<hash>.so``
-    unless that file exists. Returns its path. Each source compiles in its
-    own ``nvcc`` process, all at once; one more call links the objects.
+    unless that file exists. Returns its path. Each source (each part of a
+    source that names parts, see :func:`_parts`) compiles in its own
+    ``nvcc`` process, all at once; one more call links the objects.
     With ``verbose``, prints the build time and ``ptxas`` resource usage
     (registers, shared memory, spills) of each kernel."""
     cu, cuh = _sources()
@@ -105,11 +121,14 @@ def build(verbose: bool = False) -> Path:
     t0 = time.time()
     objs, procs = [], []
     for src in cu:
-        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
-        objs.append(obj)
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE, text=True)))
+        parts = _parts(src)
+        for part in range(parts):
+            obj = BUILD_DIR / f"{src.stem}.{part}.{tag}.o"
+            defs = [f"-DNVCC_PART={part}", f"-DNVCC_PARTS={parts}"] if parts > 1 else []
+            cmd = [_nvcc(), *NVCC_FLAGS, *defs, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
     logs = []
     for cmd, proc in procs:  # wait for every compile before reporting
         out, err = proc.communicate()

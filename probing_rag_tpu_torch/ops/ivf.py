@@ -16,8 +16,7 @@ are (-inf, -1).
 
 from __future__ import annotations
 
-import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,9 +24,73 @@ from probing_rag_tpu_torch import kernels
 
 QT = 8  # queries per tile
 TOPK_MAX = 16  # kernels/csrc/common.cuh TOPK_MAX (the JAX K_PAD)
-_BLOCKS_PER_SM = 4  # ivf_topk.cu: the split over each tile's descriptors
 _MAX_PARTS = 1024  # topk_merge.cuh: partial lists per query, 32 * MERGE_LISTS
 _MODES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+REGIMES = {"staged": 0, "wgmma": 1}
+STAGED_BLOCKS_PER_SM = 4  # staged: the split over each tile's descriptors
+PIECE = 64  # wgmma: rows of a work item (one warpgroup's M)
+PIPES = 2  # wgmma: pipelines (partial lists) per block, one block per SM
+STAGES = (3, 6)  # the ring's depth, fewest and most
+SMEM_LIMIT = 232448  # the H100's opt-in shared memory per block (227 KB)
+
+
+class IvfPlan(NamedTuple):
+    """What :func:`plan_ivf` chose: the regime, ``nsplit`` blocks per tile
+    (grid y) and their work items: wgmma, 64-row pieces (item i is piece i
+    % pieces of descriptor i // pieces), block y taking items [y * items //
+    nsplit, (y + 1) * items // nsplit), at most ``per_split``; staged,
+    ``per_split`` descriptors each. ``lists`` partial lists per query, and
+    for wgmma the ring's ``stages`` and the dynamic ``smem`` bytes."""
+
+    regime: str
+    pieces: int
+    per_split: int
+    nsplit: int
+    lists: int
+    stages: int = 0
+    smem: int = 0
+
+
+def _wgmma_smem(mode: int, d: int, stages: int) -> int:
+    """ivf_topk.cu ``iw::layout(...).bytes``: the resident 8-query tile,
+    then per pipeline its ring, lists, k-th entries, counters, candidate
+    buffers and barriers rounded up to 1 KB, plus 1 KB to align the base."""
+    chunks = -(-d // 64)
+    a_bytes = PIECE * (64 if mode == _MODES[torch.int8] else 128)
+    bars = stages * a_bytes + QT * TOPK_MAX * 8 + 3 * QT * 4 + 32 + QT * PIECE * 8
+    pipe = -(-(bars + 2 * stages * 8) // 1024) * 1024
+    return chunks * QT * 128 + PIPES * pipe + 1024
+
+
+def plan_ivf(t: int, pb: int, block: int, d: int, dtype: torch.dtype, sm_count: int,
+             ptrs) -> IvfPlan:
+    """The launch of ``ivf_topk.cu`` for ``t`` tiles of ``pb`` descriptors
+    over blocks of ``block`` rows of depth ``d`` in a ``dtype`` store, on a
+    card of ``sm_count`` SMs, with the operands' data pointers ``ptrs``.
+
+    wgmma where TMA can describe the store (bf16 or int8, a pitch that is
+    a multiple of 16 bytes, 16-byte aligned pointers) and the most stages
+    fit: each tile's (descriptor, 64-row piece) items are split into
+    contiguous ranges, one block per SM (a whole number of waves), so that
+    even one tile fills the card. staged otherwise: each tile's descriptor
+    list in slices, about 4 blocks per SM."""
+    mode = _MODES[dtype]
+    pitch = d * torch.empty((), dtype=dtype).element_size()
+    if dtype != torch.float32 and pitch % 16 == 0 and all(p % 16 == 0 for p in ptrs):
+        lo, hi = STAGES
+        stages = next((s for s in range(hi, lo - 1, -1)
+                       if _wgmma_smem(mode, d, s) <= SMEM_LIMIT), 0)
+        if stages:
+            pieces = -(-block // PIECE)
+            items = pb * pieces
+            waves = -(-t // sm_count)
+            nsplit = max(1, min(items, _MAX_PARTS // PIPES, sm_count * waves // t))
+            return IvfPlan("wgmma", pieces, -(-items // nsplit), nsplit, PIPES * nsplit, stages,
+                           _wgmma_smem(mode, d, stages))
+    nsplit = max(1, min(pb, _MAX_PARTS, -(-STAGED_BLOCKS_PER_SM * sm_count // max(t, 1))))
+    per_split = max(1, -(-pb // nsplit))
+    nsplit = max(1, -(-pb // per_split))
+    return IvfPlan("staged", 1, per_split, nsplit, nsplit)
 
 
 def _prepare(queries, desc, store, ids, *, k, metric, block, sq_norms, scales):
@@ -104,7 +167,11 @@ def _sweep_plain(qc, desc, store, ids, *, k, block, sq_norms, scales):
     return torch.cat(vals), torch.cat(out).to(torch.int32)
 
 
+last_plan: Optional[IvfPlan] = None  # the plan of the last kernel launch
+
+
 def _sweep_kernel(qc, desc, store, ids, *, k, block, sq_norms, scales):
+    global last_plan
     t, pb = desc.shape
     rows, d = store.shape
     dev = store.device
@@ -114,24 +181,25 @@ def _sweep_kernel(qc, desc, store, ids, *, k, block, sq_norms, scales):
     out_i = torch.empty((t * QT, k), dtype=torch.int32, device=dev)
     if t == 0:
         return out_v, out_i
-    nsplit = max(1, min(pb, _MAX_PARTS, math.ceil(_BLOCKS_PER_SM * kernels.sm_count(dev) / t)))
-    per_split = math.ceil(pb / nsplit)
-    nsplit = math.ceil(pb / per_split)
-    part_v = torch.empty((nsplit, t * QT, TOPK_MAX), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nsplit, t * QT, TOPK_MAX), dtype=torch.int32, device=dev)
+    plan = plan_ivf(t, pb, block, d, store.dtype, kernels.sm_count(dev),
+                    (qc.data_ptr(), store.data_ptr()))
+    part_v = torch.empty((plan.lists, t * QT, TOPK_MAX), dtype=torch.float32, device=dev)
+    part_i = torch.empty((plan.lists, t * QT, TOPK_MAX), dtype=torch.int32, device=dev)
     ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
     lib = kernels.library()
     with torch.cuda.device(dev):
         kernels.check(
             lib.ivf_topk(
                 qc.data_ptr(), desc.data_ptr(), store.data_ptr(), ids.data_ptr(),
-                ptr(sq_norms), ptr(scales), _MODES[store.dtype], t, pb, per_split, nsplit,
-                block, d, rows // block - 1, k, part_v.data_ptr(), part_i.data_ptr(),
+                ptr(sq_norms), ptr(scales), _MODES[store.dtype], REGIMES[plan.regime], t, pb,
+                plan.pieces, plan.per_split, plan.nsplit, block, d, rows // block - 1, k,
+                plan.stages, plan.smem, part_v.data_ptr(), part_i.data_ptr(),
                 out_v.data_ptr(), out_i.data_ptr(), kernels.stream_ptr(dev),
             ),
             "ivf_topk",
         )
     kernels.LAUNCHES["ivf_topk"] += 1
+    last_plan = plan
     return out_v, out_i
 
 
