@@ -22,9 +22,14 @@ and the script exits non-zero:
    gather in its plain form on the "dma" mode's commonest bucket of that
    stream (with the sort against ``torch.sort``), and the over-cap
    hybrid's kernels on one batch of eight 1,500-token Zipf queries: the
-   E/O gather of the long terms, the weighted assembly of the short tails
-   and the ``k_stop = 1024`` sort of those tails, then the chain's sort
-   and segment top-k on the assembled rows, with their bounds.
+   E/O gather of the long terms, the assembly of the short tails (weighted,
+   unweighted, and cut at half their pad), the assembly alone on a bucket
+   with no long term at ``pad_short`` 2^20 (eight rows of over 2,048
+   distinct short terms), each assembly with the grid
+   ``ops/sparse.py::plan_assemble`` gave it, and its floor (one posting a
+   row, beside a ``fill_`` of the doc rows), and the ``k_stop = 1024``
+   sort of the tails, then the chain's sort and segment top-k on the
+   assembled rows, with their bounds.
 4. BM25 at scale: a seeded Zipf corpus of 100k docs x 60 tokens (50k
    vocabulary), 4096 four-term queries through the kernels, checked
    against the plain path and against the exact host oracle; then the same
@@ -125,6 +130,9 @@ TILE_NETWORK_MAX = 16
 # phase 3's over-cap batch: queries of Zipf text, like the loop's later
 # searches (whole generations and prompts)
 OVERCAP_QUERIES, OVERCAP_TOKENS = 8, 1500
+# and its widest bucket with no long term: the short terms' pad, and the
+# terms a row must exceed (rows over 2048 distinct short terms)
+WIDE_SHORT_PAD, WIDE_SHORT_MIN_TERMS = 1 << 20, 2048
 
 # phase 6: bench_dense.py's shape, the IVF quantizer's, bench_ivf.py's
 DENSE_N, DENSE_Q, DENSE_D = 500_000, 256, 768
@@ -706,18 +714,87 @@ def phase_dma_gather(dma_engine, queries) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
 
 
+def assemble_case(what: str, aargs, pad: int, sentinel: int) -> dict:
+    """``postings_assemble`` on ``aargs`` (compact store, src, rlen, weights
+    or None) against its plain version, bit for bit, then both timed with
+    the bound (8 bytes read for each real posting kept, 8 written a slot);
+    prints the plan it launched (``ops/sparse.py::last_plan``). Returns
+    the kernels line's entry."""
+    from probing_rag_tpu_torch.ops import sparse
+
+    sparse.last_plan = None
+    got = sparse.postings_assemble(*aargs, pad=pad, sentinel=sentinel)
+    plan = sparse.last_plan
+    if DEVICE == "cuda" and plan is None:
+        raise AssertionError(f"postings_assemble {what}: no kernel launched")
+    err = check_equal(got, sparse.postings_assemble_plain(*aargs, pad=pad, sentinel=sentinel),
+                      f"postings_assemble {what}")
+    ms = cuda_ms(lambda: sparse.postings_assemble(*aargs, pad=pad, sentinel=sentinel))
+    plain_ms = cuda_ms(lambda: sparse.postings_assemble_plain(*aargs, pad=pad, sentinel=sentinel))
+    m = aargs[2].shape[0]
+    real = int(aargs[3].sum(dim=1).clamp(max=pad).sum())
+    b = bound(real * 8 + m * pad * 8, 0, "f32")
+    grid = "none (CPU)" if plan is None else (
+        f"span {plan.span}, grid {plan.grid} ({plan.grid[0] * plan.grid[1]} blocks)")
+    print(f"  postings_assemble, {what}, {real} postings kept: equal; plan {grid}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
+
+
+def wide_short_bucket(engine, rng):
+    """The over-cap hybrid's widest bucket with no long term (the route
+    that runs ``postings_assemble`` alone): ``OVERCAP_QUERIES`` rows of
+    distinct short terms of the store, each row over half of
+    ``WIDE_SHORT_PAD`` postings, so the engine's planner
+    (``_fallback_chunks``) gives it ``pad_short = WIDE_SHORT_PAD``. The
+    terms come from the longest short lists, as few as hold
+    ``WIDE_SHORT_PAD`` postings. Returns (rows, pad_short, the most terms a
+    row, the assembly's arguments on the card)."""
+    import numpy as np
+    import torch
+
+    lens = engine._term_lens
+    short = np.nonzero((engine._store.aligned_len == 0) & (lens > 0))[0]
+    short = short[np.argsort(-lens[short], kind="stable")]
+    pool = short[: int(np.searchsorted(np.cumsum(lens[short]), WIDE_SHORT_PAD)) + 1]
+    if lens[pool].sum() < WIDE_SHORT_PAD:
+        raise AssertionError(f"the store's short terms hold {lens[pool].sum()} postings, "
+                             f"under {WIDE_SHORT_PAD}")
+    rows, weights = [], []
+    for _ in range(OVERCAP_QUERIES):
+        ids = rng.permutation(pool)
+        target = int(rng.uniform(0.55, 0.95) * WIDE_SHORT_PAD)
+        ids = ids[: int(np.searchsorted(np.cumsum(lens[ids]), target)) + 1]
+        rows.append(ids)
+        weights.append(rng.integers(1, 4, len(ids)).astype(np.float32))
+    chunks = list(engine._fallback_chunks(rows, weights))
+    if len(chunks) != 1 or chunks[0][1] != 0 or chunks[0][2] != WIDE_SHORT_PAD:
+        raise AssertionError(f"wide short bucket planned as {[c[1:3] for c in chunks]}")
+    _, _, pad_short, desc = chunks[0]
+    ssrc, srlen, sw = (torch.from_numpy(a).to(DEVICE) for a in desc[3:])
+    st = engine._dev_store
+    tq = max(len(r) for r in rows)
+    if tq <= WIDE_SHORT_MIN_TERMS:
+        raise AssertionError(f"wide short bucket: {tq} terms a row, want over "
+                             f"{WIDE_SHORT_MIN_TERMS}")
+    return len(rows), pad_short, tq, (st[4], st[5], ssrc, srlen, sw)
+
+
 def phase_hybrid_kernels(engine, index, results: dict, dma_gather: dict) -> None:
     """The over-cap hybrid's kernels on one batch of Zipf-text queries, on
     the first chunk the engine plans with long terms: the E/O gather of the
-    long terms with block weights, the weighted assembly of the short
-    tails, the ``k_stop = 1024`` sort of the tails; each against its plain
-    version. Then the chunk's full sort and segment top-k times."""
+    long terms with block weights, the assembly of the short tails
+    (weighted, unweighted, and cut at half their pad; then the widest
+    bucket with no long term, ``wide_short_bucket``, and one posting a
+    row, the grid's floor), the ``k_stop = 1024`` sort of the tails; each
+    against its plain version. Then the chunk's full sort and segment
+    top-k times."""
     import numpy as np
     import torch
 
     from probing_rag_tpu_torch.ops.sort import sort_pairs, sort_pairs_plain
     from probing_rag_tpu_torch.ops.sparse import (
-        postings_assemble, postings_assemble_plain, postings_gather, postings_gather_plain,
+        postings_assemble, postings_gather, postings_gather_plain,
     )
     from probing_rag_tpu_torch.retrieval.bm25 import _hybrid_rows, _weight_blocks
 
@@ -753,20 +830,33 @@ def phase_hybrid_kernels(engine, index, results: dict, dma_gather: dict) -> None
                                   "plain_ms": plain_ms, "library_ms": None, **b}
 
     aargs = (st[4], st[5], ssrc, srlen, sw)
-    akw = dict(pad=pad_short, sentinel=sentinel)
-    tail = postings_assemble(*aargs, **akw)
-    err = check_equal(tail, postings_assemble_plain(*aargs, **akw),
-                      f"postings_assemble [{m}, {pad_short}]")
-    ms = cuda_ms(lambda: postings_assemble(*aargs, **akw))
-    plain_ms = cuda_ms(lambda: postings_assemble_plain(*aargs, **akw))
-    real = int(desc[4].sum())
-    b = bound(real * 8 + m * pad_short * 8, 0, "f32")
-    print(f"  postings_assemble, weighted [{m}, {pad_short}], {real} postings of "
-          f"{int((desc[4] > 0).sum())} short terms: equal; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms")
-    results["postings_assemble"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                    "library_ms": None, **b}
+    results["postings_assemble"] = assemble_case(
+        f"weighted [{m}, {pad_short}], {int((desc[4] > 0).sum())} short terms", aargs,
+        pad_short, sentinel)
+    extra = {"unweighted": assemble_case(f"unweighted [{m}, {pad_short}], the same terms",
+                                         aargs[:4] + (None,), pad_short, sentinel),
+             "cut": assemble_case(f"weighted [{m}, {pad_short // 2}], the same terms, rows "
+                                  "cut at pad", aargs, pad_short // 2, sentinel)}
+    rows_w, pad_w, tq_w, wargs = wide_short_bucket(engine, rng)
+    extra["wide"] = assemble_case(f"weighted [{rows_w}, {pad_w}], no long term, {tq_w} short "
+                                  "terms at most a row", wargs, pad_w, sentinel)
+    # the floor of this grid at the first shape: one posting a row, so the
+    # launch, the descriptor and compact loads and the stores; and one
+    # library kernel writing the doc rows alone
+    one = (st[4], st[5], torch.zeros((m, 1), dtype=torch.int32, device=DEVICE),
+           torch.ones((m, 1), dtype=torch.int32, device=DEVICE), None)
+    extra["floor"] = assemble_case(f"one posting a row [{m}, {pad_short}]", one, pad_short,
+                                   sentinel)
+    scratch = torch.empty((m, pad_short), dtype=torch.int32, device=DEVICE)
+    fill_ms = cuda_ms(lambda: scratch.fill_(sentinel))
+    print(f"  fill_ of [{m}, {pad_short}] int32 (half the assembly's writes): {fill_ms:.4f} ms")
+    results["postings_assemble"]["wide_shape"] = f"[{rows_w}, {pad_w}]"
+    results["postings_assemble"]["fill_ms"] = fill_ms
+    for case, r in extra.items():  # the kernels line's extra shapes
+        results["postings_assemble"].update(
+            {f"{case}_{k}": r[k] for k in ("ms", "plain_ms", "bound_ms")})
 
+    tail = postings_assemble(*aargs, pad=pad_short, sentinel=sentinel)
     sk, sv = sort_pairs(*tail, k_stop=block)
     rk, rv = sort_pairs_plain(*tail, k_stop=block)
     sync()
@@ -1975,7 +2065,8 @@ def main() -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every kernel's fields, then the extra shapes some carry (the wide
-    # sort's 8M row, the over-cap chain's sort and segment top-k)
+    # sort's 8M row, the over-cap chain's sort and segment top-k, the
+    # assembly's unweighted, cut and widest cases)
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name], **{k: r[k] for k in keys},

@@ -72,7 +72,8 @@ _SIGNATURES = {
     # stream
     "matmul_int8": [_P] * 4 + [_I, _I, _I, _LL] + [_I] * 6 + [_P],
     "postings_gather": [_P] * 7 + [_I, _I, _LL, _I, _I, _P, _P, _P],
-    "postings_assemble": [_P] * 5 + [_I, _I, _LL, _LL, _I, _P, _P, _P],
+    # doc_c, imp_c, src, rlen, wt; q, tq, pad, ld, span, sentinel; out doc/imp, stream
+    "postings_assemble": [_P] * 5 + [_I, _I, _LL, _LL, _LL, _I, _P, _P, _P],
 }
 
 

@@ -13,7 +13,7 @@ other switch.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -276,6 +276,38 @@ def postings_gather(
 
 # ------------------------------------------------- compact short-term assembly
 
+# postings_assemble.cu: threads of a block (terms one scan chunk covers) and
+# the slots a block writes per step, 4 a thread
+ASSEMBLE_THREADS = 512
+ASSEMBLE_TILE = 4 * ASSEMBLE_THREADS
+ASSEMBLE_BLOCKS_PER_SM = 2
+
+
+class AssemblePlan(NamedTuple):
+    """The grid of ``postings_assemble.cu``: block (x, y) writes slots
+    ``[x * span, (x + 1) * span)`` of row y (the last block of a row stops
+    at ``pad``)."""
+
+    span: int  # slots of a row each block writes, a multiple of ASSEMBLE_TILE
+    grid: Tuple[int, int]  # (blocks along a row, rows)
+
+
+def plan_assemble(q: int, pad: int, sm_count: int) -> AssemblePlan:
+    """Split [q, pad] into blocks of whole tiles, for about
+    ``ASSEMBLE_BLOCKS_PER_SM`` blocks on each of ``sm_count`` SMs where
+    ``pad`` has the tiles: a block takes ``ceil(tiles / per_row)`` tiles,
+    so a row has at most ``per_row`` blocks (the grid has at most
+    ``2 * sm_count + q`` at any ``pad``), one a tile while the row has at
+    most ``per_row`` tiles, and over ``per_row / 2`` once it has more (the
+    grid then covers every SM)."""
+    tiles = max(-(-pad // ASSEMBLE_TILE), 1)
+    per_row = -(-ASSEMBLE_BLOCKS_PER_SM * sm_count // max(q, 1))
+    span = -(-tiles // per_row) * ASSEMBLE_TILE
+    return AssemblePlan(span, (-(-pad // span), q))
+
+
+last_plan: Optional[AssemblePlan] = None  # the plan of the last postings_assemble launch
+
 
 def postings_assemble_plain(
     doc_c, imp_c, src, rlen, wt=None, *, pad: int, sentinel: int,
@@ -319,19 +351,30 @@ def postings_assemble(
     (doc int32, impact f32) row, each impact times its term's weight, with
     (sentinel, 0) past the row total: the contract of
     ``postings_assemble_pallas`` (weights as f32). ``pad`` is at least the
-    largest row total (a posting past it is cut). ``out`` (two [Q, pad]
-    views with contiguous rows and one row stride, e.g. the last ``pad``
-    columns of a wider buffer) receives the rows and is returned."""
+    largest row total (a posting past it is cut), and a multiple of 4.
+    ``out`` (two [Q, pad] views with contiguous rows, one row stride and
+    every row 16-byte aligned, e.g. the last ``pad`` columns of a wider
+    buffer) receives the rows and is returned. The kernel's grid is
+    ``plan_assemble``'s; no other launch runs before it."""
+    global last_plan
     dev = src.device
     _check_1d((doc_c, imp_c), dev, "compact postings")
     q, tq = _check_desc((src, rlen), dev)
     if wt is not None and (wt.dtype != torch.float32 or wt.shape != (q, tq) or wt.device != dev):
         raise ValueError(f"wt: need [{q}, {tq}] f32 on {dev}")
+    if pad % 4:
+        raise ValueError(f"postings_assemble writes 16-byte vectors: pad ({pad}) must be a "
+                         "multiple of 4")
     if out is not None:
         od, oi = out
         if od.dtype != torch.int32 or oi.dtype != torch.float32 or od.shape != (q, pad) \
                 or oi.shape != (q, pad) or od.device != dev or oi.device != dev:
             raise ValueError(f"out: need [{q}, {pad}] int32 and f32 views on {dev}")
+        if od.stride(1) != 1 or oi.stride(1) != 1 or od.stride(0) != oi.stride(0):
+            raise ValueError("postings_assemble writes rows that are contiguous, one stride apart")
+        if od.data_ptr() % 16 or oi.data_ptr() % 16 or od.stride(0) % 4:
+            raise ValueError("postings_assemble writes 16-byte vectors: every row of out "
+                             "must start 16-byte aligned")
     if dev.type == "cpu":
         got = postings_assemble_plain(doc_c, imp_c, src, rlen, wt, pad=pad, sentinel=sentinel)
         if out is None:
@@ -347,22 +390,22 @@ def postings_assemble(
         out = (torch.empty((q, pad), dtype=torch.int32, device=dev),
                torch.empty((q, pad), dtype=torch.float32, device=dev))
     od, oi = out
-    if od.stride(1) != 1 or oi.stride(1) != 1 or od.stride(0) != oi.stride(0):
-        raise ValueError("postings_assemble writes rows that are contiguous, one stride apart")
-    if q == 0:
+    if q == 0 or pad == 0:
         return out
+    plan = plan_assemble(q, pad, kernels.sm_count(dev))
     lib = kernels.library()
     with torch.cuda.device(dev):
         kernels.check(
             lib.postings_assemble(
                 doc_c.data_ptr(), imp_c.data_ptr(), src.data_ptr(), rlen.data_ptr(),
                 wt.data_ptr() if wt is not None else None,
-                q, tq, pad, od.stride(0), sentinel,
+                q, tq, pad, od.stride(0), plan.span, sentinel,
                 od.data_ptr(), oi.data_ptr(), kernels.stream_ptr(dev),
             ),
             "postings_assemble",
         )
     kernels.LAUNCHES["postings_assemble"] += 1
+    last_plan = plan
     return out
 
 
