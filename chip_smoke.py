@@ -75,7 +75,8 @@ and the script exits non-zero:
 8. quantized main path: phase 5's bf16 weights quantized on the card
    (per-channel int8); the int8-weight matmul kernel against its plain
    version at every product of a Gemma-2B decode step (M = 8, the tied
-   head transposed), at every prefill product (M = 8 x the padded prompt
+   head transposed), at every product of the speculative verify forward
+   (M = 40), at every prefill product (M = 8 x the padded prompt
    length), at a ragged prefill M and a transposed weight at prefill M, at
    ragged shapes (wgmma with ragged K and N, ragged shapes for the tail)
    and in f32, each case with the regime the planner gave it (wgmma,
@@ -86,9 +87,26 @@ and the script exits non-zero:
    ``--quantize int8 --kv-int8`` over the phase-4 BM25 index (8
    questions, all 4 rounds) with its own launch counts, and the prefill
    and decode seconds of each of its generate calls; then
-   prefill seconds, decode tokens/s at batch 8 and peak memory for bf16,
-   int8 + int8 KV, int8 + act_int8_rows 512 + int8 KV and rank-1 int4 +
-   int4 KV.
+   prefill seconds, decode tokens/s at batch 8 (the graphed step and the
+   eager one) and peak memory for bf16, int8 + int8 KV, int8 +
+   act_int8_rows 512 + int8 KV and rank-1 int4 + int4 KV.
+9. generation: at Gemma-2B width on phase 5's weights, batch 8, the
+   retrieval-round prompts, 150 tokens with stops off. The decode step
+   replayed as a CUDA graph against the same step run eagerly, bf16 and
+   int8 weights + int8 KV: tokens, validity, counts and pooled captures
+   bit-equal, matmul_int8 launched 127 times a step plus the prefill's,
+   the capture's seconds, host checks, tokens/s both ways, the step's
+   wall and one replay's device time, and a ``torch.profiler`` breakdown
+   of a replay; speculative decode (k 4) on the weights upcast to f32
+   equal to graphed greedy with the prompt drafter and with the oracle
+   drafter at acceptance 1 (greedy's tokens), and in bf16 with both
+   drafters (rows equal, rounds, tokens per forward, tokens/s); a sampled
+   generate (top_k 40, top_p 0.9, temperature 0.7, freq_penalty 0.5)
+   that repeats under one seed and equals the eager step; the probing
+   loop with ``spec_k`` 4 over the phase-4 BM25 index.
+
+The probing loops of phases 5, 7, 8 and 9 run the decode step graphed
+(``models/graphs.py``), as ``generate`` does on the card by default.
 
 Kernel times are CUDA-event means after a warm-up, with the card given a
 head start (``cuda_ms``). The kernels line lists, for each kernel, its
@@ -157,10 +175,13 @@ TAIL_IVF_D, TAIL_IVF_N, TAIL_IVF_NLIST, TAIL_IVF_BLOCK = 40, 20_000, 64, 48
 
 # phase 8: the decode batch and Gemma-2B's products as (K, N)
 MM_DECODE_M = 8
+MM_VERIFY_M = 40  # the speculative verify forward: batch 8 x (k + 1) = 5 tokens
 GEMMA_MM = {"wq/wo": (2048, 2048), "wk/wv": (2048, 256), "w_gate/w_up": (2048, 16384),
             "w_down": (16384, 2048)}
 TIED_HEAD = (2048, 256_000)  # (K, N): the [V, D] embedding read transposed
 N_QUANT_QUESTIONS = 8
+GEN_TOKENS = 150  # phase 9's decode length, stops off
+SPEC_K = 4
 
 # H100 SXM data sheet: HBM rate and dense peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -1654,6 +1675,9 @@ def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
     cases = [(f"decode {name}", MM_DECODE_M, k, n, False, bf16, "small_m")
              for name, (k, n) in GEMMA_MM.items()]
     cases += [("decode tied head", MM_DECODE_M, *TIED_HEAD, True, bf16, "small_m")]
+    cases += [(f"verify {name}", MM_VERIFY_M, k, n, False, bf16, "small_m")
+              for name, (k, n) in GEMMA_MM.items()]
+    cases += [("verify tied head", MM_VERIFY_M, *TIED_HEAD, True, bf16, "small_m")]
     cases += [(f"prefill {name}", prefill_m, *GEMMA_MM[name], False, bf16, "wgmma")
               for name in GEMMA_MM]
     cases += [("prefill ragged M", prefill_m + 5, *GEMMA_MM["w_gate/w_up"], False, bf16, "wgmma"),
@@ -1715,8 +1739,11 @@ def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
         if label == "prefill w_gate/w_up":
             prefill = {"prefill_ms": ms, "prefill_bound_ms": b["bound_ms"],
                        "prefill_cublas_bf16_ms": cublas_ms}
+        if label == "verify w_gate/w_up":
+            verify = {"verify_ms": ms, "verify_bound_ms": b["bound_ms"],
+                      "verify_plain_ms": plain_ms, "verify_regime": plan.regime if plan else None}
         del x, q, s
-    results["matmul_int8"].update(prefill, max_abs_err=max_err)
+    results["matmul_int8"].update(prefill, **verify, max_abs_err=max_err)
     phase_matmul_threshold(gen)
 
 
@@ -1879,6 +1906,11 @@ def gib(nbytes: float) -> float:
     return nbytes / 2**30
 
 
+def tree_bytes(tree) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
 def phase_quantized(lm, index, questions, results: dict) -> dict:
     """``rag-run --quantize int8 --kv-int8`` at Gemma-2B width: phase 5's
     bf16 parameters quantized on the card, the kernel against its plain
@@ -1894,14 +1926,11 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
     from probing_rag_tpu_torch import kernels
     from probing_rag_tpu_torch.models.decode import StopTables, _pad_batch, generate
     from probing_rag_tpu_torch.models.gemma import quantize_lm_params
+    from probing_rag_tpu_torch.models.graphs import GRAPHS
     from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
     from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
 
     params, cfg, probers, tok, store = lm
-
-    def tree_bytes(tree) -> int:
-        return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
-                   for v in tree.values())
 
     sync()
     t0 = time.time()
@@ -1963,25 +1992,286 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
 
-        def timed(n):
+        def timed(n, eager=False):
             sync()
             t = time.time()
-            _, res = generate(p, c, tok, prompts8, max_new_tokens=n, stop_tables=stops, **kv)
+            _, res = generate(p, c, tok, prompts8, max_new_tokens=n, stop_tables=stops,
+                              eager=eager, **kv)
             sync()
             return time.time() - t, res
 
         timed(1)
         t1, _ = timed(1)
+        timed(150)  # the first graphed call captures the step
         t150, res = timed(150)
-        if int(res.n_generated.sum()) != 8 * 150 or not np.isfinite(res.pooled_captures).all():
-            raise AssertionError(f"{label}: decode did not produce 150 finite steps per row")
-        print(f"  {label}: prefill {t1:.3f}s (8 x {padded_len} tokens), 150 tokens {t150:.3f}s -> "
-              f"{8 * 149 / (t150 - t1):.1f} decode tokens/s; weights {gib(tree_bytes(p)):.2f} GiB, "
+        t_eager, res_eager = timed(150, eager=True)
+        for r in (res, res_eager):
+            if int(r.n_generated.sum()) != 8 * 150 or not np.isfinite(r.pooled_captures).all():
+                raise AssertionError(f"{label}: decode did not produce 150 finite steps per row")
+        print(f"  {label}: prefill {t1:.3f}s (8 x {padded_len} tokens), 150 tokens {t150:.3f}s "
+              f"graphed -> {8 * 149 / (t150 - t1):.1f} decode tokens/s, {t_eager:.3f}s eager -> "
+              f"{8 * 149 / (t_eager - t1):.1f}; weights {gib(tree_bytes(p)):.2f} GiB, "
               f"peak {gib(torch.cuda.max_memory_allocated()):.2f} GiB "
               f"({gib(torch.cuda.max_memory_allocated() - before):.2f} over the "
               f"{gib(before):.2f} allocated before)", flush=True)
         del p
+        GRAPHS.clear()
     del q8, pipe, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+class LastLoop:
+    """Keeps the decode loop (``models/graphs.py::Loop``) of each generate
+    call made while the context is open (``models/decode.py``'s
+    ``_decode_loop``, wrapped): its steps, host checks and graph."""
+
+    def __enter__(self):
+        from probing_rag_tpu_torch.models import decode
+
+        self.loop, self.saved = None, decode._decode_loop
+
+        def keep(*args, **kw):
+            self.loop = self.saved(*args, **kw)
+            return self.loop
+
+        decode._decode_loop = keep
+        return self
+
+    def __exit__(self, *exc):
+        from probing_rag_tpu_torch.models import decode
+
+        decode._decode_loop = self.saved
+        return False
+
+
+def replay_ms(loop, reps: int = 20) -> float:
+    """Device milliseconds of one replay of ``loop``'s captured step
+    (``cuda_ms``, the raw graph: these launches count nowhere), its step
+    counter reset first so that every replay writes inside its buffers."""
+    import torch
+
+    with torch.inference_mode():  # the loop's buffers are inference tensors
+        loop.state.step.zero_()
+        return cuda_ms(loop.graph.graph.replay, reps=reps)
+
+
+def step_profile(loop, reps: int = 5, top: int = 8) -> str:
+    """Where one replay of ``loop``'s captured step spends its device time:
+    ``torch.profiler`` over ``reps`` raw replays, the kernels' device
+    milliseconds a step by name, the largest ``top`` and the total."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        loop.state.step.zero_()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                loop.graph.graph.replay()
+            sync()
+    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        return "the profiler saw no device time"
+    total = sum(ms for ms, _ in rows)
+    return (f"{total:.3f} ms in {len(rows)} kernels; " + "; ".join(
+        f"{name[:60]} {ms:.3f}" for ms, name in rows[:top]))
+
+
+def phase_generation(lm, index, questions) -> dict:
+    """Generation as the JAX package runs it, at Gemma-2B width on phase 5's
+    bf16 weights, batch 8, the retrieval-round prompts, ``GEN_TOKENS`` new
+    tokens with stops off: the graphed decode against the eager step (bf16,
+    and int8 weights + int8 KV, whose matmul_int8 launches must be 127 a
+    step plus the prefill's), speculative decode (k = ``SPEC_K``) against
+    greedy in f32 and bf16 with the prompt and oracle drafters, seeded
+    sampling, and the probing loop with ``spec_k`` over the phase-4 BM25
+    index. Returns that loop's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models.decode import StopTables, _pad_batch, generate
+    from probing_rag_tpu_torch.models.gemma import CaptureSpec, quantize_lm_params
+    from probing_rag_tpu_torch.models.graphs import GRAPHS
+    from probing_rag_tpu_torch.models.sampling import SamplingConfig
+    from probing_rag_tpu_torch.models.speculative import decode_speculative
+    from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+
+    params, cfg, probers, tok, store = lm
+    engine = BM25Engine(index, device=DEVICE)
+    questions = questions[:N_QUANT_QUESTIONS]
+    prompts8 = AdaptiveRAGPipeline(params, cfg, tok, engine, store, probers,
+                                   RAGConfig(top_k=K)).retrieval_prompts(questions, questions)
+    stops = StopTables.disabled(cfg.vocab_size)
+    n, steps_max = GEN_TOKENS, GEN_TOKENS - 1
+
+    def run(p, c, max_new=n, **kw):
+        with LastLoop() as spy:
+            sync()
+            t0 = time.time()
+            _, res = generate(p, c, tok, prompts8, max_new_tokens=max_new, stop_tables=stops, **kw)
+            sync()
+        return time.time() - t0, res, spy.loop
+
+    def same(a, b, what):
+        for name in ("tokens", "token_valid", "n_generated", "n_pooled"):
+            if not np.array_equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"{what}: {name} differ")
+
+    tokens, valid = _pad_batch([tok.encode(q, add_bos=True) for q in prompts8], tok.pad_id)
+    print(f"  batch 8, prompts padded to {tokens.shape[1]} tokens, {n} new tokens, stops off")
+    t_prefill = {}
+    graphed = {}
+    q8 = quantize_lm_params(params, bits=8)
+    for label, p, kv in (("bf16", params, {}), ("int8 + int8 KV", q8, dict(kv_int8=True))):
+        GRAPHS.clear()
+        run(p, cfg, 1, **kv)
+        kernels.reset_launches()
+        t1, _, _ = run(p, cfg, 1, **kv)
+        prefill_mm = kernels.LAUNCHES["matmul_int8"]
+        t_first, _, _ = run(p, cfg, **kv)  # captures the step
+        kernels.reset_launches()
+        t_graph, res_g, loop = run(p, cfg, **kv)
+        mm = kernels.LAUNCHES["matmul_int8"]
+        t_eager, res_e, eloop = run(p, cfg, eager=True, **kv)
+        same(res_g, res_e, f"{label}: graph vs eager")
+        if loop.steps != steps_max or int(res_g.n_generated.sum()) != 8 * n:
+            raise AssertionError(f"{label}: {loop.steps} steps, {res_g.n_generated} generated")
+        pooled_diff = float(np.abs(res_g.pooled_captures - res_e.pooled_captures).max())
+        if not np.array_equal(res_g.pooled_captures, res_e.pooled_captures):
+            raise AssertionError(f"{label}: pooled captures of graph and eager differ by "
+                                 f"{pooled_diff}")
+        per_step = 7 * cfg.n_layers + 1  # seven products a layer and the head: 127 at Gemma-2B
+        if kv and mm != prefill_mm + per_step * loop.steps:
+            raise AssertionError(f"{label}: matmul_int8 launched {mm} times, not the prefill's "
+                                 f"{prefill_mm} + {per_step} x {loop.steps}")
+        step_ms = replay_ms(loop)
+        wall_g = (t_graph - t1) / loop.steps * 1e3
+        wall_e = (t_eager - t1) / eloop.steps * 1e3
+        print(f"  {label}: graph equals eager (tokens, validity, counts; pooled captures bit-equal, "
+              f"max abs diff {pooled_diff:.3g}); capture {t_first - t_graph:.3f}s; {loop.checks} "
+              f"host checks (graph), {eloop.checks} (eager) for {loop.steps} steps; prefill "
+              f"{t1:.3f}s; decode {8 * loop.steps / (t_graph - t1):.1f} tokens/s graphed, "
+              f"{8 * eloop.steps / (t_eager - t1):.1f} eager; step wall {wall_g:.2f} ms graphed, "
+              f"{wall_e:.2f} ms eager, device {step_ms:.3f} ms (one replay); matmul_int8 "
+              f"launches {mm} (prefill {prefill_mm})", flush=True)
+        print(f"  {label} step, device time by kernel (torch.profiler, ms a step): "
+              f"{step_profile(loop)}", flush=True)
+        t_prefill[label] = t1
+        graphed[label] = res_g
+    del q8
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+
+    # speculative decode: exact against greedy in f32; rows equal in bf16
+    stop_t = tuple(torch.from_numpy(a).to(DEVICE) for a in
+                   (stops.contains_dbl_nl, stops.ends_nl, stops.starts_nl))
+    prompt_t = torch.from_numpy(tokens).long().to(DEVICE)
+    valid_t = torch.from_numpy(valid).to(DEVICE)
+
+    def spec(p, c, drafter="prompt", oracle=None):
+        sync()
+        t0 = time.time()
+        out = decode_speculative(p, prompt_t, valid_t, stop_t, oracle, cfg=c,
+                                 capture=CaptureSpec.for_probing(c), max_new_tokens=n,
+                                 eos_id=tok.eos_id, k=SPEC_K, drafter=drafter)
+        sync()
+        return time.time() - t0, [o.cpu().numpy() if torch.is_tensor(o) else o for o in out]
+
+    def to_f32(tree):
+        return {k: to_f32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+    p32, c32 = to_f32(params), dataclasses.replace(cfg, compute_dtype=torch.float32)
+    run(p32, c32, 1)
+    t1_32, _, _ = run(p32, c32, 1)
+    t_g32, res32, _ = run(p32, c32)
+    t_s32, out32 = spec(p32, c32)
+    t_s32, out32 = spec(p32, c32)  # the second call replays the captured round
+    for i, name in enumerate(("tokens", "token_valid", "pooled_captures", "n_pooled",
+                              "n_generated")):
+        ref = getattr(res32, name)
+        if name == "pooled_captures":
+            diff32 = float(np.abs(out32[i] - ref).max())
+        elif not np.array_equal(out32[i].astype(ref.dtype), ref):
+            raise AssertionError(f"f32 speculative decode: {name} differ from greedy")
+    rounds32 = out32[5]["rounds"]
+    print(f"  f32 (weights {gib(tree_bytes(p32)):.2f} GiB): speculative k {SPEC_K} equals graphed "
+          f"greedy (tokens, validity, counts; pooled max abs diff {diff32:.3g}); {rounds32} rounds, "
+          f"{(n - 1) / rounds32:.3f} tokens a forward; {8 * (n - 1) / (t_s32 - t1_32):.1f} tokens/s "
+          f"against greedy's {8 * (n - 1) / (t_g32 - t1_32):.1f}", flush=True)
+    # the oracle drafter on greedy's own tokens: acceptance 1, the ceiling
+    oracle32 = torch.from_numpy(res32.tokens).long().to(DEVICE)
+    spec(p32, c32, "oracle", oracle32)
+    t_o32, orc32 = spec(p32, c32, "oracle", oracle32)
+    if not np.array_equal(orc32[0].astype(np.int32), res32.tokens):
+        raise AssertionError("f32 speculative decode, oracle drafter: tokens differ from greedy")
+    rounds = orc32[5]["rounds"]
+    print(f"  f32 speculative k {SPEC_K}, oracle drafter (greedy's tokens): equals greedy; "
+          f"{rounds} rounds, {(n - 1) / rounds:.3f} tokens a forward; "
+          f"{8 * (n - 1) / (t_o32 - t1_32):.1f} tokens/s", flush=True)
+    del p32
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+
+    greedy = graphed["bf16"]
+    t1 = t_prefill["bf16"]
+    oracle = torch.from_numpy(greedy.tokens).long().to(DEVICE)
+    for drafter, orc in (("prompt", None), ("oracle", oracle)):
+        spec(params, cfg, drafter, orc)
+        t_s, out = spec(params, cfg, drafter, orc)
+        rows = (out[0].astype(np.int32) == greedy.tokens).all(axis=1)
+        differ = np.argwhere(out[0].astype(np.int32) != greedy.tokens)
+        first = int(differ[:, 1].min()) if len(differ) else None
+        rounds = out[5]["rounds"]
+        print(f"  bf16 speculative k {SPEC_K}, {drafter} drafter: {int(rows.sum())} of 8 rows equal "
+              f"to graphed greedy (first differing position {first}); {rounds} rounds, "
+              f"{(n - 1) / rounds:.3f} tokens a forward; {8 * (n - 1) / (t_s - t1):.1f} tokens/s",
+              flush=True)
+    GRAPHS.clear()
+
+    # seeded sampling: repeats under one seed, graphed equals eager
+    sampling = SamplingConfig(do_sample=True, top_k=40, top_p=0.9, temperature=0.7,
+                              freq_penalty=0.5)
+    _, a, _ = run(params, cfg, sampling=sampling, seed=3)
+    t_b, b, _ = run(params, cfg, sampling=sampling, seed=3)
+    _, e, _ = run(params, cfg, sampling=sampling, seed=3, eager=True)
+    _, other, _ = run(params, cfg, sampling=sampling, seed=4)
+    same(a, b, "sampled decode, one seed twice")
+    same(a, e, "sampled decode, graph vs eager")
+    if np.array_equal(a.tokens, other.tokens):
+        raise AssertionError("sampled decode: seeds 3 and 4 gave the same tokens")
+    print(f"  sampled (top_k 40, top_p 0.9, temperature 0.7, freq_penalty 0.5): seed 3 twice and "
+          f"eager equal, seed 4 differs; {8 * (n - 1) / (t_b - t1):.1f} tokens/s graphed",
+          flush=True)
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+
+    # the probing loop with speculative decode
+    retriever = TimedRetriever(engine)
+    rag = RAGConfig(retr_method="probing", threshold=1e6, top_k=K, max_new_tokens=150,
+                    batch_size=8, spec_k=SPEC_K)
+    pipe = AdaptiveRAGPipeline(params, cfg, tok, retriever, store, probers, rag)
+    kernels.reset_launches()
+    sync()
+    t0 = time.time()
+    result = pipe.run(questions)
+    sync()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    print(f"  spec_k {SPEC_K} probing loop over {len(questions)} questions: {wall:.1f}s wall, of "
+          f"which BM25 search {retriever.seconds:.3f}s ({len(retriever.calls)} calls); retr_count "
+          f"{result.retr_count_list}; kernel launches {launches}", flush=True)
+    if result.retr_count_list != [3] * len(questions):
+        raise AssertionError(f"spec loop: retr_count {result.retr_count_list} != all 3")
+    missing = [name for name in BM25_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the spec loop's path: {missing}")
+    GRAPHS.clear()
     torch.cuda.empty_cache()
     return launches
 
@@ -2062,6 +2352,8 @@ def main() -> int:
     launches.update({n: dense_launches[n] for n in DENSE_KERNELS})
     with Phase("8 quantized main path"):
         launches["matmul_int8"] = phase_quantized(lm, index, questions, results)["matmul_int8"]
+    with Phase("9 generation"):
+        phase_generation(lm, index, questions)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every kernel's fields, then the extra shapes some carry (the wide

@@ -10,7 +10,9 @@ Port of the BM25 and dense paths of ``probing_rag_tpu/cli/main.py``:
 (``--dense-int8``: the SQ8 store with re-ranking; ``--dense-ivf``: the IVF
 index, built beside the flat one). ``rag-run --quantize int8|int4``
 quantizes the LM weights (``--int4-scheme``, ``--act-int8-rows``), and
-``--kv-int8`` / ``--kv-int4`` the KV cache.
+``--kv-int8`` / ``--kv-int4`` the KV cache; ``--spec-k N`` decodes
+speculatively (``--spec-drafter prompt``). On the card each decode step
+runs as a replayed CUDA graph (``models/graphs.py``).
 
 Without a checkpoint (loading one is not ported yet) ``rag-run`` uses the
 random-init tiny model and the byte tokenizer — the JAX CLI's smoke mode —
@@ -205,6 +207,8 @@ def cmd_rag_run(args):
         position=args.position,
         kv_int8=args.kv_int8,
         kv_int4=args.kv_int4,
+        spec_k=args.spec_k,
+        spec_drafter=args.spec_drafter,
     )
     pipeline = AdaptiveRAGPipeline(params, cfg, tok, engine, store, probers, rag)
     questions, answers = _load_questions(args)
@@ -292,6 +296,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--kv-int4", action="store_true",
                     help="int4 KV cache (one scale per 32 head-dim lanes); "
                     "exclusive with --kv-int8")
+    sp.add_argument("--spec-k", type=int, default=0, dest="spec_k",
+                    help="speculative decode: verify this many prompt-lookup draft "
+                    "tokens per forward (greedy-exact: the output equals greedy "
+                    "decode); 0 = off")
+    sp.add_argument("--spec-drafter", default="prompt", dest="spec_drafter",
+                    choices=["prompt"],
+                    help="speculative draft source (the oracle drafter is a "
+                    "bench and test harness, not a serving option)")
     sp.set_defaults(fn=cmd_rag_run)
     return p
 

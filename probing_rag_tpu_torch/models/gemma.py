@@ -198,7 +198,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     """Rotary embedding, split-half. x: [B, T, n, head_dim], positions: [B, T]."""
     hd = x.shape[-1]
     exponent = -torch.arange(0, hd // 2, dtype=torch.float32, device=x.device) / (hd // 2)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    freqs = torch.pow(theta, exponent)  # a scalar base: no host-to-device copy
     angles = positions[..., None].float() * freqs  # [B, T, hd/2]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
@@ -425,7 +425,7 @@ def _attn_core(
     b, t, kv, groups, hd = q.shape
     scores = torch.einsum("btkgh,bksh->bkgts", q.float(), k.float())
     scores = scores / math.sqrt(hd)
-    scores = torch.where(mask[:, :, None], scores, torch.tensor(-1e30, dtype=scores.dtype, device=scores.device))
+    scores = scores.masked_fill(~mask[:, :, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bksh->btkgh", probs.to(v.dtype).float(), v.float())
     return out.reshape(b, t, kv * groups * hd)
@@ -437,30 +437,28 @@ def _attention(q, k, v, mask) -> torch.Tensor:
     return _attn_core(q.reshape(b, t, kv, h // kv, hd), k, v, mask)
 
 
-def _cache_update(kv: Params, name: str, x: torch.Tensor, layer: int, pos: int, n_keys: int,
+def _cache_update(kv: Params, name: str, x: torch.Tensor, layer: int, slots: torch.Tensor,
                   dt: torch.dtype) -> torch.Tensor:
-    """Writes the new tokens' ``x`` [B, KV, T, hd] into ``kv[name]`` at
-    slots ``pos..pos+T`` of ``layer`` IN PLACE (quantized for an int8 or
-    int4 cache, with their scales) and returns the layer's first ``n_keys``
-    slots in ``dt``."""
-    buf = kv[name]
-    t = x.shape[2]
+    """Writes the new tokens' ``x`` [B, KV, T, hd] into ``kv[name]`` at the
+    T buffer ``slots`` (a device tensor) of ``layer`` IN PLACE (quantized
+    for an int8 or int4 cache, with their scales) and returns all S slots
+    of the layer in ``dt``: the shapes never depend on the cursor."""
+    buf = kv[name][layer]
     if buf.dtype == torch.uint8:  # int4, nibble-packed; scales [L, B, KV*G, S]
         q, s = _quant_kv4(x)  # s [B, KV, T, G]
-        b, kvh, _, g = s.shape
-        scales = kv[f"{name}_scale"]
-        buf[layer, :, :, pos : pos + t] = _pack_int4(q)
-        scales[layer, :, :, pos : pos + t] = s.transpose(-1, -2).reshape(b, kvh * g, t)
-        return _dequant_kv4(_unpack_int4(buf[layer, :, :, :n_keys]),
-                            scales[layer, :, :, :n_keys], dt)
+        b, kvh, t, g = s.shape
+        scales = kv[f"{name}_scale"][layer]
+        buf.index_copy_(2, slots, _pack_int4(q))
+        scales.index_copy_(2, slots, s.transpose(-1, -2).reshape(b, kvh * g, t))
+        return _dequant_kv4(_unpack_int4(buf), scales, dt)
     if buf.dtype == torch.int8:  # scales [L, B, KV, S]
         q, s = _quant_kv(x)
-        scales = kv[f"{name}_scale"]
-        buf[layer, :, :, pos : pos + t] = q
-        scales[layer, :, :, pos : pos + t] = s[..., 0]
-        return buf[layer, :, :, :n_keys].to(dt) * scales[layer, :, :, :n_keys, None].to(dt)
-    buf[layer, :, :, pos : pos + t] = x.to(buf.dtype)
-    return buf[layer, :, :, :n_keys]
+        scales = kv[f"{name}_scale"][layer]
+        buf.index_copy_(2, slots, q)
+        scales.index_copy_(2, slots, s[..., 0])
+        return buf.to(dt) * scales[..., None].to(dt)
+    buf.index_copy_(2, slots, x.to(buf.dtype))
+    return buf
 
 
 def _block(
@@ -469,13 +467,13 @@ def _block(
     positions: torch.Tensor,
     mask: torch.Tensor,
     cfg: GemmaConfig,
-    cache: Optional[Tuple],  # (kv_cache, layer, pos, n_keys) | None
+    cache: Optional[Tuple],  # (kv_cache, layer, slots) | None
 ):
     """One transformer block. Returns (resid_mid, resid_post).
 
     With ``cache``, the new tokens' K/V are written into the layer's slice
-    of the stacked cache IN PLACE (the caller's cache tensors change), and
-    attention reads the cache's first ``n_keys`` slots."""
+    of the stacked cache at ``slots`` IN PLACE (the caller's cache tensors
+    change), and attention reads all of the layer's slots under the mask."""
     b, t, d = x.shape
     dt = cfg.compute_dtype
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -489,9 +487,9 @@ def _block(
     k = rope(k, positions, cfg.rope_theta).transpose(1, 2)  # [B, KV, T, hd]
     v = v.transpose(1, 2)
     if cache is not None:
-        kv, layer, pos, n_keys = cache
-        k = _cache_update(kv, "k", k, layer, pos, n_keys, dt)
-        v = _cache_update(kv, "v", v, layer, pos, n_keys, dt)
+        kv, layer, slots = cache
+        k = _cache_update(kv, "k", k, layer, slots, dt)
+        v = _cache_update(kv, "v", v, layer, slots, dt)
 
     attn = _attention(q, k.to(dt), v.to(dt), mask)
     attn_out = _mm(attn.to(dt), lp["wo"], dt, a8).to(cfg.resid_dtype)
@@ -520,15 +518,15 @@ def forward(
     captures [n_sites, B, T, D] | None).
 
     With ``kv_cache``, ``tokens`` are the T new tokens appended at buffer
-    offset ``kv_cache['pos']`` (written in place into ``kv_cache``'s
-    tensors) and attention spans the cache prefix plus the new tokens
-    (causal within the new block). For left-padded prompts, pass per-row
-    RoPE ``positions`` and mark pad slots invalid in ``attn_valid`` —
-    masking uses buffer indices, rotation uses ``positions``. Keys past the
-    new tokens are masked in the JAX forward; here they are not read, which
-    gives the same softmax for every query row with a valid key. A row with
-    none (a pad slot) averages over a different key count; nothing reads
-    those rows."""
+    offset ``kv_cache['pos']`` (a 0-dim int64 tensor on the cache's device,
+    never read on the host; the tokens are written in place into
+    ``kv_cache``'s tensors) and attention spans all S slots of the cache
+    under the mask ``key_pos <= buf_idx`` (causal within the new block),
+    as the JAX forward masks them: the shapes do not depend on the cursor,
+    so a step can be captured in a CUDA graph. For left-padded prompts,
+    pass per-row RoPE ``positions`` and mark pad slots invalid in
+    ``attn_valid`` — masking uses buffer indices, rotation uses
+    ``positions``."""
     b, t = tokens.shape
     dev = tokens.device
     emb = params["embed"]
@@ -541,15 +539,16 @@ def forward(
         x = x * math.sqrt(cfg.d_model)
 
     if kv_cache is not None:
-        base = int(kv_cache["pos"])
-        n_keys = base + t
-        buf_idx = base + torch.arange(t, dtype=torch.int64, device=dev)[None, :]  # [1, T]
+        base = torch.as_tensor(kv_cache["pos"], dtype=torch.int64, device=dev)
+        n_slots = kv_cache["k"].shape[3]
+        slots = base + torch.arange(t, dtype=torch.int64, device=dev)  # [T]
+        buf_idx = slots[None, :]  # [1, T]
         if positions is None:
             positions = buf_idx.expand(b, t)
-        key_pos = torch.arange(n_keys, dtype=torch.int64, device=dev)
-        mask = (key_pos[None, None, :] <= buf_idx[:, :, None]).expand(b, t, n_keys)
+        key_pos = torch.arange(n_slots, dtype=torch.int64, device=dev)
+        mask = (key_pos[None, None, :] <= buf_idx[:, :, None]).expand(b, t, n_slots)
         if attn_valid is not None:
-            mask = mask & attn_valid[:, None, :n_keys]
+            mask = mask & attn_valid[:, None, :]
     else:
         if positions is None:
             positions = torch.arange(t, dtype=torch.int64, device=dev)[None, :].expand(b, t)
@@ -568,7 +567,7 @@ def forward(
               for name, w in lp_all.items()}
         cache = None
         if kv_cache is not None:
-            cache = (kv_cache, layer, base, n_keys)
+            cache = (kv_cache, layer, slots)
         resid_mid, resid_post = _block(lp, x, positions, mask, cfg, cache)
         for i, site in want.get(layer, ()):
             caps[i] = resid_mid if site == "resid_mid" else resid_post
@@ -619,7 +618,7 @@ def init_kv_cache(
     cache = {
         "k": torch.zeros(vshape, dtype=vdt, device=device),
         "v": torch.zeros(vshape, dtype=vdt, device=device),
-        "pos": 0,
+        "pos": torch.zeros((), dtype=torch.int64, device=device),
     }
     if dtype in (torch.int8, "int4"):
         cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)

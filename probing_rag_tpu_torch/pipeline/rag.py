@@ -33,6 +33,7 @@ import torch
 from probing_rag_tpu_torch.data import prompts
 from probing_rag_tpu_torch.models.decode import StopTables, generate
 from probing_rag_tpu_torch.models.gemma import CaptureSpec, GemmaConfig
+from probing_rag_tpu_torch.models.speculative import SpecConfig
 from probing_rag_tpu_torch.prober.gate import gate_decision
 
 logger = logging.getLogger(__name__)
@@ -50,9 +51,12 @@ class RAGConfig:
     position: str = "resid_post"
     kv_int8: bool = False  # int8 KV cache
     kv_int4: bool = False  # int4 KV cache (exclusive with kv_int8)
-    # knobs of the JAX pipeline this port does not have yet; setting one
-    # raises in AdaptiveRAGPipeline
+    # speculative decode (greedy-exact, models/speculative.py): verify
+    # spec_k prompt-lookup drafts per forward; 0 = off
     spec_k: int = 0
+    spec_drafter: str = "prompt"
+    # the JAX pipeline's two-program serving path, an XLA workaround that
+    # is not ported: setting it raises in AdaptiveRAGPipeline
     split_prefill: bool = False
 
 
@@ -74,9 +78,8 @@ class AdaptiveRAGPipeline:
         prober_stack=None,  # stacked prober params (probing method)
         rag: RAGConfig = RAGConfig(),
     ):
-        unported = [n for n in ("spec_k", "split_prefill") if getattr(rag, n)]
-        if unported:
-            raise NotImplementedError(f"RAGConfig {unported} are not ported yet")
+        if rag.split_prefill:
+            raise NotImplementedError("RAGConfig split_prefill (an XLA workaround) is not ported")
         self.lm_params = lm_params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -86,6 +89,7 @@ class AdaptiveRAGPipeline:
         self.rag = rag
         self.capture = CaptureSpec(tuple((l, rag.position) for l in cfg.probe_layers))
         self.stop_tables = StopTables.from_token_strings(tokenizer.token_strings())
+        self.spec = SpecConfig(k=rag.spec_k, drafter=rag.spec_drafter) if rag.spec_k else None
 
     # ------------------------------------------------------------ helpers
     def _generate(self, prompt_texts: Sequence[str], with_capture: bool):
@@ -102,7 +106,7 @@ class AdaptiveRAGPipeline:
                 self.lm_params, self.cfg, self.tokenizer, padded,
                 max_new_tokens=self.rag.max_new_tokens,
                 capture=capture, stop_tables=self.stop_tables,
-                kv_int8=self.rag.kv_int8, kv_int4=self.rag.kv_int4,
+                kv_int8=self.rag.kv_int8, kv_int4=self.rag.kv_int4, spec=self.spec,
             )
             texts_out.extend(texts[: len(chunk)])
             if with_capture:

@@ -114,9 +114,10 @@ def test_tokenizer_matches_jax():
 
 
 def test_sampling_is_not_ported():
+    """Greedy selection (``do_sample=False``) is the first maximum, as
+    ``jnp.argmax``: sampling's own checks are in test_torch_generation.py."""
     from probing_rag_tpu_torch.models.sampling import SamplingConfig, select_token
 
-    logits = torch.tensor([[0.0, 2.0, 2.0, 1.0]])
-    assert select_token(logits, SamplingConfig()).tolist() == [1]  # first max
-    with pytest.raises(NotImplementedError):
-        select_token(logits, SamplingConfig(do_sample=True))
+    logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [3.0, -1.0, 3.0, 3.0]])
+    assert select_token(logits, SamplingConfig()).tolist() == [1, 0]  # first max
+    assert select_token(logits, SamplingConfig(temperature=0.1, top_k=2)).tolist() == [1, 0]

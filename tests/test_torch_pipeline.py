@@ -217,14 +217,51 @@ def test_dense_pipeline_matches_jax(setup, encoders, engine):
 
 def test_unported_knobs_raise(setup):
     s = setup
-    for knob in (dict(spec_k=2), dict(split_prefill=True)):
-        with pytest.raises(NotImplementedError):
-            AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), None, None, None,
-                                RAGConfig(**knob))
+    with pytest.raises(NotImplementedError, match="split_prefill"):
+        AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), None, None, None,
+                            RAGConfig(split_prefill=True))
     pipe = AdaptiveRAGPipeline(s["tlm"], s["tcfg"], ByteTokenizer(512), None, None, None,
                                RAGConfig(retr_method="bogus"))
     with pytest.raises(ValueError, match="bogus"):
         pipe.run(["q"])
+
+
+def test_spec_pipeline_matches_jax(setup):
+    """The probing loop with speculative decode (RAGConfig.spec_k = 2,
+    prompt-lookup drafts) gives the JAX pipeline's predictions and
+    retrieval counts, and those of the port's greedy loop (spec_k = 0)."""
+    s = setup
+    store = DocStore.from_texts(CORPUS)
+    kw = dict(retr_method="probing", threshold=0.0, batch_size=2, max_new_tokens=6)
+    jres = JaxPipeline(s["jlm"], s["jcfg"], JaxByteTokenizer(512), JaxBM25Engine(s["jidx"]),
+                       store, s["jprobers"], JaxRAGConfig(spec_k=2, **kw)).run(QUESTIONS)
+    tres = {}
+    for k in (2, 0):
+        tres[k] = AdaptiveRAGPipeline(
+            s["tlm"], s["tcfg"], ByteTokenizer(512), BM25Engine(s["tidx"], device="cpu"), store,
+            s["tprobers"], RAGConfig(spec_k=k, **kw)).run(QUESTIONS)
+    assert tres[2].pred_list == jres.pred_list == tres[0].pred_list
+    assert tres[2].retr_count_list == jres.retr_count_list == tres[0].retr_count_list
+
+
+def test_cli_rag_run_spec_k(tmp_path):
+    """``rag-run --spec-k 2 --device cpu`` over a BM25 fixture index runs the
+    loop through speculative decode and records the knob."""
+    from probing_rag_tpu_torch.cli.main import main
+
+    (tmp_path / "corpus.txt").write_text("\n".join(CORPUS))
+    (tmp_path / "qa.json").write_text(json.dumps([
+        {"question": "where is the eiffel tower?", "answers": ["paris"]},
+        {"question": "what is the tallest mountain?", "answers": ["everest"]}]))
+    main(["index-build", "--dataset", "nq", "--fixture", str(tmp_path / "corpus.txt"),
+          "--out", str(tmp_path / "idx")])
+    main(["rag-run", "--device", "cpu", "--dataset", "nq", "--fixture-qa",
+          str(tmp_path / "qa.json"), "--index", str(tmp_path / "idx"), "--max-new-tokens", "6",
+          "--batch-size", "2", "--threshold", "1e6", "--spec-k", "2",
+          "--results-dir", str(tmp_path / "result")])
+    rec = json.loads((tmp_path / "result" / "runs.jsonl").read_text().splitlines()[-1])
+    assert rec["retr_counts"] == [3, 3], rec
+    assert rec["config"]["spec_k"] == 2 and rec["config"]["spec_drafter"] == "prompt"
 
 
 def test_run_resumable_skips_done_chunks(setup, tmp_path):
