@@ -104,8 +104,19 @@ and the script exits non-zero:
    generate (top_k 40, top_p 0.9, temperature 0.7, freq_penalty 0.5)
    that repeats under one seed and equals the eager step; the probing
    loop with ``spec_k`` 4 over the phase-4 BM25 index.
+10. prober training: the paper's phases 2 and 3 and the offline
+   evaluation on phase 5's weights (``phase_prober_training``):
+   ``dataset-make`` over the 16 questions in ``none`` and ``simple`` mode
+   (golds from a first run, so both labels occur; rows saved, loaded and
+   balanced), ``train_probers`` on the JAX package's separable task at
+   the default 12 sites, max_len 1536, batch 8 (best dev accuracy > 0.9),
+   one train step on the card against the CPU, the trained stack saved and
+   read by the CLI's ``_load_probers`` to gate a loop batch,
+   ``prober_offline_eval`` against the CPU, and the capture forward with
+   int8 weights (matmul_int8 at [12288 x 2048 -> 16384] with its bound
+   and ``torch._weight_int8pack_mm``).
 
-The probing loops of phases 5, 7, 8 and 9 run the decode step graphed
+The probing loops of phases 5, 7, 8, 9 and 10 run the decode step graphed
 (``models/graphs.py``), as ``generate`` does on the card by default.
 
 Kernel times are CUDA-event means after a warm-up, with the card given a
@@ -115,7 +126,8 @@ its bound (``bound``). The line before the last is the card's name and
 power limit; the last line is the result as one JSON object.
 
 ``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
-matmul_int8 cases alone.
+matmul_int8 cases alone; ``--train`` runs phases 1, 2 and phase 10 (with
+the phase-4 index and phase 5's model).
 """
 
 from __future__ import annotations
@@ -1063,45 +1075,20 @@ def phase_main_path(index, docs_tokens, cpu_engine):
 
     from probing_rag_tpu_torch import kernels
     from probing_rag_tpu_torch.models.decode import StopTables, generate
-    from probing_rag_tpu_torch.models.gemma import GemmaConfig, init_params
-    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
     from probing_rag_tpu_torch.ops.sort import MAX_SORT_WIDTH
     from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
-    from probing_rag_tpu_torch.prober.train import ProberTrainConfig, init_prober_stack
+    from probing_rag_tpu_torch.prober.train import ProberTrainConfig
     from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
 
     err = phase_lm_reference()
     print(f"  tiny f32 forward, card vs CPU: max abs logit diff {err:.3g}")
 
-    cfg = GemmaConfig.gemma_2b()
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    t0 = time.time()
-    params = init_params(cfg, gen, device=DEVICE, dtype=torch.bfloat16)
-    n_params = sum(w.numel() for v in params.values()
-                   for w in (v.values() if isinstance(v, dict) else [v]))
+    lm = gemma_2b_lm(docs_tokens)
+    params, cfg, probers, tok, store = lm
     tc = ProberTrainConfig(layers=cfg.probe_layers, positions=("resid_post",))
-    probers = init_prober_stack(tc, cfg.d_model, gen, device=DEVICE)
-    sync()
-    print(f"  Gemma-2B width: {n_params / 1e9:.3f}B params (bf16), initialised in "
-          f"{time.time() - t0:.1f}s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-
-    tok = ByteTokenizer(cfg.vocab_size)
-    store = TextStore([" ".join(d) for d in docs_tokens])
     engine = BM25Engine(index, device=DEVICE)
     retriever = TimedRetriever(engine)
-    lens = index.term_offsets[1:] - index.term_offsets[:-1]
-    heavy = np.argsort(lens)[::-1]
-    names = {v: k for k, v in index.vocab.items()}
-    rng = np.random.default_rng(SEED + 5)
-    # questions of corpus terms: the even ones hold six of the 24 heaviest
-    # terms, so their first retrieval's rows are wider than 32K (the wide
-    # sort); the odd ones only mid-frequency terms (narrow rows). Later
-    # rounds search with whole generations, which are wider still.
-    questions = []
-    for i in range(16):
-        terms = [names[int(t)] for t in rng.choice(heavy[:24], 6 if i % 2 == 0 else 0, replace=False)]
-        terms += [names[int(t)] for t in rng.choice(heavy[1000:20000], 3, replace=False)]
-        questions.append("What links " + " and ".join(terms) + "?")
+    questions = loop_questions(index)
     rag = RAGConfig(retr_method="probing", threshold=1e6, top_k=K, max_new_tokens=150,
                     batch_size=8)
     pipe = AdaptiveRAGPipeline(params, cfg, tok, retriever, store, probers, rag)
@@ -1184,7 +1171,54 @@ def phase_main_path(index, docs_tokens, cpu_engine):
     print(f"  decode at batch 8, prompt {len(tok.encode(prompts8[0]))} tokens: prefill "
           f"{t1:.3f}s, 150 tokens {t150:.3f}s -> {decode_tps:.1f} decode tokens/s; "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, (params, cfg, probers, tok, store), questions
+    return launches, lm, questions
+
+
+def gemma_2b_lm(docs_tokens):
+    """Phase 5's model: ``GemmaConfig.gemma_2b()`` with random bf16 weights
+    and a random resid_post prober stack from ``SEED``, the byte tokenizer
+    and a docstore of the corpus's texts. Returns (params, config,
+    probers, tokenizer, docstore)."""
+    import torch
+
+    from probing_rag_tpu_torch.models.gemma import GemmaConfig, init_params
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.prober.train import ProberTrainConfig, init_prober_stack
+
+    cfg = GemmaConfig.gemma_2b()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t0 = time.time()
+    params = init_params(cfg, gen, device=DEVICE, dtype=torch.bfloat16)
+    n_params = sum(w.numel() for v in params.values()
+                   for w in (v.values() if isinstance(v, dict) else [v]))
+    tc = ProberTrainConfig(layers=cfg.probe_layers, positions=("resid_post",))
+    probers = init_prober_stack(tc, cfg.d_model, gen, device=DEVICE)
+    sync()
+    allocated = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    print(f"  Gemma-2B width: {n_params / 1e9:.3f}B params (bf16), initialised in "
+          f"{time.time() - t0:.1f}s; {allocated / 2**30:.2f} GiB allocated")
+    store = TextStore([" ".join(d) for d in docs_tokens])
+    return params, cfg, probers, ByteTokenizer(cfg.vocab_size), store
+
+
+def loop_questions(index):
+    """The loop's 16 questions of corpus terms: the even ones hold six of
+    the 24 heaviest terms, so their first retrieval's rows are wider than
+    32K (the wide sort); the odd ones only mid-frequency terms (narrow
+    rows). Later rounds search with whole generations, which are wider
+    still."""
+    import numpy as np
+
+    lens = index.term_offsets[1:] - index.term_offsets[:-1]
+    heavy = np.argsort(lens)[::-1]
+    names = {v: k for k, v in index.vocab.items()}
+    rng = np.random.default_rng(SEED + 5)
+    questions = []
+    for i in range(16):
+        terms = [names[int(t)] for t in rng.choice(heavy[:24], 6 if i % 2 == 0 else 0, replace=False)]
+        terms += [names[int(t)] for t in rng.choice(heavy[1000:20000], 3, replace=False)]
+        questions.append("What links " + " and ".join(terms) + "?")
+    return questions
 
 
 def check_topk(got, ref, what: str, rtol: float = 1e-4, atol: float = 1e-3):
@@ -1649,6 +1683,62 @@ def mm_check(got, ref, dt, what: str) -> tuple:
     return err, differ
 
 
+def mm_case(gen, label: str, m: int, k: int, n: int, tr: bool, dt, regime: str,
+            yardsticks: bool = False) -> dict:
+    """One matmul_int8 case of ``phase_matmul_kernels``: seeded operands,
+    the kernel held to its plain version (``mm_check``), the regime the
+    planner chose checked against ``regime``, kernel and plain times with
+    the bound, and with ``yardsticks`` the library call
+    (``torch._weight_int8pack_mm``, where it runs on the card) and cuBLAS on
+    bf16 weights. Prints the case's line; returns its numbers."""
+    import torch
+
+    from probing_rag_tpu_torch.ops import matmul as mm
+
+    bf16 = torch.bfloat16
+    x, q, s = mm_operands(gen, m, k, n, tr, dt)
+    mm.last_plan = None
+    got = mm.matmul_int8(x, q, s, dt=dt, transpose_rhs=tr)
+    plan = mm.last_plan
+    ref = mm.matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr)
+    sync()
+    if DEVICE == "cuda" and plan.regime != regime:
+        raise AssertionError(f"matmul_int8 {label}: regime {plan.regime}, expected {regime}")
+    err, differ = mm_check(got, ref, dt, f"{label} ({plan.regime if plan else 'plain'})")
+    del got, ref
+    ms = cuda_ms(lambda: mm.matmul_int8(x, q, s, dt=dt, transpose_rhs=tr))
+    plain_ms = cuda_ms(lambda: mm.matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr))
+    b = bound(x.numel() * x.element_size() + q.numel() + n * 4 + m * n * x.element_size(),
+              2 * m * n * k, "bf16" if dt == bf16 else "f32")
+    how = (f"{plan.regime} (tile {plan.bm} x {plan.bn}, {plan.splits} splits, {plan.grid} "
+           f"blocks)") if plan else "plain"
+    line = (f"  matmul_int8 {label} [{m} x {k} -> {n}], {how}: max abs err {err:.3g} "
+            f"({differ:.4f} of the outputs differ); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+    lib_ms = cublas_ms = None
+    if yardsticks:
+        # one PyTorch call of the w8a16 function, where it runs on the card
+        # ([N, K] weights, bf16 scales); cuBLAS on bf16 weights (a different
+        # function: twice the weight bytes)
+        qnk = q if tr else q.T.contiguous()
+        sb = s.reshape(-1).to(bf16)
+        try:
+            torch._weight_int8pack_mm(x, qnk, sb)
+            sync()
+            lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, qnk, sb))
+            line += f"; torch._weight_int8pack_mm {lib_ms:.4f} ms"
+        except (RuntimeError, NotImplementedError) as e:
+            line += f"; torch._weight_int8pack_mm: none on this card ({str(e).splitlines()[0][:60]})"
+        wb = (q.T if tr else q).to(bf16)
+        cublas_ms = cuda_ms(lambda: x @ wb)
+        line += f"; cuBLAS bf16-weight matmul {cublas_ms:.4f} ms"
+        del qnk, wb
+    print(line, flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "cublas_ms": cublas_ms, "regime": plan.regime if plan else None, **b}
+
+
 def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
     """matmul_int8 against its plain version on the card at every product
     of a Gemma-2B decode step (M = 8, the tied head transposed), at every
@@ -1667,8 +1757,6 @@ def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
     more). f32: rtol 1e-5, the same atol. Then the threshold sweep
     (``phase_matmul_threshold``)."""
     import torch
-
-    from probing_rag_tpu_torch.ops import matmul as mm
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1694,55 +1782,19 @@ def phase_matmul_kernels(results: dict, prefill_m: int) -> None:
               ("tiny f32 ragged", 7, 40, 30, False, f32, "f32")]
     max_err = 0.0
     for label, m, k, n, tr, dt, regime in cases:
-        x, q, s = mm_operands(gen, m, k, n, tr, dt)
-        mm.last_plan = None
-        got = mm.matmul_int8(x, q, s, dt=dt, transpose_rhs=tr)
-        plan = mm.last_plan
-        ref = mm.matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr)
-        sync()
-        if DEVICE == "cuda" and plan.regime != regime:
-            raise AssertionError(f"matmul_int8 {label}: regime {plan.regime}, expected {regime}")
-        err, differ = mm_check(got, ref, dt, f"{label} ({plan.regime if plan else 'plain'})")
-        max_err = max(max_err, err)
-        del got, ref
-        ms = cuda_ms(lambda: mm.matmul_int8(x, q, s, dt=dt, transpose_rhs=tr))
-        plain_ms = cuda_ms(lambda: mm.matmul_int8_plain(x, q, s, dt=dt, transpose_rhs=tr))
-        b = bound(x.numel() * x.element_size() + q.numel() + n * 4 + m * n * x.element_size(),
-                  2 * m * n * k, "bf16" if dt == bf16 else "f32")
-        how = (f"{plan.regime} (tile {plan.bm} x {plan.bn}, {plan.splits} splits, {plan.grid} "
-               f"blocks)") if plan else "plain"
-        line = (f"  matmul_int8 {label} [{m} x {k} -> {n}], {how}: max abs err {err:.3g} "
-                f"({differ:.4f} of the outputs differ); kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                f"({b['bound_by']})")
-        lib_ms = cublas_ms = None
-        if label.startswith(("decode", "prefill")):
-            # yardsticks: one PyTorch call of the w8a16 function, where it
-            # runs on the card ([N, K] weights, bf16 scales); cuBLAS on bf16
-            # weights (a different function: twice the weight bytes)
-            qnk = q if tr else q.T.contiguous()
-            sb = s.reshape(-1).to(bf16)
-            try:
-                torch._weight_int8pack_mm(x, qnk, sb)
-                sync()
-                lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, qnk, sb))
-                line += f"; torch._weight_int8pack_mm {lib_ms:.4f} ms"
-            except (RuntimeError, NotImplementedError) as e:
-                line += f"; torch._weight_int8pack_mm: none on this card ({str(e).splitlines()[0][:60]})"
-            wb = (q.T if tr else q).to(bf16)
-            cublas_ms = cuda_ms(lambda: x @ wb)
-            line += f"; cuBLAS bf16-weight matmul {cublas_ms:.4f} ms"
-            del qnk, wb
-        print(line, flush=True)
+        r = mm_case(gen, label, m, k, n, tr, dt, regime,
+                    yardsticks=label.startswith(("decode", "prefill", "verify")))
+        max_err = max(max_err, r["max_abs_err"])
         if label == "decode w_gate/w_up":
-            results["matmul_int8"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b}
+            results["matmul_int8"] = {k_: r[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                                           "bound_ms", "bound_by")}
         if label == "prefill w_gate/w_up":
-            prefill = {"prefill_ms": ms, "prefill_bound_ms": b["bound_ms"],
-                       "prefill_cublas_bf16_ms": cublas_ms}
+            prefill = {"prefill_ms": r["ms"], "prefill_bound_ms": r["bound_ms"],
+                       "prefill_cublas_bf16_ms": r["cublas_ms"]}
         if label == "verify w_gate/w_up":
-            verify = {"verify_ms": ms, "verify_bound_ms": b["bound_ms"],
-                      "verify_plain_ms": plain_ms, "verify_regime": plan.regime if plan else None}
-        del x, q, s
+            verify = {"verify_ms": r["ms"], "verify_bound_ms": r["bound_ms"],
+                      "verify_plain_ms": r["plain_ms"], "verify_library_ms": r["library_ms"],
+                      "verify_regime": r["regime"]}
     results["matmul_int8"].update(prefill, **verify, max_abs_err=max_err)
     phase_matmul_threshold(gen)
 
@@ -2276,6 +2328,309 @@ def phase_generation(lm, index, questions) -> dict:
     return launches
 
 
+# phase 10: the JAX package's separable prober task (its tests/test_prober.py)
+# at Gemma-2B width: 24 + 24 examples, the default 12 sites, max_len 1536,
+# batch 8, 2 epochs, that test's learning rate
+TRAIN_EACH, TRAIN_LR, TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_MAX_LEN = 24, 3e-3, 2, 8, 1536
+NO_ANSWER = "zzyzx"  # a gold answer that no generation holds
+# the kernels dataset-make's searches launch (the questions' rows stay
+# under max_pad: no over-cap hybrid)
+DATASET_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_topk")
+
+
+def separable_examples():
+    """The JAX prober test's examples whose label is readable from the
+    text, alternating labels."""
+    from probing_rag_tpu_torch.prober.train import ProberExample
+
+    pos = [ProberExample("question alpha", "yes yes yes yes", 1) for _ in range(TRAIN_EACH)]
+    neg = [ProberExample("question beta", "no no no no no", 0) for _ in range(TRAIN_EACH)]
+    return [x for pair in zip(pos, neg) for x in pair]
+
+
+def tree_to(tree, device):
+    return {m: {k: v.detach().to(device).clone() for k, v in sub.items()} for m, sub in tree.items()}
+
+
+def phase_prober_training(lm, index, questions, results: dict) -> dict:
+    """The paper's phases 2 and 3 and the offline evaluation at Gemma-2B
+    width on phase 5's bf16 weights, byte tokenizer and the phase-4 BM25
+    index, through the functions the CLI's ``dataset-make``,
+    ``prober-train``, ``prober-eval`` and ``rag-run --probers`` call:
+
+    - dataset-make: ``extract_cot_dataset`` over the 16 loop questions in
+      ``none`` and ``simple`` mode (graphed decode, 150 tokens; simple mode
+      searches through the BM25 kernels, each launched). With random
+      weights no gold answer is right by chance, so the golds come from a
+      first ``none`` run: the even questions take the last word of their
+      own answer block (greedy decode repeats it, so their ``none`` rows
+      are labelled 1), the odd ones a word no block holds (0); the
+      ``none`` labels must be exactly that alternation, which holds the
+      row-to-label alignment. The rows are saved, loaded back (equal) and
+      merged by ``balance_and_merge``.
+    - ``train_probers`` on the separable task at the default 12 sites,
+      max_len 1536, batch 8, 2 epochs, lr 3e-3: the best site's dev
+      accuracy must exceed 0.9. The trained stack is held against its own
+      init (the stack the seed draws) on the dev rows: every site's
+      parameters moved by more than lr, the epoch-mean training loss fell,
+      the dev loss fell on the mean over sites, and at least one site that
+      the init held at or below 0.9 ends above 0.9. Printed: the capture forward's seconds a batch, the prober
+      step's ms, examples/s, peak memory, the per-epoch losses, and the
+      init's and the trained stack's dev accuracy and loss by site.
+    - one train step (dropout off) on one batch's captures, on the card
+      and on the CPU in f32 from the same init: per-site losses rtol 1e-4;
+      gradients rtol 1e-3, atol 1e-5 of each leaf's largest; updated
+      parameters all within 2 lr (Adam's first step is g / (|g| + 1e-8):
+      an element whose gradient is near zero may step either way) and all
+      but 0.01% within 1e-5.
+    - the trained stack saved with ``save_pytree``, read back by the CLI's
+      ``_load_probers`` (the gate's resid_post rows, equal), gating one
+      probing-loop batch of 8 at threshold 0; ``prober_offline_eval`` over
+      the balanced rows, its logits against the same logits on the CPU
+      from the card's pooled captures (rtol 1e-4, atol 1e-4).
+    - the capture forward with int8 weights (``--quantize int8``):
+      matmul_int8 launched 7 times a layer plus the head's, and the kernel
+      at the capture's product [8 x 1536 x 2048 -> 16384] against its
+      plain version, its bound and ``torch._weight_int8pack_mm``.
+
+    Returns each part's kernel launch counts."""
+    import tempfile
+    from dataclasses import astuple
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.cli.main import _load_probers, build_parser
+    from probing_rag_tpu_torch.eval.analysis import prober_offline_eval
+    from probing_rag_tpu_torch.eval.evaluator import extract_answer
+    from probing_rag_tpu_torch.eval.metrics import normalize_answer
+    from probing_rag_tpu_torch.models.gemma import quantize_lm_params
+    from probing_rag_tpu_torch.pipeline.dataset_builder import (
+        balance_and_merge, extract_cot_dataset, load_rows, save_rows)
+    from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
+    from probing_rag_tpu_torch.prober import train as ptrain
+    from probing_rag_tpu_torch.prober.gate import prober_ensemble_logits
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+    from probing_rag_tpu_torch.utils.checkpoint import save_pytree
+
+    params, cfg, _, tok, store = lm
+    engine = BM25Engine(index, device=DEVICE)
+    launches = {}
+
+    def pipeline(method, probers=None, threshold=0.0):
+        return AdaptiveRAGPipeline(params, cfg, tok, engine, store, probers, RAGConfig(
+            retr_method=method, threshold=threshold, top_k=K, max_new_tokens=150, batch_size=8))
+
+    def timed(fn):
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        return out, time.time() - t0
+
+    # dataset-make
+    first, t_first = timed(lambda: pipeline("none").run(questions))
+    golds = []
+    for i, pred in enumerate(first.pred_list):
+        words = normalize_answer(extract_answer(pred)[0]).split()
+        golds.append([words[-1]] if i % 2 == 0 and words else [NO_ANSWER])
+    kernels.reset_launches()
+    rows, t_rows = timed(lambda: {m: extract_cot_dataset(pipeline(m), questions, golds, "nq")
+                                  for m in ("none", "simple")})
+    launches["dataset-make"] = dict(kernels.LAUNCHES)
+    labels = {m: [r.acc for r in rs] for m, rs in rows.items()}
+    print(f"  dataset-make over {len(questions)} questions: golds from a first none run "
+          f"{t_first:.1f}s, none + simple rows {t_rows:.1f}s; labels {labels}; kernel "
+          f"launches {launches['dataset-make']}", flush=True)
+    want = [1 if i % 2 == 0 else 0 for i in range(len(questions))]
+    if labels["none"] != want:
+        raise AssertionError(f"none rows' labels {labels['none']} != {want}")
+    missing = [n for n in DATASET_KERNELS if launches["dataset-make"][n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by dataset-make's searches: {missing}")
+    with tempfile.TemporaryDirectory() as d:
+        loaded = []
+        for m, rs in rows.items():
+            save_rows(rs, Path(d) / f"rows_{m}.csv")
+            loaded.append(load_rows(Path(d) / f"rows_{m}.csv"))
+            if [astuple(r) for r in loaded[-1]] != [astuple(r) for r in rs]:
+                raise AssertionError(f"{m} rows changed through save_rows / load_rows")
+    examples = balance_and_merge(loaded, seed=SEED)
+    n_pos = sum(e.label for e in examples)
+    print(f"  rows saved and loaded back equal; balance_and_merge: {len(examples)} examples, "
+          f"{n_pos} labelled 1, {len(examples) - n_pos} labelled 0")
+    if not 0 < n_pos < len(examples):
+        raise AssertionError("the balanced rows do not hold both labels")
+
+    # prober-train on the separable task
+    tc = ptrain.ProberTrainConfig(layers=cfg.probe_layers, lr=TRAIN_LR, epochs=TRAIN_EPOCHS,
+                                  batch_size=TRAIN_BATCH, max_len=TRAIN_MAX_LEN)
+    train = separable_examples()
+    dev = train[:16]
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # the process's first torch.optim optimizer imports torch._dynamo: a
+    # one-off, timed apart from the loop
+    _, t_opt = timed(lambda: ptrain.make_optimizer(tc, ptrain.init_prober_stack(
+        tc, 8, torch.Generator(device=DEVICE), device=DEVICE)))
+    (stacked, history), t_train = timed(lambda: ptrain.train_probers(params, cfg, tok, train, dev, tc))
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    dev_acc = [h["dev_acc"] for h in history if "dev_acc" in h]
+    epoch_loss = [float(np.mean([h["losses"] for h in history if "losses" in h and h["epoch"] == e]))
+                  for e in range(tc.epochs)]
+    n_steps = sum("losses" in h for h in history)
+    tokens, labels8, pred_lens = ptrain.tensorize_examples(train[:TRAIN_BATCH], tok, tc.max_len)
+    capture = lambda p: ptrain.capture_activations(p, cfg, tokens, tc.sites, tok.pad_id)
+    capture_s = cuda_ms(lambda: capture(params), reps=3) / 1e3
+    caps = capture(params)
+    lab = torch.as_tensor(labels8, dtype=torch.int64, device=DEVICE)
+    pl = torch.as_tensor(pred_lens, dtype=torch.int64, device=DEVICE)
+    scratch = tree_to(stacked, DEVICE)
+    scratch_state = ptrain.make_optimizer(tc, scratch)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    step_ms = cuda_ms(lambda: ptrain.prober_train_step(scratch, scratch_state, caps, lab, pl, gen,
+                                                       tc=tc))
+    print(f"  train_probers: {len(tc.sites)} sites, {len(train)} examples x {tc.epochs} epochs "
+          f"({n_steps} steps of {tc.batch_size}, max_len {tc.max_len}) + dev {len(dev)} each "
+          f"epoch: {t_train:.1f}s (after the first make_optimizer's {t_opt:.1f}s), "
+          f"{len(train) * tc.epochs / t_train:.1f} training examples/s; "
+          f"capture forward [{tc.batch_size} x {tc.max_len}] -> [{len(tc.sites)}, "
+          f"{tc.batch_size}, {tc.max_len}, {cfg.d_model}] f32 {capture_s:.3f}s a batch; prober "
+          f"step {step_ms:.3f} ms; peak {peak / 2**30:.2f} GiB; mean loss by epoch "
+          f"{[round(l, 4) for l in epoch_loss]}; dev accuracy by epoch {dev_acc}", flush=True)
+    if max(dev_acc[-1]) <= 0.9:
+        raise AssertionError(f"probers failed to fit the separable task: {dev_acc[-1]}")
+    del scratch, scratch_state
+
+    # the trained stack against its own init on the dev rows
+    init0 = ptrain.init_prober_stack(tc, cfg.d_model, torch.Generator(device=DEVICE).manual_seed(
+        tc.seed), device=DEVICE)
+    moved = torch.stack([(a - b).abs().flatten(1).amax(1) for a, b in
+                         zip(ptrain.stack_leaves(stacked), ptrain.stack_leaves(init0))]).amax(0)
+    scores = {"init": [0, 0], "trained": [0, 0]}
+    dev_batches = range(0, len(dev), tc.batch_size)
+    for start in dev_batches:
+        tk, lb, pls = ptrain.tensorize_examples(dev[start:start + tc.batch_size], tok, tc.max_len)
+        c = ptrain.capture_activations(params, cfg, tk, tc.sites, tok.pad_id)
+        lb, pls = (torch.as_tensor(x, dtype=torch.int64, device=DEVICE) for x in (lb, pls))
+        for name, stack in (("init", init0), ("trained", stacked)):
+            n_right, loss = ptrain.prober_eval_step(stack, c, lb, pls, tc=tc)
+            scores[name] = [scores[name][0] + n_right, scores[name][1] + loss]
+    acc0, acc1 = ((scores[k][0] / len(dev)).cpu().numpy() for k in ("init", "trained"))
+    loss0, loss1 = ((scores[k][1] / len(dev_batches)).cpu().numpy() for k in ("init", "trained"))
+    print(f"  trained stack vs its init on the {len(dev)} dev rows, by site: accuracy "
+          f"{acc0.round(3).tolist()} -> {acc1.round(3).tolist()}; loss "
+          f"{loss0.astype(float).round(4).tolist()} -> {loss1.astype(float).round(4).tolist()}; "
+          f"parameters moved at most {moved.double().cpu().numpy().round(5).tolist()} "
+          f"(lr {tc.lr})", flush=True)
+    if not bool((moved > tc.lr).all()):
+        raise AssertionError(f"train_probers left a site's parameters within lr of the init: {moved}")
+    if not epoch_loss[-1] < epoch_loss[0]:
+        raise AssertionError(f"the epoch-mean training loss did not fall: {epoch_loss}")
+    if not loss1.mean() < loss0.mean():
+        raise AssertionError(f"the mean dev loss did not fall with training: {loss0} -> {loss1}")
+    if not ((acc0 <= 0.9) & (acc1 > 0.9)).any():
+        raise AssertionError(f"training fit no site the init did not: {acc0} -> {acc1}")
+    del init0, c
+
+    # one train step on the card against the same step on the CPU
+    init = ptrain.init_prober_stack(tc, cfg.d_model, gen, device=DEVICE)
+    init_cpu = tree_to(init, "cpu")
+    caps_cpu = caps.cpu()
+    card_losses, card_grads = ptrain.site_losses_and_grads(init, caps, lab, pl, None, tc)
+    cpu_losses, cpu_grads = ptrain.site_losses_and_grads(init_cpu, caps_cpu, lab.cpu(), pl.cpu(),
+                                                         None, tc)
+    card, _, step_losses = ptrain.prober_train_step(init, ptrain.make_optimizer(tc, init), caps,
+                                                    lab, pl, None, tc=tc)
+    cpu, _, _ = ptrain.prober_train_step(init_cpu, ptrain.make_optimizer(tc, init_cpu), caps_cpu,
+                                         lab.cpu(), pl.cpu(), None, tc=tc)
+    loss_err = float(((card_losses.cpu() - cpu_losses) / cpu_losses).abs().max())
+    if not torch.allclose(card_losses.cpu(), cpu_losses, rtol=1e-4, atol=0) \
+            or not torch.allclose(step_losses, card_losses, rtol=1e-6, atol=0):
+        raise AssertionError(f"train step losses, card {card_losses} vs CPU {cpu_losses}")
+    grad_err = 0.0
+    for g_card, g_cpu in zip(card_grads, cpu_grads):
+        scale = float(g_cpu.abs().max())
+        grad_err = max(grad_err, float((g_card.cpu() - g_cpu).abs().max()) / max(scale, 1e-30))
+        if not torch.allclose(g_card.cpu(), g_cpu, rtol=1e-3, atol=1e-5 * scale):
+            raise AssertionError("train step gradients differ between the card and the CPU")
+    diff = torch.cat([(a.cpu() - b).abs().ravel() for a, b in
+                      zip(ptrain.stack_leaves(card), ptrain.stack_leaves(cpu))])
+    off = float((diff > 1e-5).float().mean())
+    if float(diff.max()) > 2 * tc.lr or off > 1e-4:
+        raise AssertionError(f"updated params: max diff {float(diff.max())}, {off} over 1e-5")
+    print(f"  one train step, card vs CPU (f32, dropout off): losses max rel diff "
+          f"{loss_err:.3g}, gradients max diff {grad_err:.3g} of each leaf's largest, updated "
+          f"params max abs diff {float(diff.max()):.3g} ({off:.2e} of {diff.numel()} over 1e-5)",
+          flush=True)
+    del init, init_cpu, caps_cpu, card, cpu, card_grads, cpu_grads
+
+    # the trained stack through the CLI's reader, gating one loop batch
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "probers"
+        save_pytree(path, stacked, meta={"sites": [list(s) for s in tc.sites],
+                                         "method": tc.method, "model_id": "google/gemma-2b"})
+        args = build_parser().parse_args(["rag-run", "--dataset", "nq", "--index", d,
+                                          "--probers", str(path), "--device", DEVICE])
+        gate = _load_probers(args, cfg)
+    for m, sub in gate.items():
+        for k, v in sub.items():
+            if not torch.equal(v, stacked[m][k][1::2]):
+                raise AssertionError(f"_load_probers {m}/{k} is not the checkpoint's resid_post rows")
+    kernels.reset_launches()
+    res, t_loop = timed(lambda: pipeline("probing", gate).run(questions[:8]))
+    launches["probing batch"] = dict(kernels.LAUNCHES)
+    for sc in res.gate_scores:
+        if sc is None or not np.isfinite(sc).all() or abs(float(sc.sum()) - len(gate["fc1"]["w"])) > 1e-3:
+            raise AssertionError(f"trained gate scores {sc} are not softmax sums")
+    print(f"  trained stack saved, read by the CLI's _load_probers (resid_post rows equal), "
+          f"gating 8 questions at threshold 0: {t_loop:.1f}s, retr_count {res.retr_count_list}, "
+          f"kernel launches {launches['probing batch']}", flush=True)
+
+    # prober-eval over the balanced rows, against the CPU
+    offline, t_eval = timed(lambda: prober_offline_eval(params, cfg, tok, examples, stacked, tc,
+                                                        collect_logits=True))
+    stack_cpu = tree_to(stacked, "cpu")
+    ref = []
+    for start in range(0, len(examples), 8):
+        tk, _, pls = ptrain.tensorize_examples(examples[start:start + 8], tok, tc.max_len)
+        c = ptrain.capture_activations(params, cfg, tk, tc.sites, tok.pad_id)
+        pooled = ptrain.pool_sum_answer_tokens(c, torch.as_tensor(pls, device=DEVICE))
+        ref.append(prober_ensemble_logits(stack_cpu, pooled.cpu()).numpy().transpose(1, 0, 2))
+    ref = np.concatenate(ref)
+    if offline.logits.shape != ref.shape or not np.allclose(offline.logits, ref, rtol=1e-4, atol=1e-4):
+        raise AssertionError("prober_offline_eval's logits differ from the CPU's")
+    print(f"  prober_offline_eval over {offline.n_examples} rows: {t_eval:.1f}s; site accuracy "
+          f"{np.round(offline.site_accuracy, 3).tolist()}; logits vs the CPU max abs diff "
+          f"{float(np.abs(offline.logits - ref).max()):.3g}", flush=True)
+
+    # the capture forward with int8 weights
+    q8, t_q = timed(lambda: quantize_lm_params(params, bits=8))
+    kernels.reset_launches()
+    caps8 = capture(q8)
+    sync()
+    launches["capture int8"] = dict(kernels.LAUNCHES)
+    n_mm = launches["capture int8"]["matmul_int8"]
+    if n_mm != 7 * cfg.n_layers + 1:
+        raise AssertionError(f"int8 capture forward launched matmul_int8 {n_mm} times")
+    rel = float((caps8 - caps).norm() / caps.norm())
+    capture8_s = cuda_ms(lambda: capture(q8), reps=3) / 1e3
+    del caps8, caps, q8
+    r = mm_case(torch.Generator(device=DEVICE).manual_seed(SEED + 41), "capture w_gate/w_up",
+                TRAIN_BATCH * TRAIN_MAX_LEN, *GEMMA_MM["w_gate/w_up"], False, torch.bfloat16,
+                "wgmma", yardsticks=True)
+    results.setdefault("matmul_int8", {}).update(
+        capture_ms=r["ms"], capture_plain_ms=r["plain_ms"], capture_bound_ms=r["bound_ms"],
+        capture_library_ms=r["library_ms"], capture_launches=n_mm)
+    print(f"  int8 capture forward (quantized in {t_q:.1f}s): matmul_int8 launched {n_mm} times, "
+          f"{capture8_s:.3f}s a batch (bf16 {capture_s:.3f}s); captures' relative difference "
+          f"from bf16 {rel:.3g}", flush=True)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -2284,6 +2639,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--matmul", action="store_true",
                     help="only phases 1, 2 and the matmul_int8 cases of phase 8")
+    ap.add_argument("--train", action="store_true",
+                    help="only phases 1, 2 and phase 10 (over the phase-4 index and phase 5's model)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2309,6 +2666,12 @@ def main() -> int:
     if args.matmul:
         with Phase("8 matmul_int8 kernels"):
             phase_matmul_kernels(results, 8 * 3712)
+        print(json.dumps(results))
+        return 0
+    if args.train:
+        with Phase("10 prober training"):
+            index, docs_tokens, _, _ = build_zipf_index()
+            phase_prober_training(gemma_2b_lm(docs_tokens), index, loop_questions(index), results)
         print(json.dumps(results))
         return 0
     with Phase("3 kernels vs plain"):
@@ -2354,6 +2717,9 @@ def main() -> int:
         launches["matmul_int8"] = phase_quantized(lm, index, questions, results)["matmul_int8"]
     with Phase("9 generation"):
         phase_generation(lm, index, questions)
+    torch.cuda.empty_cache()
+    with Phase("10 prober training"):
+        phase_prober_training(lm, index, questions, results)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every kernel's fields, then the extra shapes some carry (the wide

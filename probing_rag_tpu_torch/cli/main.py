@@ -1,25 +1,37 @@
-"""Command-line entry points of the port: ``index-build`` and ``rag-run``.
+"""Command-line entry points of the port: the index build, dataset
+extraction, prober training and evaluation, and the adaptive RAG run.
 
-Port of the BM25 and dense paths of ``probing_rag_tpu/cli/main.py``:
+Port of ``probing_rag_tpu/cli/main.py``:
 
     python -m probing_rag_tpu_torch.cli index-build --dataset nq --fixture corpus.txt --out artifacts/nq
+    python -m probing_rag_tpu_torch.cli dataset-make --retr-method simple --dataset nq \\
+        --fixture-qa qa.json --index artifacts/nq --out dataset/rows_simple.csv
+    python -m probing_rag_tpu_torch.cli prober-train --data dataset/rows_*.csv --out artifacts/probers
+    python -m probing_rag_tpu_torch.cli prober-eval --data dataset/rows_*.csv \\
+        --probers artifacts/probers/probers --positions resid_mid,resid_post
     python -m probing_rag_tpu_torch.cli rag-run --retr-method probing --dataset nq \\
-        --fixture-qa qa.json --index artifacts/nq --device cuda
+        --fixture-qa qa.json --index artifacts/nq --probers artifacts/probers/probers
+    python -m probing_rag_tpu_torch.cli param-audit
 
-``--dense`` builds and searches the flat dense index instead of BM25
-(``--dense-int8``: the SQ8 store with re-ranking; ``--dense-ivf``: the IVF
-index, built beside the flat one). ``rag-run --quantize int8|int4``
-quantizes the LM weights (``--int4-scheme``, ``--act-int8-rows``), and
-``--kv-int8`` / ``--kv-int4`` the KV cache; ``--spec-k N`` decodes
-speculatively (``--spec-drafter prompt``). On the card each decode step
-runs as a replayed CUDA graph (``models/graphs.py``).
+Every command that runs a model takes ``--device`` (default ``cuda``).
+``--checkpoint DIR`` loads a HF Gemma-2B (or, by ``--model-id``,
+Mistral-7B) safetensors checkpoint in bf16, with the tokenizer from
+``--tokenizer`` (a sentencepiece model) or from the checkpoint directory
+(through ``transformers``); without one the model is the random-init tiny
+f32 model with the byte tokenizer (smoke mode). ``--dense`` builds and
+searches the flat dense index instead of BM25 (``--dense-int8``: the SQ8
+store with re-ranking; ``--dense-ivf``: the IVF index, built beside the
+flat one). ``--quantize int8|int4`` quantizes the LM weights
+(``--int4-scheme``, ``--act-int8-rows``), and ``--kv-int8`` /
+``--kv-int4`` the KV cache; ``--spec-k N`` decodes speculatively. On the
+card each decode step runs as a replayed CUDA graph
+(``models/graphs.py``).
 
-Without a checkpoint (loading one is not ported yet) ``rag-run`` uses the
-random-init tiny model and the byte tokenizer — the JAX CLI's smoke mode —
-and a random prober gate unless ``--probers`` names a ``save_pytree``
-checkpoint. The dense encoder is then the tiny encoder with weights drawn
-from one fixed seed, the same in ``index-build`` and ``rag-run``, so that
-documents and queries are embedded by one encoder.
+``rag-run --retr-method probing`` gates with a random prober stack unless
+``--probers`` names a ``save_pytree`` checkpoint (``prober-train`` writes
+one). The dense encoder is the tiny encoder with weights drawn from one
+fixed seed, the same in ``index-build`` and ``rag-run``, so that documents
+and queries are embedded by one encoder.
 """
 
 from __future__ import annotations
@@ -36,13 +48,37 @@ import torch
 ENCODER_SEED = 0
 
 
+def _f32_matmuls():
+    # f32 matmuls in full f32, as the JAX reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def _load_model(args):
+    """LM params + config + tokenizer: the HF checkpoint in bf16 when one is
+    given, else the random-init tiny f32 model with the byte tokenizer."""
     from probing_rag_tpu_torch.models.gemma import GemmaConfig, init_params
-    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer, SentencePieceTokenizer
+
+    if args.checkpoint:
+        from probing_rag_tpu_torch.models.hf_loader import load_gemma_params
+
+        mistral = "mistral" in args.model_id.lower()
+        cfg = GemmaConfig.mistral_7b() if mistral else GemmaConfig.gemma_2b()
+        cfg = _apply_act8(cfg, args)
+        params = load_gemma_params(Path(args.checkpoint), cfg, dtype=torch.bfloat16,
+                                   device=args.device)
+        if args.tokenizer:
+            tok = SentencePieceTokenizer(args.tokenizer)
+        else:
+            from transformers import AutoTokenizer
+
+            tok = SentencePieceTokenizer(AutoTokenizer.from_pretrained(args.checkpoint))
+        return _maybe_quantize(params, args), cfg, tok
 
     print(
-        "[probing-rag-tpu-torch] no checkpoint loader yet: using random-init tiny "
-        "model (smoke-test mode; outputs are not meaningful)",
+        "[probing-rag-tpu-torch] no --checkpoint: using random-init tiny model "
+        "(smoke-test mode; outputs are not meaningful)",
         file=sys.stderr,
     )
     cfg = dataclasses.replace(GemmaConfig.tiny(), compute_dtype=torch.float32)
@@ -93,12 +129,17 @@ def _load_probers(args, cfg):
             raise SystemExit(f"--probers checkpoint sites {saved} do not cover the gate's sites {tc.sites}")
         rows = torch.as_tensor([saved.index(s) for s in tc.sites])
         probers = {m: {k: v[rows] for k, v in sub.items()} for m, sub in probers.items()}
-    probers = probers_from_jax(probers, device=args.device)
+    return _checked_stack(probers_from_jax(probers, device=args.device), template, cfg, tc)
+
+
+def _checked_stack(probers, template, cfg, tc):
+    """``probers`` if its leaves have the template's shapes, else exit
+    naming both."""
     got = {(m, k): tuple(v.shape) for m, sub in probers.items() for k, v in sub.items()}
     want = {(m, k): tuple(v.shape) for m, sub in template.items() for k, v in sub.items()}
     if got != want:
         raise SystemExit(
-            f"--probers checkpoint does not match the gate's prober stack: got {got}, "
+            f"--probers checkpoint does not match the prober stack: got {got}, "
             f"expected {want} (d_model={cfg.d_model}, sites={tc.sites})"
         )
     return probers
@@ -166,18 +207,12 @@ def _load_questions(args):
     return [e.question for e in examples], [e.answers for e in examples]
 
 
-def cmd_rag_run(args):
+def _build_pipeline(args):
     from probing_rag_tpu_torch.data.corpus import DocStore
-    from probing_rag_tpu_torch.eval.evaluator import evaluate_predictions
-    from probing_rag_tpu_torch.eval.metrics import EmF1Metric, SupportEmF1Metric
-    from probing_rag_tpu_torch.eval.results import RunRecord, result_filename, save_run
     from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
     from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
     from probing_rag_tpu_torch.retrieval.bm25_index import BM25Index
 
-    # f32 matmuls in full f32, as the JAX reference computes them
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     params, cfg, tok = _load_model(args)
     index_dir = Path(args.index)
     store = DocStore.load(index_dir / "docstore.json")
@@ -210,13 +245,21 @@ def cmd_rag_run(args):
         spec_k=args.spec_k,
         spec_drafter=args.spec_drafter,
     )
-    pipeline = AdaptiveRAGPipeline(params, cfg, tok, engine, store, probers, rag)
+    return AdaptiveRAGPipeline(params, cfg, tok, engine, store, probers, rag)
+
+
+def cmd_rag_run(args):
+    from probing_rag_tpu_torch.eval.evaluator import MULTIHOP_DATASETS, evaluate_predictions
+    from probing_rag_tpu_torch.eval.metrics import EmF1Metric, SupportEmF1Metric
+    from probing_rag_tpu_torch.eval.results import RunRecord, result_filename, save_run
+
+    _f32_matmuls()
+    pipeline = _build_pipeline(args)
     questions, answers = _load_questions(args)
     t0 = time.time()
     result = pipeline.run(questions)
     elapsed = time.time() - t0
-    multihop = args.dataset in ("hotpotqa", "2wikimultihopqa", "musique", "iirc")
-    metric = SupportEmF1Metric() if multihop else EmF1Metric()
+    metric = SupportEmF1Metric() if args.dataset in MULTIHOP_DATASETS else EmF1Metric()
     acc, metric, _ = evaluate_predictions(
         result.pred_list, answers, metric,
         dataset_name=args.dataset, retr_method=args.retr_method,
@@ -239,13 +282,132 @@ def cmd_rag_run(args):
     print(f"acc={record.accuracy:.4f} em={em} f1={f1} time={elapsed:.1f}s -> {path}")
 
 
+def cmd_dataset_make(args):
+    from probing_rag_tpu_torch.pipeline.dataset_builder import extract_cot_dataset, save_rows
+
+    _f32_matmuls()
+    pipeline = _build_pipeline(args)
+    questions, answers = _load_questions(args)
+    rows = extract_cot_dataset(pipeline, questions, answers, args.dataset)
+    out = Path(args.out)
+    save_rows(rows, out)
+    print(f"{len(rows)} rows -> {out}")
+
+
+def cmd_prober_train(args):
+    from probing_rag_tpu_torch.pipeline.dataset_builder import balance_and_merge, load_rows
+    from probing_rag_tpu_torch.prober.train import ProberTrainConfig, train_probers
+    from probing_rag_tpu_torch.utils.checkpoint import save_pytree
+    from probing_rag_tpu_torch.utils.logging import JsonlWriter
+
+    _f32_matmuls()
+    params, cfg, tok = _load_model(args)
+    row_sets = [load_rows(Path(p)) for p in args.data]
+    examples = balance_and_merge(row_sets, pos_ratio=args.pos_ratio, seed=args.seed)
+    split = max(1, int(len(examples) * 0.9))
+    tc = ProberTrainConfig(
+        layers=cfg.probe_layers,
+        positions=tuple(args.positions.split(",")),
+        method=args.method,
+        lr=args.lr,
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        max_len=args.max_len,
+        seed=args.seed,
+    )
+    writer = JsonlWriter(Path(args.out) / "train_log.jsonl")
+    stacked, _ = train_probers(params, cfg, tok, examples[:split], examples[split:], tc,
+                               log=writer.write)
+    save_pytree(
+        Path(args.out) / "probers",
+        stacked,
+        meta={"sites": [list(s) for s in tc.sites], "method": tc.method,
+              "model_id": args.model_id},
+    )
+    print(f"trained {len(tc.sites)} probers on {split} examples -> {args.out}")
+
+
+def cmd_prober_eval(args):
+    """Offline layer-wise prober classification accuracy over held-out
+    generation CSVs, with an optional per-layer logit dump for KDE
+    analysis."""
+    import numpy as np
+
+    from probing_rag_tpu_torch.eval.analysis import prober_offline_eval
+    from probing_rag_tpu_torch.pipeline.dataset_builder import balance_and_merge, load_rows
+    from probing_rag_tpu_torch.prober.train import ProberTrainConfig, init_prober_stack
+    from probing_rag_tpu_torch.utils.checkpoint import load_pytree
+    from probing_rag_tpu_torch.weights import probers_from_jax
+
+    _f32_matmuls()
+    params, cfg, tok = _load_model(args)
+    examples = balance_and_merge([load_rows(Path(p)) for p in args.data], seed=args.seed)
+    tc = ProberTrainConfig(
+        layers=cfg.probe_layers,
+        positions=tuple(args.positions.split(",")),
+        max_len=args.max_len,
+    )
+    template = init_prober_stack(tc, cfg.d_model, torch.Generator(device=args.device).manual_seed(0),
+                                 device=args.device)
+    probers, _ = load_pytree(Path(args.probers), like=template)
+    probers = _checked_stack(probers_from_jax(probers, device=args.device), template, cfg, tc)
+    result = prober_offline_eval(params, cfg, tok, examples, probers, tc,
+                                 collect_logits=bool(args.kde_out))
+    print(f"{'layer':>6} {'position':>12} {'accuracy':>9}")
+    for (layer, pos), acc in zip(tc.sites, result.site_accuracy):
+        print(f"{layer:>6} {pos:>12} {acc:>9.4f}")
+    if args.kde_out:
+        np.save(args.kde_out, result.logits)
+        print(f"logits for KDE -> {args.kde_out}")
+
+
+def cmd_param_audit(args):
+    """Prober-vs-classifier parameter audit (the reference's
+    exp_parameter_check)."""
+    from probing_rag_tpu_torch.prober.model import init_improved_probe, probe_param_count
+
+    gen = torch.Generator(device=args.device).manual_seed(0)
+    probe = init_improved_probe(gen, args.d_model, device=args.device)
+    n = probe_param_count(probe)
+    t5_large = 737_668_096  # Adaptive-RAG's T5-large classifier
+    print(f"prober params:            {n:>13,} ({n * 4 / 2**20:.2f} MB fp32)")
+    print(f"adaptive-rag T5 classifier:{t5_large:>13,} ({t5_large * 4 / 2**20:.2f} MB fp32)")
+    print(f"ratio: {t5_large / n:.0f}x")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="probing-rag-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def dense_args(sp):
+    def common(sp):
         sp.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
+        sp.add_argument("--model-id", default="google/gemma-2b")
+        sp.add_argument("--checkpoint", default=None, help="HF checkpoint dir (safetensors)")
+        sp.add_argument("--tokenizer", default=None, help="sentencepiece model path")
         sp.add_argument("--seed", type=int, default=42)
+        sp.add_argument("--quantize", default="none", choices=["none", "int8", "int4"],
+                        help="LM weights: per-channel int8 (w8a16 on the matmul_int8 kernel), "
+                        "or sub-channel int4 (the embedding stays int8)")
+        sp.add_argument("--int4-scheme", default="grouped", choices=["grouped", "rank1"],
+                        help="with --quantize int4: 'grouped' keeps one scale per "
+                        "(group, channel); 'rank1' factorizes them as rs[k] * s[f]")
+        sp.add_argument("--act-int8-rows", type=int, default=0,
+                        help="with --quantize int8 (or int4 rank1): from this many "
+                        "activation rows (batch x tokens, so prefill) the products "
+                        "run w8a8 (w4a8); 0 = never")
+        sp.add_argument("--kv-int8", action="store_true",
+                        help="int8 KV cache (one scale per token and kv head)")
+        sp.add_argument("--kv-int4", action="store_true",
+                        help="int4 KV cache (one scale per 32 head-dim lanes); "
+                        "exclusive with --kv-int8")
+        sp.add_argument("--spec-k", type=int, default=0, dest="spec_k",
+                        help="speculative decode: verify this many prompt-lookup draft "
+                        "tokens per forward (greedy-exact: the output equals greedy "
+                        "decode); 0 = off")
+        sp.add_argument("--spec-drafter", default="prompt", dest="spec_drafter",
+                        choices=["prompt"],
+                        help="speculative draft source (the oracle drafter is a "
+                        "bench and test harness, not a serving option)")
         sp.add_argument("--dense", action="store_true", help="dense retrieval")
         sp.add_argument("--dense-int8", action="store_true",
                         help="int8 (SQ8) dense store, re-ranked against a bf16 copy")
@@ -257,54 +419,68 @@ def build_parser() -> argparse.ArgumentParser:
                         help="IVF cell count (default ~2*sqrt(n_docs), pow2)")
 
     sp = sub.add_parser("index-build")
-    dense_args(sp)
+    common(sp)
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--raw-dir", default="raw_data")
     sp.add_argument("--out", required=True)
     sp.add_argument("--fixture", default=None, help="plain-text corpus file (one doc/line)")
     sp.set_defaults(fn=cmd_index_build)
 
+    def rag_common(sp):
+        common(sp)
+        sp.add_argument("--dataset", required=True)
+        sp.add_argument("--split", default="dev")
+        sp.add_argument("--raw-dir", default="raw_data")
+        sp.add_argument("--fixture-qa", default=None, help="JSON [{question, answers}]")
+        sp.add_argument("--index", required=True)
+        sp.add_argument("--probers", default=None)
+        sp.add_argument("--threshold", type=float, default=0.0)
+        sp.add_argument("--ablation", type=int, default=0)
+        sp.add_argument("--top-k", type=int, default=5)
+        sp.add_argument("--max-new-tokens", type=int, default=150)
+        sp.add_argument("--batch-size", type=int, default=8)
+        sp.add_argument("--position", default="resid_post")
+        sp.add_argument("--steps-limit", type=int, default=500)
+        sp.add_argument("--results-dir", default="result")
+
     sp = sub.add_parser("rag-run")
-    dense_args(sp)
-    sp.add_argument("--dataset", required=True)
-    sp.add_argument("--split", default="dev")
-    sp.add_argument("--raw-dir", default="raw_data")
-    sp.add_argument("--fixture-qa", default=None, help="JSON [{question, answers}]")
-    sp.add_argument("--index", required=True)
-    sp.add_argument("--probers", default=None)
-    sp.add_argument("--threshold", type=float, default=0.0)
-    sp.add_argument("--ablation", type=int, default=0)
-    sp.add_argument("--top-k", type=int, default=5)
-    sp.add_argument("--max-new-tokens", type=int, default=150)
-    sp.add_argument("--batch-size", type=int, default=8)
-    sp.add_argument("--position", default="resid_post")
-    sp.add_argument("--steps-limit", type=int, default=500)
-    sp.add_argument("--results-dir", default="result")
+    rag_common(sp)
     sp.add_argument("--retr-method", default="probing", choices=["probing", "none", "simple"])
-    sp.add_argument("--quantize", default="none", choices=["none", "int8", "int4"],
-                    help="LM weights: per-channel int8 (w8a16 on the matmul_int8 kernel), "
-                    "or sub-channel int4 (the embedding stays int8)")
-    sp.add_argument("--int4-scheme", default="grouped", choices=["grouped", "rank1"],
-                    help="with --quantize int4: 'grouped' keeps one scale per "
-                    "(group, channel); 'rank1' factorizes them as rs[k] * s[f]")
-    sp.add_argument("--act-int8-rows", type=int, default=0,
-                    help="with --quantize int8 (or int4 rank1): from this many "
-                    "activation rows (batch x tokens, so prefill) the products "
-                    "run w8a8 (w4a8); 0 = never")
-    sp.add_argument("--kv-int8", action="store_true",
-                    help="int8 KV cache (one scale per token and kv head)")
-    sp.add_argument("--kv-int4", action="store_true",
-                    help="int4 KV cache (one scale per 32 head-dim lanes); "
-                    "exclusive with --kv-int8")
-    sp.add_argument("--spec-k", type=int, default=0, dest="spec_k",
-                    help="speculative decode: verify this many prompt-lookup draft "
-                    "tokens per forward (greedy-exact: the output equals greedy "
-                    "decode); 0 = off")
-    sp.add_argument("--spec-drafter", default="prompt", dest="spec_drafter",
-                    choices=["prompt"],
-                    help="speculative draft source (the oracle drafter is a "
-                    "bench and test harness, not a serving option)")
     sp.set_defaults(fn=cmd_rag_run)
+
+    sp = sub.add_parser("dataset-make")
+    rag_common(sp)
+    sp.add_argument("--retr-method", default="simple", choices=["none", "simple"])
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=cmd_dataset_make)
+
+    sp = sub.add_parser("prober-train")
+    common(sp)
+    sp.add_argument("--data", nargs="+", required=True, help="extracted CSV(s)")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--method", default="tokens_mean",
+                    choices=["tokens_mean", "last_token", "each_token"])
+    sp.add_argument("--positions", default="resid_mid,resid_post")
+    sp.add_argument("--lr", type=float, default=1e-4)
+    sp.add_argument("--batch-size", type=int, default=8)
+    sp.add_argument("--epochs", type=int, default=2)
+    sp.add_argument("--max-len", type=int, default=1536)
+    sp.add_argument("--pos-ratio", type=float, default=0.5)
+    sp.set_defaults(fn=cmd_prober_train)
+
+    sp = sub.add_parser("prober-eval")
+    common(sp)
+    sp.add_argument("--data", nargs="+", required=True, help="extracted CSV(s)")
+    sp.add_argument("--probers", required=True)
+    sp.add_argument("--positions", default="resid_post")
+    sp.add_argument("--max-len", type=int, default=1536)
+    sp.add_argument("--kde-out", default=None, help="npy path for logit dump")
+    sp.set_defaults(fn=cmd_prober_eval)
+
+    sp = sub.add_parser("param-audit")
+    sp.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
+    sp.add_argument("--d-model", type=int, default=2048)
+    sp.set_defaults(fn=cmd_param_audit)
     return p
 
 

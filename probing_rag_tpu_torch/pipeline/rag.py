@@ -22,7 +22,6 @@ set crosses rounds.
 from __future__ import annotations
 
 import json
-import logging
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import List, Optional, Sequence
@@ -35,8 +34,9 @@ from probing_rag_tpu_torch.models.decode import StopTables, generate
 from probing_rag_tpu_torch.models.gemma import CaptureSpec, GemmaConfig
 from probing_rag_tpu_torch.models.speculative import SpecConfig
 from probing_rag_tpu_torch.prober.gate import gate_decision
+from probing_rag_tpu_torch.utils.logging import get_logger
 
-logger = logging.getLogger(__name__)
+logger = get_logger(__name__)
 
 
 @dataclass(frozen=True)

@@ -3,15 +3,18 @@
 Port of ``probing_rag_tpu/prober/model.py``. ``ImprovedProbe`` (the paper's
 prober): LN -> Linear(d,512) -> SiLU -> LN -> Dropout(0.1) ->
 Linear(512,512) -> SiLU -> LN -> Dropout -> Linear(512,2); 1,318,914 params
-at d=2048. Parameters are plain dicts of tensors in the JAX layout (linear
-weights ``[in, out]``); a stack of probers is the same dict with a leading
-prober axis. Only inference of a stack is ported: dropout is off.
+at d=2048. ``Probe`` is the linear-probe ablation. Parameters are plain
+dicts of tensors in the JAX layout (linear weights ``[in, out]``); a stack
+of probers is the same dict with a leading prober axis, and the stacked
+forward scores every prober's own rows in one batched product. Dropout
+draws from a ``torch.Generator`` passed only in training (JAX's
+``dropout_rng``); without one the forward is the eval forward.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -65,10 +68,27 @@ def init_improved_probe(
     }
 
 
-def improved_probe_forward(params: ProbeParams, x: torch.Tensor) -> torch.Tensor:
-    """Inference forward of a prober stack: params with a leading prober
-    axis N (``init_prober_stack``) and x [N, B, input_size]; every prober
-    scores its own row of x. Returns logits [N, B, 2]."""
+def _dropout(x: torch.Tensor, generator: Optional[torch.Generator], rate: float) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate); the identity without a
+    generator."""
+    if generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def improved_probe_forward(
+    params: ProbeParams,
+    x: torch.Tensor,
+    *,
+    generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.1,
+) -> torch.Tensor:
+    """Forward of a prober stack: params with a leading prober axis N
+    (``init_prober_stack``) and x [N, B, input_size]; every prober scores
+    its own rows of x. Pass ``generator`` only during training. Returns
+    logits [N, B, output_size]."""
 
     def linear(p, h):
         return torch.bmm(h, p["w"]) + p["b"][:, None, :]
@@ -78,5 +98,24 @@ def improved_probe_forward(params: ProbeParams, x: torch.Tensor) -> torch.Tensor
 
     x = norm(params["ln_in"], x)
     x = norm(params["ln1"], F.silu(linear(params["fc1"], x)))
+    x = _dropout(x, generator, dropout_rate)
     x = norm(params["ln2"], F.silu(linear(params["fc2"], x)))
+    x = _dropout(x, generator, dropout_rate)
     return linear(params["fc3"], x)
+
+
+def init_linear_probe(
+    generator: torch.Generator, input_size: int, output_size: int = NUM_CLASSES, device="cuda"
+) -> ProbeParams:
+    return {"ln": _ln_init(input_size, device),
+            "fc": _linear_init(generator, input_size, output_size, device)}
+
+
+def linear_probe_forward(params: ProbeParams, x: torch.Tensor) -> torch.Tensor:
+    """One linear probe: x [..., input_size] -> logits [..., output_size]."""
+    return _layer_norm(x, params["ln"]) @ params["fc"]["w"] + params["fc"]["b"]
+
+
+def probe_param_count(params: ProbeParams) -> int:
+    return sum(v.numel() if isinstance(v, torch.Tensor) else probe_param_count(v)
+               for v in params.values())
