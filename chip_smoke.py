@@ -115,6 +115,24 @@ and the script exits non-zero:
    ``prober_offline_eval`` against the CPU, and the capture forward with
    int8 weights (matmul_int8 at [12288 x 2048 -> 16384] with its bound
    and ``torch._weight_int8pack_mm``).
+11. baselines and the CLI chain (``phase_baselines``): on phase 5's
+   weights over the phase-4 index with a word tokenizer (an id decodes to
+   a corpus term, so generations re-enter retrieval), DRAGIN, FLARE,
+   fix-length and fix-sentence at batch 1 over 8 four-term Zipf
+   questions (64 new tokens, ``bench_baselines.py``'s setup) and the LLM
+   classifier gate at batch 8: queries/s, retrieval calls a query,
+   generate calls, tokens, hallucination triggers, graph captures and
+   their seconds, BM25 launches (one segment top-k a search) and peak
+   memory, every search equal to the CPU engine's; one trace at width
+   (probs rows sum to 1, zero above the diagonal, per-word attention,
+   entropy and logprob within ``TRACE_DRIFT`` of the weights upcast to
+   f32); each method on the tiny f32 model equal to its CPU run; the
+   CLI's ``parity`` (tiny model, fixture corpus) leaving every artifact,
+   ``rag-sweep`` at thresholds -1e6, 0, 1e6 (the lowest and highest mean
+   retrieval steps at the extremes) and ``analyze --report``;
+   ``init_quantized_lm_params`` at Gemma-2B width bit-equal to
+   ``quantize_lm_params(init_params(...))``, the peak of each, and a
+   generate call on it launching matmul_int8.
 
 The probing loops of phases 5, 7, 8, 9 and 10 run the decode step graphed
 (``models/graphs.py``), as ``generate`` does on the card by default.
@@ -126,8 +144,9 @@ its bound (``bound``). The line before the last is the card's name and
 power limit; the last line is the result as one JSON object.
 
 ``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
-matmul_int8 cases alone; ``--train`` runs phases 1, 2 and phase 10 (with
-the phase-4 index and phase 5's model).
+matmul_int8 cases alone; ``--train`` runs phases 1, 2 and phase 10, and
+``--baselines`` phases 1, 2 and 11 (each with the phase-4 index and phase
+5's model).
 """
 
 from __future__ import annotations
@@ -1035,13 +1054,14 @@ def phase_lm_reference() -> float:
 class TimedRetriever:
     """Delegates ``search`` to a BM25 engine, sums its wall seconds
     (synchronised), so the main path's time splits into retrieval and the
-    rest, and keeps each call's queries."""
+    rest, and keeps each call's queries, stats and result."""
 
     def __init__(self, engine):
         self.engine = engine
         self.seconds = 0.0
         self.calls = []
         self.stats = []
+        self.results = []
 
     def search(self, queries, k=5):
         sync()
@@ -1051,6 +1071,7 @@ class TimedRetriever:
         self.seconds += time.time() - t0
         self.calls.append(list(queries))
         self.stats.append(dict(getattr(self.engine, "last_stats", {})))
+        self.results.append(res)
         return res
 
 
@@ -2631,6 +2652,381 @@ def phase_prober_training(lm, index, questions, results: dict) -> dict:
     return launches
 
 
+# phase 11: bench_baselines.py's setup (MAX_NEW 64, its demo), 8 questions
+# of four Zipf terms; the tiny f32 model's card-vs-CPU runs take 2 questions
+BASE_MAX_NEW = 64
+BASE_QUESTIONS = 8
+BASE_DEMO = "Question: t1 t2?\nAnswer: t3.\n\n"
+TINY_CORPUS = [
+    "paris is the capital of france",
+    "berlin is the capital city of germany",
+    "george washington was the first president of the united states",
+]
+TINY_QUESTIONS = ["capital of france?", "who was the first president?"]
+# drift of the bf16 trace from the same forward with the weights upcast to
+# f32, per word, as a share of the f32 values' largest magnitude
+TRACE_DRIFT = {"attention": 0.05, "entropy": 0.01, "logprob": 0.01}
+# parity chain artifacts, as tests/test_cli_parity.py lists them
+PARITY_FILES = ("index_nq/bm25/manifest.json", "index_trivia/docstore.json", "rows_simple.csv",
+                "rows_none.csv", "result/runs.jsonl", "report/report.md")
+
+
+class ZipfWordTokenizer:
+    """Whole words over the full Gemma vocabulary, after bench_e2e.py's
+    HashWordTokenizer: the corpus's terms ``t0``..``t{VOCAB - 1}`` are ids
+    3.., any other word hashes above them, and an id decodes to ``"
+    t{(id - 3) % VOCAB}"``, so a random model's generations are corpus
+    terms that re-enter retrieval, a word to a token."""
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+        self.bos_id = 1
+        self.eos_id = self.pad_id = 2  # pad = eos, as the reference sets it
+
+    def encode(self, text: str, add_bos: bool = False):
+        import zlib
+
+        ids = []
+        for w in text.split():
+            if w[:1] == "t" and w[1:].isdigit() and int(w[1:]) < VOCAB:
+                ids.append(3 + int(w[1:]))
+            else:
+                ids.append(3 + VOCAB + zlib.crc32(w.encode()) % (self.vocab_size - 3 - VOCAB))
+        return ([self.bos_id] + ids) if add_bos else ids
+
+    def decode(self, ids) -> str:
+        return "".join(f" t{(i - 3) % VOCAB}" for i in ids if i >= 3)
+
+    def token_strings(self):
+        return [""] * self.vocab_size  # no paragraph stop
+
+
+def baseline_methods():
+    """(label, class, constructor keywords) of the four retrieval
+    baselines, as the reference runs them."""
+    from probing_rag_tpu_torch.pipeline import baselines as tb
+
+    return (("dragin", tb.DraginRAG, {}), ("flare", tb.FlareRAG, {}),
+            ("fix-length", tb.FixLengthRAG, dict(method="fix-length-retrieval")),
+            ("fix-sentence", tb.FixLengthRAG, dict(method="fix-sentence")))
+
+
+def captures_since(before: dict) -> tuple:
+    from probing_rag_tpu_torch.models import graphs
+
+    return (int(graphs.CAPTURES["count"] - before["count"]),
+            graphs.CAPTURES["seconds"] - before["seconds"])
+
+
+def stacked_results(results, k: int):
+    """One search result over every call's rows."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    return SimpleNamespace(scores=np.concatenate([r.scores[:, :k] for r in results]),
+                           doc_indices=np.concatenate([r.doc_indices[:, :k] for r in results]))
+
+
+def phase_baselines_at_width(lm, index) -> None:
+    """The comparison baselines at Gemma-2B width on phase 5's bf16 weights
+    over the phase-4 BM25 index, with the word tokenizer: DRAGIN, FLARE,
+    fix-length and fix-sentence at batch 1 (one query at a time, as the
+    reference runs them) over the same 8 questions, then the LLM
+    classifier gate on them at batch 8. Per method: queries/s, retrieval
+    calls per query, generate calls, tokens, hallucination triggers, graph
+    captures and their seconds, the BM25 kernels' launches and peak GiB.
+    Holds that every method retrieved, that each search launched one
+    segment top-k (and one bitonic gather when it was not routed to the
+    over-cap hybrid), and that every query searched gives the CPU
+    engine's top-k. Then one trace at width: the bf16 ``forward_with_attn``
+    probs (rows sum to 1, nothing above the diagonal) and the per-word
+    attention, entropy and logprob against the same trace with the
+    weights upcast to f32, within ``TRACE_DRIFT``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models import graphs
+    from probing_rag_tpu_torch.pipeline import baselines as tb
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+
+    params, cfg, _, _, store = lm
+    tok = ZipfWordTokenizer(cfg.vocab_size)
+    engine = BM25Engine(index, device=DEVICE)
+    rng = np.random.default_rng(SEED + 11)
+    qz = zipf_tokens(rng, BASE_QUESTIONS * 4).reshape(BASE_QUESTIONS, 4) % VOCAB
+    questions = [" ".join(f"t{t}" for t in row) for row in qz]
+    bc = tb.BaselineConfig(generate_max_length=BASE_MAX_NEW)
+    searched = []
+    for label, cls, kw in baseline_methods():
+        retriever = TimedRetriever(engine)
+        rag = cls(params, cfg, tok, retriever, store, bc, **kw)
+        caps0 = dict(graphs.CAPTURES)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        sync()
+        t0 = time.time()
+        for q in questions:
+            rag.inference(q, BASE_DEMO, f"Question: {q}\nAnswer:")
+        sync()
+        wall = time.time() - t0
+        launches = {n: kernels.LAUNCHES[n] for n in BM25_KERNELS}
+        n_cap, cap_s = captures_since(caps0)
+        c = rag.counter
+        n = len(questions)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0
+        print(f"  {label}: {n / wall:.3f} queries/s ({wall:.2f}s for {n}, batch 1); retrieval "
+              f"calls {c.retrieve} ({c.retrieve / n:.2f} a query), generate calls {c.generate}, "
+              f"tokens {c.token}, sentences {c.sentence}, hallucination triggers "
+              f"{c.hallucinated}; graph captures {n_cap} in {cap_s:.3f}s "
+              f"({cap_s / wall:.1%} of the wall); BM25 search {retriever.seconds:.3f}s; "
+              f"launches {launches}; peak {peak:.2f} GiB")
+        bitonic = sum(1 for st in retriever.stats if st["n_fallback"] == 0)
+        if c.retrieve == 0 or len(retriever.calls) != c.retrieve:
+            raise AssertionError(f"{label}: {c.retrieve} retrievals, {len(retriever.calls)} searches")
+        if launches["segment_topk"] != c.retrieve or launches["bm25_gather"] != bitonic:
+            raise AssertionError(f"{label}: launches {launches} do not match {c.retrieve} searches "
+                                 f"({bitonic} on the bitonic path)")
+        searched.append((label, retriever))
+        del rag
+
+    gate = tb.LLMClassifierGate(params, cfg, tok)
+    caps0 = dict(graphs.CAPTURES)
+    sync()
+    t0 = time.time()
+    needs = gate.needs_retrieval(questions)
+    sync()
+    wall = time.time() - t0
+    n_cap, cap_s = captures_since(caps0)
+    if len(needs) != len(questions) or not all(isinstance(b, bool) for b in needs):
+        raise AssertionError(f"LLM gate gave {needs}")
+    print(f"  llm gate: {len(questions) / wall:.3f} queries/s ({wall:.2f}s, batch 8, 4 new "
+          f"tokens); retrieval wanted for {sum(needs)} of {len(questions)}; graph captures "
+          f"{n_cap} in {cap_s:.3f}s")
+
+    cpu_engine = BM25Engine(index, device="cpu")
+    for label, retriever in searched:
+        queries = [q for call in retriever.calls for q in call]
+        ref = cpu_engine.search(queries, k=K + 1)
+        assert_same_topk(stacked_results(retriever.results, K), ref,
+                         f"{label}'s searches against the CPU engine")
+        widths = [len(q.split()) for q in queries]
+        print(f"  {label}: {len(queries)} searches ({min(widths)}-{max(widths)} words, "
+              f"{sum(st['n_fallback'] for st in retriever.stats)} over-cap) equal to the CPU engine")
+    del cpu_engine
+
+    # one trace at width: the bf16 forward against the same forward upcast to f32
+    prompt = BASE_DEMO + f"Question: {questions[0]}\nAnswer:"
+    _, res = tb._generate_one(params, cfg, tok, prompt, BASE_MAX_NEW)
+    gen_ids = [int(t) for t in res.tokens[0, : int(res.n_generated[0])]]
+    ids, valid = tb._ids_tensor(params, gen_ids)
+    _, _, _, probs = tb.forward_with_attn(params, ids, valid, cfg)
+    p = probs[0].cpu().numpy()
+    row_err = float(np.abs(p.sum(-1) - 1.0).max())
+    above = float(np.triu(p, 1).max())
+    if row_err > 1e-4 or above != 0.0:
+        raise AssertionError(f"trace probs: rows sum to 1 within {row_err}, {above} above the diagonal")
+    got = tb.trace_ids(params, cfg, tok, gen_ids)
+    p32 = {k: ({n: w.float() for n, w in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    want = tb.trace_ids(p32, dataclasses.replace(cfg, compute_dtype=torch.float32), tok, gen_ids)
+    del p32
+    if got[0] != want[0]:
+        raise AssertionError("trace words differ between bf16 and f32")
+    drift = {}
+    for (name, bound), g, w in zip(TRACE_DRIFT.items(), got[1:], want[1:]):
+        g, w = np.asarray(g), np.asarray(w)
+        drift[name] = float(np.abs(g - w).max() / np.abs(w).max())
+        if not drift[name] <= bound:
+            raise AssertionError(f"trace {name} drifts {drift[name]:.3g} of its largest, over {bound}")
+    print(f"  trace of {len(gen_ids)} tokens at width: probs [{p.shape[0]}, {p.shape[1]}, "
+          f"{p.shape[2]}] f32, rows sum to 1 within {row_err:.2g}, zero above the diagonal; bf16 vs "
+          f"f32 weights, largest drift as a share of the largest value: "
+          + ", ".join(f"{k} {v:.3g} (bound {TRACE_DRIFT[k]})" for k, v in drift.items())
+          + f"; entropy {np.mean(want[2]):.3f}, logprob {np.mean(want[3]):.3f} on the mean")
+
+
+def run_tiny_baselines(params, cfg, device):
+    """Each method over ``TINY_QUESTIONS`` and the gate, with the tiny
+    model on ``device``: ([(answers, counters)] per method, gate)."""
+    import dataclasses
+
+    from probing_rag_tpu_torch.data.corpus import DocStore
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.pipeline import baselines as tb
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+    from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
+
+    index = BM25Index.build(TINY_CORPUS, BM25Config(stem=False, remove_stopwords=False))
+    engine, store = BM25Engine(index, device=device), DocStore.from_texts(TINY_CORPUS)
+    tok = ByteTokenizer(cfg.vocab_size)
+    fields = {"dragin": dict(hallucination_threshold=0.5), "flare": dict(flare_threshold=0.99)}
+    out = []
+    for label, cls, kw in baseline_methods():
+        bc = tb.BaselineConfig(generate_max_length=16, max_rounds=2, **fields.get(label, {}))
+        answers, counters = [], []
+        for q in TINY_QUESTIONS:
+            rag = cls(params, cfg, tok, engine, store, bc, **kw)
+            answers.append(rag.inference(q, "demo\n", f"Question: {q}"))
+            counters.append(dataclasses.asdict(rag.counter))
+        out.append((label, answers, counters))
+    gate = tb.LLMClassifierGate(params, cfg, tok, max_new_tokens=2).needs_retrieval(TINY_QUESTIONS)
+    return out, gate
+
+
+def phase_tiny_baselines() -> None:
+    """Each baseline on the tiny f32 model (the CPU tests' setup: byte
+    tokenizer, three-sentence corpus), on the card and on the CPU: answer
+    texts and counters equal, the gate's decisions too."""
+    import dataclasses
+
+    import torch
+
+    from probing_rag_tpu_torch.models.gemma import GemmaConfig, init_params
+
+    cfg = dataclasses.replace(GemmaConfig.tiny(), compute_dtype=torch.float32)
+    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    card = {k: ({n: w.to(DEVICE) for n, w in v.items()} if isinstance(v, dict) else v.to(DEVICE))
+            for k, v in cpu.items()}
+    got, got_gate = run_tiny_baselines(card, cfg, DEVICE)
+    want, want_gate = run_tiny_baselines(cpu, cfg, "cpu")
+    for (label, answers, counters), (_, w_answers, w_counters) in zip(got, want):
+        if answers != w_answers or counters != w_counters:
+            raise AssertionError(f"tiny {label} on the card {answers} {counters} != CPU "
+                                 f"{w_answers} {w_counters}")
+    if got_gate != want_gate:
+        raise AssertionError(f"tiny LLM gate on the card {got_gate} != CPU {want_gate}")
+    print("  tiny f32 model, card vs CPU: answers and counters equal for "
+          + "; ".join(f"{label} (retrieve {[c['retrieve'] for c in counters]})"
+                      for label, _, counters in got) + f"; gate {got_gate}")
+
+
+def phase_cli_chain() -> None:
+    """``parity`` (tiny model, fixture corpus, ``--device``), ``rag-sweep``
+    over its index at thresholds -1e6 and 1e6, and ``analyze --report``
+    without figures, through the CLI's ``main``: every artifact of the
+    parity drill, the BM25 kernels launched, and the two thresholds giving
+    the lowest and the highest mean retrieval steps."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.cli.main import main as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp) / "parity"
+        kernels.reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli(["parity", "--device", DEVICE, "--workdir", str(work), "--datasets", "nq,trivia",
+                 "--steps-limit", "4", "--max-new-tokens", "8", "--batch-size", "2",
+                 "--epochs", "1"])
+        parity_s = time.time() - t0
+        launches = {n: kernels.LAUNCHES[n] for n in BM25_KERNELS}
+        missing = [f for f in PARITY_FILES if not (work / f).exists()]
+        if missing or not any((work / "probers").glob("probers*")):
+            raise AssertionError(f"parity left no {missing or 'probers'}")
+        if "parity drill complete" not in out.getvalue():
+            raise AssertionError("parity did not complete")
+        if not all(launches[n] for n in ("bm25_gather", "segment_topk")):
+            raise AssertionError(f"parity launched {launches}")
+        print(f"  parity --device {DEVICE}: {parity_s:.1f}s, every artifact there; BM25 "
+              f"launches {launches}")
+
+        sweep = ["rag-sweep", "--device", DEVICE, "--dataset", "nq", "--fixture-qa",
+                 str(work / "qa.json"), "--index", str(work / "index_nq"), "--max-new-tokens",
+                 "8", "--batch-size", "2", "--probers", str(work / "probers" / "probers"),
+                 "--thresholds=-1e6,0,1e6"]
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli(sweep)
+        rows = [line.split() for line in out.getvalue().strip().splitlines()[1:]]
+        steps = {float(r[0]): float(r[5]) for r in rows}
+        if sorted(steps) != [-1e6, 0.0, 1e6] or steps[-1e6] != min(steps.values()) \
+                or steps[1e6] != max(steps.values()) or steps[-1e6] == steps[1e6]:
+            raise AssertionError(f"rag-sweep avg_steps {steps}")
+        print(f"  rag-sweep: {time.time() - t0:.1f}s, avg_steps by threshold {steps}")
+
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cli(["analyze", "--runs", str(work / "result" / "runs.jsonl"),
+                 "--report", str(Path(tmp) / "report")])
+        report = (Path(tmp) / "report" / "report.md").read_text()
+        if "| probing | nq |" not in report or "report ->" not in out.getvalue():
+            raise AssertionError("analyze --report wrote no run table")
+        print(f"  analyze --report (no figures): report.md of {len(report.splitlines())} lines")
+
+
+def phase_quantized_init() -> None:
+    """``init_quantized_lm_params`` at Gemma-2B width on the card: bit-equal
+    to ``quantize_lm_params(init_params(...))`` from the same seed, the
+    peak of each way, and one generate call on it launching
+    ``matmul_int8``."""
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models.decode import generate
+    from probing_rag_tpu_torch.models.gemma import (
+        GemmaConfig, init_params, init_quantized_lm_params, param_count, quantize_lm_params)
+
+    cfg = GemmaConfig.gemma_2b()
+
+    def peak_of(fn):
+        sync()
+        base = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        tree = fn()
+        sync()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if DEVICE == "cuda" else 0.0
+        return tree, peak, time.time() - t0
+
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    ref, ref_peak, ref_s = peak_of(lambda: quantize_lm_params(
+        init_params(cfg, gen(), device=DEVICE, dtype=torch.bfloat16)))
+    got, got_peak, got_s = peak_of(lambda: init_quantized_lm_params(cfg, gen(), device=DEVICE))
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)])
+
+    ref_leaves = dict(leaves(ref))
+    got_leaves = dict(leaves(got))
+    if list(got_leaves) != list(ref_leaves):
+        raise AssertionError(f"leaves {list(got_leaves)} != {list(ref_leaves)}")
+    for name, r in ref_leaves.items():
+        if got_leaves[name].dtype != r.dtype or not torch.equal(got_leaves[name], r):
+            raise AssertionError(f"init_quantized_lm_params {name} differs from quantize-of-init")
+    del ref, ref_leaves
+    n_bytes = sum(v.numel() * v.element_size() for v in got_leaves.values())
+    print(f"  init_quantized_lm_params (int8, {param_count(got) / 1e9:.3f}B elements, "
+          f"{n_bytes / 2**30:.2f} GiB) bit-equal to quantize_lm_params(init_params(bf16)); peak "
+          f"{got_peak:.2f} GiB in {got_s:.1f}s, against {ref_peak:.2f} GiB in {ref_s:.1f}s")
+    kernels.reset_launches()
+    tok = ZipfWordTokenizer(cfg.vocab_size)
+    texts, res = generate(got, cfg, tok, [BASE_DEMO + "Question: t200 t300?\nAnswer:"],
+                          max_new_tokens=8)
+    launches = kernels.LAUNCHES["matmul_int8"]
+    if launches == 0 or int(res.n_generated[0]) == 0:
+        raise AssertionError(f"generate on init_quantized weights: {launches} matmul_int8 launches")
+    print(f"  generate on those weights: {int(res.n_generated[0])} tokens, matmul_int8 "
+          f"launched {launches} times")
+
+
+def phase_baselines(lm, index) -> None:
+    """Phase 11: the baselines at width, on the tiny model against the CPU,
+    the CLI chain and the quantized init."""
+    phase_baselines_at_width(lm, index)
+    phase_tiny_baselines()
+    phase_cli_chain()
+    phase_quantized_init()
+
+
 def main() -> int:
     import argparse
 
@@ -2641,6 +3037,8 @@ def main() -> int:
                     help="only phases 1, 2 and the matmul_int8 cases of phase 8")
     ap.add_argument("--train", action="store_true",
                     help="only phases 1, 2 and phase 10 (over the phase-4 index and phase 5's model)")
+    ap.add_argument("--baselines", action="store_true",
+                    help="only phases 1, 2 and phase 11 (over the phase-4 index and phase 5's model)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2673,6 +3071,11 @@ def main() -> int:
             index, docs_tokens, _, _ = build_zipf_index()
             phase_prober_training(gemma_2b_lm(docs_tokens), index, loop_questions(index), results)
         print(json.dumps(results))
+        return 0
+    if args.baselines:
+        with Phase("11 baselines and the CLI chain"):
+            index, docs_tokens, _, _ = build_zipf_index()
+            phase_baselines(gemma_2b_lm(docs_tokens), index)
         return 0
     with Phase("3 kernels vs plain"):
         import numpy as np
@@ -2720,6 +3123,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("10 prober training"):
         phase_prober_training(lm, index, questions, results)
+    torch.cuda.empty_cache()
+    with Phase("11 baselines and the CLI chain"):
+        phase_baselines(lm, index)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every kernel's fields, then the extra shapes some carry (the wide

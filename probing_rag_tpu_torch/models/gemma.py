@@ -141,15 +141,13 @@ class CaptureSpec:
 # ------------------------------------------------------------------ params
 
 
-def init_params(
-    cfg: GemmaConfig,
-    generator: torch.Generator,
-    device="cuda",
-    dtype: torch.dtype = torch.float32,
-) -> Params:
-    """Random parameters with the JAX ``init_params`` distribution: dense
-    weights N(0, 1) / sqrt(fan_in), norm weights at identity. Each leaf is
-    drawn in f32 on ``device`` from ``generator`` and cast to ``dtype``."""
+def _init_leaves(cfg: GemmaConfig, generator: torch.Generator, device, dtype: torch.dtype):
+    """``init_params``' leaves as ``(name, layer_leaf, tensor)``, each drawn
+    when it is asked for and in this order (embed, final norm, the layer
+    families, an untied head), so that a caller consuming them one at a
+    time holds one at a time. Dense weights are drawn in f32 from
+    ``generator`` on ``device``, scaled by 1 / sqrt(fan_in) and cast to
+    ``dtype``."""
     d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     L = cfg.n_layers
 
@@ -161,24 +159,64 @@ def init_params(
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return w.div_(math.sqrt(shape[-2])).to(dtype)
 
-    params: Params = {
-        "embed": dense_init(cfg.vocab_size, d),
-        "final_norm": norm_init(d),
-        "layers": {
-            "attn_norm": norm_init(L, d),
-            "wq": dense_init(L, d, h * hd),
-            "wk": dense_init(L, d, kv * hd),
-            "wv": dense_init(L, d, kv * hd),
-            "wo": dense_init(L, h * hd, d),
-            "mlp_norm": norm_init(L, d),
-            "w_gate": dense_init(L, d, f),
-            "w_up": dense_init(L, d, f),
-            "w_down": dense_init(L, f, d),
-        },
-    }
+    yield "embed", False, dense_init(cfg.vocab_size, d)
+    yield "final_norm", False, norm_init(d)
+    for name, shape in (("attn_norm", (L, d)), ("wq", (L, d, h * hd)), ("wk", (L, d, kv * hd)),
+                        ("wv", (L, d, kv * hd)), ("wo", (L, h * hd, d)), ("mlp_norm", (L, d)),
+                        ("w_gate", (L, d, f)), ("w_up", (L, d, f)), ("w_down", (L, f, d))):
+        yield name, True, (norm_init if name.endswith("norm") else dense_init)(*shape)
     if not cfg.tied_head:
-        params["lm_head"] = dense_init(d, cfg.vocab_size)
+        yield "lm_head", False, dense_init(d, cfg.vocab_size)
+
+
+def init_params(
+    cfg: GemmaConfig,
+    generator: torch.Generator,
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """Random parameters with the JAX ``init_params`` distribution: dense
+    weights N(0, 1) / sqrt(fan_in), norm weights at identity. Each leaf is
+    drawn in f32 on ``device`` from ``generator`` and cast to ``dtype``."""
+    params: Params = {}
+    for name, layer_leaf, w in _init_leaves(cfg, generator, device, dtype):
+        (params.setdefault("layers", {}) if layer_leaf else params)[name] = w
     return params
+
+
+def init_quantized_lm_params(
+    cfg: GemmaConfig,
+    generator: torch.Generator,
+    bits: int = 8,
+    group_size: Optional[int] = None,
+    int4_scheme: str = "grouped",
+    device="cuda",
+) -> Params:
+    """Random init straight into the quantized serving format, one leaf at
+    a time: each leaf is drawn as ``init_params(..., dtype=torch.bfloat16)``
+    draws it (the same generator calls, in the same order), quantized as
+    ``quantize_lm_params`` quantizes it, and dropped before the next is
+    drawn. The tree is bit-equal to ``quantize_lm_params(init_params(cfg,
+    generator, device, torch.bfloat16), bits, group_size, int4_scheme)``
+    from the same generator state. The peak is the quantized tree plus one
+    leaf's f32 draw and its bf16 cast (bit-equality with ``init_params``
+    needs its one f32 ``randn`` a leaf), where quantize-of-init holds the
+    whole bf16 tree. Port of the JAX stacked form (``unstacked=True`` is an
+    XLA workaround and is not ported)."""
+    _check_quant_args(bits, int4_scheme)
+    if bits == 4 and group_size is None:
+        group_size = _group_size_for((cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff))
+    params: Params = {}
+    for name, layer_leaf, w in _init_leaves(cfg, generator, device, torch.bfloat16):
+        if name in _QUANTIZED:  # the bf16 leaf is freed here, before the next draw
+            w = _quant_leaf(name, w, bits, group_size, int4_scheme, 8)
+        (params.setdefault("layers", {}) if layer_leaf else params)[name] = w
+    return params
+
+
+def param_count(params: Params) -> int:
+    """Elements over every leaf of a (possibly quantized) parameter tree."""
+    return sum(param_count(v) if isinstance(v, dict) else v.numel() for v in params.values())
 
 
 # ----------------------------------------------------------------- modules
@@ -247,6 +285,19 @@ def _per_matrix(fn, w: torch.Tensor, *args) -> Params:
     return {name: v.reshape(*w.shape[:-2], *v.shape[1:]) for name, v in out.items()}
 
 
+# vocab rows the per-row embedding quantization takes at a time
+_EMBED_ROW_BLOCK = 16384
+
+
+def _quant_rows(w: torch.Tensor, nbits: int) -> Params:
+    """Per-row quantization of the [V, D] embedding (each row's scale is
+    its own) in blocks of ``_EMBED_ROW_BLOCK`` rows: eager temporaries of
+    the whole table would take about three times its f32 size."""
+    parts = [_quant_channel_2d(w[i : i + _EMBED_ROW_BLOCK], -1, nbits)
+             for i in range(0, w.shape[0], _EMBED_ROW_BLOCK)]
+    return {name: torch.cat([part[name] for part in parts]) for name in parts[0]}
+
+
 def _quant_channel_2d(w: torch.Tensor, axis: int, nbits: int) -> Params:
     """Symmetric per-channel quantization along ``axis`` (the max is taken
     over it): ``{"q": int8, "s": f32}``, or ``{"qp", "s"}`` at 4 bits."""
@@ -289,17 +340,50 @@ def _quant_rank1_2d(w: torch.Tensor, group_size: int) -> Params:
     return {"qp": _pack_int4(q.reshape(d, f)), "rs": rs, "s": s}
 
 
+def _group_size_for(dims, cap: int = 128) -> int:
+    """Largest group <= ``cap`` dividing every one of ``dims``."""
+    gcd = math.gcd(*dims)
+    g = min(cap, gcd)
+    while gcd % g:  # a divisor of the gcd divides every dim
+        g -= 1
+    return g
+
+
 def _default_group_size(params: Params, cap: int = 128) -> int:
     """Largest group <= ``cap`` dividing every grouped reduction dim
     (d_model, n_heads * head_dim, d_ff, and an untied head's d_model)."""
     dims = [params["layers"][n].shape[-2] for n in ("wq", "wo", "w_down")]
     if "lm_head" in params:
         dims.append(params["lm_head"].shape[-2])
-    gcd = math.gcd(*dims)
-    g = min(cap, gcd)
-    while gcd % g:  # a divisor of the gcd divides every dim
-        g -= 1
-    return g
+    return _group_size_for(dims, cap)
+
+
+# the leaves quantize_lm_params quantizes: the embedding, an untied head and
+# the seven matmul weight families
+_QUANTIZED = ("embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _check_quant_args(bits: int, int4_scheme: str) -> None:
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if int4_scheme not in ("grouped", "rank1"):
+        raise ValueError(f"int4_scheme must be 'grouped' or 'rank1', got {int4_scheme!r}")
+
+
+def _quant_leaf(name: str, w: torch.Tensor, bits: int, group_size: Optional[int],
+                int4_scheme: str, embed_bits: int) -> Params:
+    """One leaf of ``_QUANTIZED`` in its quantized form: the embedding per
+    vocab row at ``embed_bits`` (``s`` [V, 1]); at 8 bits every other leaf
+    per output channel (``s`` [.., 1, F]); at 4 bits the layer families and
+    the head sub-channel int4 by ``int4_scheme``, one matrix at a time."""
+    if name == "embed":
+        return _quant_rows(w, embed_bits)
+    if bits == 8:
+        return _per_matrix(_quant_channel_2d, w, -2, 8)
+    if w.shape[-2] % group_size:
+        raise ValueError(f"group_size {group_size} must divide reduction dim {w.shape[-2]}")
+    fn = _quant_rank1_2d if int4_scheme == "rank1" else _quant_grouped_2d
+    return _per_matrix(fn, w, group_size)
 
 
 def quantize_lm_params(
@@ -321,10 +405,7 @@ def quantize_lm_params(
     as ``rs[k] * s[f]``); the embedding stays per-row int8 unless
     ``embed_bits=4``. ``group_size=None`` picks the largest group <= 128
     that divides every grouped reduction dim of this tree."""
-    if bits not in (8, 4):
-        raise ValueError(f"bits must be 8 or 4, got {bits}")
-    if int4_scheme not in ("grouped", "rank1"):
-        raise ValueError(f"int4_scheme must be 'grouped' or 'rank1', got {int4_scheme!r}")
+    _check_quant_args(bits, int4_scheme)
     embed_bits = 8 if embed_bits is None else embed_bits
     if bits == 8 and embed_bits != 8:
         raise ValueError("embed_bits only applies to bits=4")
@@ -333,22 +414,12 @@ def quantize_lm_params(
     if group_size is None:
         group_size = _default_group_size(params)
 
-    def quant_grouped(w):
-        if w.shape[-2] % group_size:
-            raise ValueError(f"group_size {group_size} must divide reduction dim {w.shape[-2]}")
-        fn = _quant_rank1_2d if int4_scheme == "rank1" else _quant_grouped_2d
-        return _per_matrix(fn, w, group_size)
-
     out = dict(params)
-    out["embed"] = _quant_channel_2d(params["embed"], -1, embed_bits)  # [V, D], s [V, 1]
-    if "lm_head" in params:
-        out["lm_head"] = (quant_grouped(params["lm_head"]) if bits == 4
-                          else _quant_channel_2d(params["lm_head"], -2, 8))  # s [1, V]
     out["layers"] = dict(params["layers"])
-    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-        w = params["layers"][name]
-        out["layers"][name] = (quant_grouped(w) if bits == 4
-                               else _per_matrix(_quant_channel_2d, w, -2, 8))
+    for name in _QUANTIZED:
+        tree = out["layers"] if name in out["layers"] else out
+        if name in tree:
+            tree[name] = _quant_leaf(name, tree[name], bits, group_size, int4_scheme, embed_bits)
     return out
 
 
@@ -418,23 +489,25 @@ def _attn_core(
     k: torch.Tensor,  # [B, KV, S, hd]
     v: torch.Tensor,  # [B, KV, S, hd]
     mask: torch.Tensor,  # [B, 1, T, S] bool (True = attend)
-) -> torch.Tensor:
+    return_probs: bool = False,
+):
     """f32 scores, -1e30 masking, softmax, f32-accumulated value sum (the
-    JAX einsums with ``preferred_element_type=f32``). Returns [B, T, H*hd]
-    f32."""
+    JAX einsums with ``preferred_element_type=f32``). Returns ([B, T, H*hd]
+    f32, the f32 softmax [B, H, T, S] if ``return_probs`` else None)."""
     b, t, kv, groups, hd = q.shape
     scores = torch.einsum("btkgh,bksh->bkgts", q.float(), k.float())
     scores = scores / math.sqrt(hd)
     scores = scores.masked_fill(~mask[:, :, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bksh->btkgh", probs.to(v.dtype).float(), v.float())
-    return out.reshape(b, t, kv * groups * hd)
+    out = out.reshape(b, t, kv * groups * hd)
+    return out, (probs.reshape(b, kv * groups, t, -1) if return_probs else None)
 
 
-def _attention(q, k, v, mask) -> torch.Tensor:
+def _attention(q, k, v, mask, return_probs: bool = False):
     b, t, h, hd = q.shape
     kv = k.shape[1]
-    return _attn_core(q.reshape(b, t, kv, h // kv, hd), k, v, mask)
+    return _attn_core(q.reshape(b, t, kv, h // kv, hd), k, v, mask, return_probs)
 
 
 def _cache_update(kv: Params, name: str, x: torch.Tensor, layer: int, slots: torch.Tensor,
@@ -468,8 +541,10 @@ def _block(
     mask: torch.Tensor,
     cfg: GemmaConfig,
     cache: Optional[Tuple],  # (kv_cache, layer, slots) | None
+    return_probs: bool = False,
 ):
-    """One transformer block. Returns (resid_mid, resid_post).
+    """One transformer block. Returns (resid_mid, resid_post, the layer's
+    attention probs [B, H, T, S] f32 if ``return_probs`` else None).
 
     With ``cache``, the new tokens' K/V are written into the layer's slice
     of the stacked cache at ``slots`` IN PLACE (the caller's cache tensors
@@ -491,7 +566,7 @@ def _block(
         k = _cache_update(kv, "k", k, layer, slots, dt)
         v = _cache_update(kv, "v", v, layer, slots, dt)
 
-    attn = _attention(q, k.to(dt), v.to(dt), mask)
+    attn, probs = _attention(q, k.to(dt), v.to(dt), mask, return_probs)
     attn_out = _mm(attn.to(dt), lp["wo"], dt, a8).to(cfg.resid_dtype)
     resid_mid = x + attn_out
 
@@ -500,7 +575,7 @@ def _block(
     gate = F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu" else F.silu(gate)
     up = _mm(x_in, lp["w_up"], dt, a8)
     mlp_out = _mm(gate * up, lp["w_down"], dt, a8).to(cfg.resid_dtype)
-    return resid_mid, resid_mid + mlp_out
+    return resid_mid, resid_mid + mlp_out, probs
 
 
 def forward(
@@ -512,10 +587,13 @@ def forward(
     kv_cache: Optional[Params] = None,  # init_kv_cache's dict
     positions: Optional[torch.Tensor] = None,  # [B, T] RoPE positions
     attn_valid: Optional[torch.Tensor] = None,  # no-cache: [B,T]; cache: [B,S] slot validity
+    attn_probs_layer: Optional[int] = None,  # also return this layer's attention probs
     logits_last_only: bool = False,  # head only on the final position
 ):
     """LM forward. Returns (logits [B,T,V] f32, new_kv_cache | None,
-    captures [n_sites, B, T, D] | None).
+    captures [n_sites, B, T, D] | None), and with ``attn_probs_layer`` (an
+    index into the layers, negative from the last) a fourth value: that
+    layer's f32 attention softmax [B, H, T, S].
 
     With ``kv_cache``, ``tokens`` are the T new tokens appended at buffer
     offset ``kv_cache['pos']`` (a 0-dim int64 tensor on the cache's device,
@@ -561,6 +639,8 @@ def forward(
     for i, (layer, site) in enumerate(capture.sites):
         want.setdefault(layer, []).append((i, site))
     caps = [None] * capture.n_sites
+    probs_layer = None if attn_probs_layer is None else attn_probs_layer % cfg.n_layers
+    attn_probs = None
     lp_all = params["layers"]
     for layer in range(cfg.n_layers):
         lp = {name: ({k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer])
@@ -568,7 +648,10 @@ def forward(
         cache = None
         if kv_cache is not None:
             cache = (kv_cache, layer, slots)
-        resid_mid, resid_post = _block(lp, x, positions, mask, cfg, cache)
+        resid_mid, resid_post, probs = _block(lp, x, positions, mask, cfg, cache,
+                                              return_probs=layer == probs_layer)
+        if probs is not None:
+            attn_probs = probs
         for i, site in want.get(layer, ()):
             caps[i] = resid_mid if site == "resid_mid" else resid_post
         x = resid_post
@@ -595,6 +678,8 @@ def forward(
     if kv_cache is not None:
         new_cache = dict(kv_cache, pos=base + t)
     captures = torch.stack(caps) if caps else None
+    if attn_probs_layer is not None:
+        return logits, new_cache, captures, attn_probs
     return logits, new_cache, captures
 
 

@@ -16,16 +16,23 @@ so a capture counts each kernel once and a replay not at all; the runner
 takes back the capture's counts (nothing ran) and adds them on every
 replay. :class:`GraphCache` keeps a few captured steps with their buffers,
 keyed by everything that shapes them, least recently used first out.
+``CAPTURES`` counts the captures of the process and their wall seconds
+(the warm-up step and the capture, synchronised), so that a caller can
+tell what a cache miss cost.
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
 from probing_rag_tpu_torch import kernels
+
+# captures made (each a GraphCache miss or a new loop) and their seconds
+CAPTURES: Dict[str, float] = {"count": 0, "seconds": 0.0}
 
 
 class StepGraph:
@@ -41,6 +48,7 @@ class StepGraph:
     def __init__(self, step: Callable[[], None], save: Callable[[], object],
                  restore: Callable[[object], None], *, generator: Optional[torch.Generator] = None,
                  warmup: int = 1):
+        t0 = time.perf_counter()
         saved = save()
         rng = generator.get_state() if generator is not None else None
         side = torch.cuda.Stream()
@@ -64,6 +72,9 @@ class StepGraph:
             if n != before[name]:
                 self.launches[name] = n - before[name]
                 kernels.LAUNCHES[name] = before[name]
+        torch.cuda.current_stream().synchronize()
+        CAPTURES["count"] += 1
+        CAPTURES["seconds"] += time.perf_counter() - t0
 
     def replay(self) -> None:
         self.graph.replay()

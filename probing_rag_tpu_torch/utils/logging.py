@@ -1,9 +1,10 @@
 """Structured logging: stdlib logger + JSONL run logs.
 
-Port of ``get_logger`` and ``JsonlWriter`` from
+Port of ``get_logger``, ``JsonlWriter`` and ``wandb_log_adapter`` from
 ``probing_rag_tpu/utils/logging.py``: one record per training step or dev
-evaluation, each a JSON line with a timestamp. The loggers hang under the
-``probing_rag_tpu_torch`` root.
+evaluation, each a JSON line with a timestamp, and optionally the same
+records to wandb. The loggers hang under the ``probing_rag_tpu_torch``
+root.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import json
 import logging
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -56,3 +57,28 @@ def _jsonable(x):
     if isinstance(x, (np.integer, np.floating)):
         return x.item()
     return str(x)
+
+
+def wandb_log_adapter(project: str = "probing-rag-tpu",
+                      **init_kwargs) -> Optional[Callable[[Dict[str, Any]], None]]:
+    """Optional wandb hook for the prober training loop (the reference logs
+    losses, lr and dev accuracy to wandb): a ``log(record)`` callable that
+    flattens list values to ``key/i``, or None when wandb is not
+    installed."""
+    try:
+        import wandb
+    except ImportError:
+        return None
+    run = wandb.init(project=project, **init_kwargs)
+
+    def log(record: Dict[str, Any]) -> None:
+        flat = {}
+        for key, value in record.items():
+            if isinstance(value, list):
+                for i, v in enumerate(value):
+                    flat[f"{key}/{i}"] = v
+            else:
+                flat[key] = value
+        run.log(flat)
+
+    return log

@@ -3,9 +3,11 @@ the port runs on the card): every ``.py`` under ``probing_rag_tpu_torch/``
 and ``chip_smoke.py`` is scanned (by its syntax tree, so imports inside
 functions count too) for ``import probing_rag_tpu``, ``from
 probing_rag_tpu[.x] import ...`` and any import of jax or nltk. The
-checkpoint side's optional packages, absent on the card's machine too,
-are imported only inside the functions that need them: no module imports
-safetensors, sentencepiece or transformers when it is imported."""
+optional packages, absent on the card's machine too, are imported only
+inside the functions that need them: no module imports safetensors,
+sentencepiece, transformers (the checkpoint side), matplotlib (the
+figures), spacy (the baselines' text utilities) or wandb (the training
+log) when it is imported."""
 
 import ast
 from pathlib import Path
@@ -21,7 +23,7 @@ def forbidden(module: str) -> bool:
     return top in ("probing_rag_tpu", "jax", "jaxlib", "nltk")
 
 
-OPTIONAL = ("safetensors", "sentencepiece", "transformers")
+OPTIONAL = ("safetensors", "sentencepiece", "transformers", "matplotlib", "spacy", "wandb")
 
 
 def imported_modules(path: Path, module_level: bool = False):
@@ -71,4 +73,6 @@ def test_scanner_catches_the_forbidden_forms(tmp_path):
     names = {p.relative_to(REPO).as_posix() for p in FILES}
     assert {"probing_rag_tpu_torch/models/hf_loader.py", "probing_rag_tpu_torch/prober/train.py",
             "probing_rag_tpu_torch/eval/analysis.py", "probing_rag_tpu_torch/utils/logging.py",
-            "probing_rag_tpu_torch/pipeline/dataset_builder.py"} <= names
+            "probing_rag_tpu_torch/pipeline/dataset_builder.py", "probing_rag_tpu_torch/config.py",
+            "probing_rag_tpu_torch/eval/figures.py", "probing_rag_tpu_torch/pipeline/baselines.py",
+            "probing_rag_tpu_torch/utils/profiling.py"} <= names
