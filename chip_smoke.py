@@ -134,6 +134,27 @@ and the script exits non-zero:
    ``quantize_lm_params(init_params(...))``, the peak of each, and a
    generate call on it launching matmul_int8.
 
+12. native builder, sharded retrieval, tensor parallelism
+   (``phase_parallel``; ranks sharing the one card: no scaling). The C++
+   index builder (``g++`` at first use) over phase 7's texts in original
+   Porter mode against the numpy build, docs/s of each, and the native
+   ``QueryEncoder`` over the phase-4 queries as text feeding
+   ``BM25Engine.search_term_ids`` on the card, against the analyzer path.
+   Four ranks over gloo on the card, mesh (2, 2), each check against the
+   single engine on the card and each rank's launches printed: sharded
+   BM25 (bitonic) over the phase-4 index, its 4096 queries at k 10
+   (recall@10 1.0 against the oracle on 256), then phase 3's over-cap
+   batch through the sharded hybrid; sharded flat dense at 500,000 x 768,
+   256 queries (ip and l2 bf16, an int8 store); sharded IVF at 1,000,000
+   x 768, nlist 4096, nprobe 32, Q 64. Two ranks over gloo, tp 2, on
+   phase 5's weights: the forward on 8 x 512 tokens in bf16 and with int8
+   weights against the unsharded forward (logit drift within
+   ``TP_DRIFT`` of the largest logit), matmul_int8 at the sharded shapes
+   against its plain version, and a 32-token eager decode (f32: tokens
+   equal; bf16: where a row parts, the unsharded logit gap between the
+   two tokens within ``TP_DRIFT``). Then NCCL at world size 1: the
+   graphed decode step at tp 1 bit-equal to the unsharded graphed step.
+
 The probing loops of phases 5, 7, 8, 9 and 10 run the decode step graphed
 (``models/graphs.py``), as ``generate`` does on the card by default.
 
@@ -145,8 +166,8 @@ power limit; the last line is the result as one JSON object.
 
 ``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
 matmul_int8 cases alone; ``--train`` runs phases 1, 2 and phase 10, and
-``--baselines`` phases 1, 2 and 11 (each with the phase-4 index and phase
-5's model).
+``--baselines`` phases 1, 2 and 11, ``--parallel`` phases 1, 2 and 12
+(each with the phase-4 index and phase 5's model).
 """
 
 from __future__ import annotations
@@ -832,6 +853,17 @@ def wide_short_bucket(engine, rng):
     return len(rows), pad_short, tq, (st[4], st[5], ssrc, srlen, sw)
 
 
+def overcap_batch(index):
+    """Phase 3's over-cap batch: ``OVERCAP_QUERIES`` queries of
+    ``OVERCAP_TOKENS`` Zipf tokens each, as term ids, and the generator
+    that drew them (phase 3 draws on from it)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 3)
+    return [index.encode_query([f"t{t}" for t in zipf_tokens(rng, OVERCAP_TOKENS) % VOCAB])
+            for _ in range(OVERCAP_QUERIES)], rng
+
+
 def phase_hybrid_kernels(engine, index, results: dict, dma_gather: dict) -> None:
     """The over-cap hybrid's kernels on one batch of Zipf-text queries, on
     the first chunk the engine plans with long terms: the E/O gather of the
@@ -850,9 +882,7 @@ def phase_hybrid_kernels(engine, index, results: dict, dma_gather: dict) -> None
     )
     from probing_rag_tpu_torch.retrieval.bm25 import _hybrid_rows, _weight_blocks
 
-    rng = np.random.default_rng(SEED + 3)
-    qs = [index.encode_query([f"t{t}" for t in zipf_tokens(rng, OVERCAP_TOKENS) % VOCAB])
-          for _ in range(OVERCAP_QUERIES)]
+    qs, rng = overcap_batch(index)
     lists, weights, plan, over = engine._route(qs)
     if not over.all():
         raise AssertionError(f"over-cap batch: {int((~over).sum())} rows under max_pad")
@@ -3027,6 +3057,557 @@ def phase_baselines(lm, index) -> None:
     phase_quantized_init()
 
 
+# ---------------------------------------------------------------- phase 12
+# the sharded paths and tensor parallelism, ranks sharing the one card over
+# gloo: they show that the sharded answers equal the single-device ones on
+# the card, through its kernels, at full size; they say nothing of scaling
+PAR_MESH = (2, 2)  # four ranks: the retrieval shards
+PAR_K = 10
+PAR_DENSE_SEED, PAR_IVF_SEED, PAR_TOKENS_SEED = SEED + 40, SEED + 41, SEED + 42
+TP_MESH = (1, 2)  # two ranks: tp 2
+TP_BATCH, TP_SEQ, TP_DECODE = 8, 512, 32
+# the TP forward's logit drift from the unsharded forward, and the bf16
+# decode's logit gap where its tokens part, as a share of the largest logit
+TP_DRIFT = 0.05
+NO_SCALING = "ranks sharing one card: no scaling"
+
+
+def nonzero(counts: dict) -> dict:
+    """The kernels a run launched, with their counts."""
+    return {name: n for name, n in counts.items() if n}
+
+
+def launched(counts: dict, names, what: str) -> None:
+    missing = [n for n in names if counts.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched: {missing}")
+
+
+def phase_native(index, docs_tokens, queries) -> None:
+    """The C++ index builder over phase 7's texts (original Porter mode)
+    against the numpy build, then the native ``QueryEncoder`` over the
+    phase-4 queries rendered as text feeding ``BM25Engine.search_term_ids``
+    on the card, against the analyzer path."""
+    import numpy as np
+
+    from probing_rag_tpu_torch import kernels, native
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+    from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
+
+    t0 = time.time()
+    so = native.build()
+    print(f"  g++ build of {native.SRC.name}: {so.name} in {time.time() - t0:.1f}s")
+    texts = [" ".join(d) for d in docs_tokens]
+    cfg = BM25Config(stemmer_mode="original")
+    t0 = time.time()
+    nat = BM25Index.build_native(texts, cfg)
+    nat_s = time.time() - t0
+    t0 = time.time()
+    ref = BM25Index.build(texts, cfg)
+    ref_s = time.time() - t0
+    if nat.vocab != ref.vocab:
+        raise AssertionError("native build: vocab differs from the numpy build")
+    for name in ("term_offsets", "postings_doc", "doc_lens"):
+        if not np.array_equal(getattr(nat, name), getattr(ref, name)):
+            raise AssertionError(f"native build: {name} differs from the numpy build")
+    if not np.allclose(nat.postings_impact, ref.postings_impact, rtol=1e-6, atol=0):
+        raise AssertionError("native build: impacts differ from the numpy build")
+    print(f"  build_native over {len(texts)} texts (original mode): {nat_s:.2f}s, "
+          f"{len(texts) / nat_s:.0f} docs/s; numpy build {ref_s:.2f}s, {len(texts) / ref_s:.0f} "
+          f"docs/s; equal ({nat.n_terms} terms, {nat.nnz} postings)")
+    names = {v: k for k, v in index.vocab.items()}
+    qtexts = [" ".join(names[int(t)] for t in q) for q in queries]
+    enc = native.QueryEncoder(nat.vocab)
+    t0 = time.time()
+    ids = enc.encode(qtexts)
+    enc_s = time.time() - t0
+    analyzer = cfg.analyzer()
+    t0 = time.time()
+    ids_py = [nat.encode_query(analyzer(q)) for q in qtexts]
+    py_s = time.time() - t0
+    if any(not np.array_equal(a, b) for a, b in zip(ids, ids_py)):
+        raise AssertionError("QueryEncoder ids differ from the analyzer path")
+    engine = BM25Engine(nat, device=DEVICE)
+    kernels.reset_launches()
+    res = engine.search_term_ids(ids, k=K)
+    counts = dict(kernels.LAUNCHES)
+    ref_res = engine.search(qtexts, k=K)
+    if not (np.array_equal(res.doc_indices, ref_res.doc_indices)
+            and np.array_equal(res.scores, ref_res.scores)):
+        raise AssertionError("QueryEncoder search differs from the analyzer path's")
+    launched(counts, ("bm25_gather", "segment_topk"), "QueryEncoder search")
+    print(f"  QueryEncoder over {len(qtexts)} queries: {enc_s * 1e3:.1f} ms "
+          f"({len(qtexts) / enc_s:.0f} q/s), analyzer path {py_s * 1e3:.1f} ms; ids equal; "
+          f"BM25Engine.search_term_ids on the card equal to search(); launches {nonzero(counts)}")
+
+
+def dense_corpus(dev):
+    """Phase 12's flat store, drawn on the card from its seed (every rank
+    draws the same)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(PAR_DENSE_SEED)
+    return torch.randn((DENSE_N, DENSE_D), generator=gen, device=dev)
+
+
+DENSE_STORES = (("ip bf16", "ip", "bf16"), ("l2 bf16", "l2", "bf16"), ("ip int8", "ip", "int8"))
+
+
+def dense_store(rows, metric: str, kind: str):
+    import torch
+
+    from probing_rag_tpu_torch.ops.dense import prepare_dense_store
+
+    if kind == "int8":
+        return prepare_dense_store(rows, metric=metric, store_dtype=torch.int8)
+    return prepare_dense_store(rows.to(torch.bfloat16), metric=metric, store_dtype=torch.bfloat16)
+
+
+def rank_sync(dev) -> None:
+    """``torch.cuda.synchronize`` on a rank's card (a rank reads its device
+    from ``run_ranks``, not from ``DEVICE``)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rank_device() -> str:
+    """Where phase 12's gloo ranks run: all on the one card."""
+    return "cuda:0" if DEVICE == "cuda" else "cpu"
+
+
+def _par_retrieval_rank(rank, world, dev, tmp, queries, overcap, dense_q, ivf_q):
+    """One rank of the four: its BM25 shard (phase 4's queries, then phase
+    3's over-cap batch), its flat dense rows, its IVF cells. Returns the
+    merged results, seconds and this rank's kernel launches per search."""
+    from pathlib import Path
+
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.parallel import ShardedBM25Engine, ShardedIVFEngine, make_mesh
+    from probing_rag_tpu_torch.parallel.mesh import mesh_shard
+    from probing_rag_tpu_torch.parallel.sharded_dense import shard_rows, sharded_dense_topk
+    from probing_rag_tpu_torch.retrieval.bm25_index import BM25Index
+    from probing_rag_tpu_torch.retrieval.ivf import IVFDenseIndex
+
+    mesh = make_mesh(PAR_MESH, dev.type)
+    shard, n_shards = mesh_shard(mesh)
+    out = {"shard": shard}
+
+    def timed(fn):
+        kernels.reset_launches()
+        rank_sync(dev)
+        t0 = time.time()
+        res = fn()
+        rank_sync(dev)
+        return res, time.time() - t0, dict(kernels.LAUNCHES)
+
+    index = BM25Index.load(Path(tmp) / "bm25")
+    eng, out["bm25_init_s"], _ = timed(lambda: ShardedBM25Engine(index, mesh, device=dev))
+    for name, qs, k in (("bm25", queries, PAR_K), ("overcap", overcap, K)):
+        res, s, counts = timed(lambda: eng.search_term_ids(qs, k=k))
+        out[name] = (res.doc_indices, res.scores, dict(eng.last_stats), s, counts)
+    del eng, index
+
+    emb = dense_corpus(dev)
+    offs, counts = shard_rows(DENSE_N, n_shards)
+    rows = emb[int(offs[shard]): int(offs[shard] + counts[shard])].clone()
+    del emb
+    q = torch.from_numpy(dense_q).to(dev)
+    for name, metric, kind in DENSE_STORES:
+        store = dense_store(rows, metric, kind)
+        (v, i), s, launches = timed(lambda: sharded_dense_topk(
+            q, store, k=PAR_K, offset=int(offs[shard]), metric=metric))
+        out["dense", name] = (v.cpu().numpy(), i.cpu().numpy(), s, launches)
+    del rows, store
+
+    ivf = IVFDenseIndex.load(Path(tmp) / "ivf")
+    eng, out["ivf_init_s"], _ = timed(lambda: ShardedIVFEngine(ivf, mesh, nprobe=IVF_NPROBE,
+                                                               device=dev))
+    del ivf
+    res, s, launches = timed(lambda: eng.search_embeddings(ivf_q, k=PAR_K))
+    out["ivf"] = (res.doc_indices, res.scores, s, launches)
+    return out
+
+
+def phase_par_retrieval(index, queries) -> None:
+    """Sharded BM25, flat dense and IVF over four ranks on the card (mesh
+    (2, 2), gloo), each against the single engine on the card."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch.ops.dense import dense_topk
+    from probing_rag_tpu_torch.parallel import run_ranks
+    from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
+    from probing_rag_tpu_torch.retrieval.bm25_index import BM25Index
+    from probing_rag_tpu_torch.retrieval.ivf import IVFDenseIndex, IVFEngine
+
+    overcap, _ = overcap_batch(index)
+    rng = np.random.default_rng(PAR_TOKENS_SEED)
+    dense_q = rng.standard_normal((DENSE_Q, DENSE_D)).astype(np.float32)
+    world = PAR_MESH[0] * PAR_MESH[1]
+    with tempfile.TemporaryDirectory(prefix="phase12") as tmp:
+        t0 = time.time()
+        index.save(Path(tmp) / "bm25")
+        gen = torch.Generator(device=DEVICE).manual_seed(PAR_IVF_SEED)
+        corpus = clustered_corpus(gen)
+        ivf = IVFDenseIndex.build(corpus.cpu().numpy(), nlist=IVF_NLIST, block=IVF_BLOCK,
+                                  metric="ip", seed=SEED, device=DEVICE)
+        ivf_q = (corpus[:QUANT_Q] + 0.1 * torch.randn((QUANT_Q, DENSE_D), generator=gen,
+                                                      device=DEVICE)).cpu().numpy()
+        del corpus
+        ivf.save(Path(tmp) / "ivf")
+        print(f"  set-up: BM25 index and IVF (nlist {IVF_NLIST}, {ivf.pad_block} blocks) "
+              f"built and saved for the ranks in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        ranks = run_ranks(_par_retrieval_rank, world, "gloo", rank_device(), tmp, queries,
+                          overcap, dense_q, ivf_q)
+        print(f"  {world} ranks (mesh {PAR_MESH}, gloo, all on cuda:0; {NO_SCALING}): "
+              f"spawned, built their shards and searched in {time.time() - t0:.1f}s")
+
+    def agree(key):
+        for r in ranks[1:]:
+            for a, b in zip(ranks[0][key][:2], r[key][:2]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"sharded {key}: ranks disagree")
+        return ranks[0][key]
+
+    class Result:
+        def __init__(self, ids, scores):
+            self.doc_indices, self.scores = ids, scores
+
+    single = BM25Engine(index, device=DEVICE)
+    for key, qs, k, path_kernels in (
+            ("bm25", queries, PAR_K, ("bm25_gather", "segment_topk")),
+            ("overcap", overcap, K, ("postings_gather", "postings_assemble", "segment_topk"))):
+        ids, scores, stats, _, _ = agree(key)
+        sync()
+        t0 = time.time()
+        ref = single.search_term_ids(qs, k=k + 1)
+        sync()
+        single_s = time.time() - t0
+        want_fallback = len(qs) if key == "overcap" else 0
+        if stats["n_fallback"] != want_fallback:
+            raise AssertionError(f"sharded {key}: {stats} (want n_fallback {want_fallback})")
+        if key == "bm25" or single.last_stats["n_trimmed"] == stats["n_trimmed"] == 0:
+            assert_same_topk(Result(ids, scores), ref, f"sharded {key}")
+            how = "equal to the single engine on the card"
+        else:
+            # the single engine trims rows over FALLBACK_MAX_PAD real postings
+            # of the whole index; a shard holds a quarter of each term's, so
+            # the sharded rows keep more terms (JAX test_sharding.py:623-652)
+            if stats["n_trimmed"]:
+                raise AssertionError(f"sharded {key}: trimmed {stats}")
+            assert_oracle_topk(ids, scores, index, qs, f"sharded {key}")
+            how = ("untrimmed, equal to the exact oracle (the single engine trims these rows "
+                   "to its cap)")
+        line = (f"  sharded BM25 {key}: {len(qs)} queries, k {k}, {stats}; {how} (single "
+                f"engine {single_s:.2f}s, {single.last_stats})")
+        if key == "bm25":
+            sample = np.random.default_rng(SEED + 43).choice(len(qs), 256, replace=False)
+            recalls = []
+            for row in sample:
+                oracle = index.score_all(qs[row])
+                denom = min(PAR_K, int((oracle > 0).sum()))
+                if denom:
+                    thresh = np.partition(oracle, -denom)[-denom]
+                    d = ids[row][ids[row] >= 0]
+                    recalls.append(min(int((oracle[d] >= thresh - 1e-3).sum()), denom) / denom)
+            recall = float(np.mean(recalls))
+            if recall != 1.0:
+                raise AssertionError(f"sharded BM25 recall@10 {recall} != 1.0")
+            line += f"; recall@10 against the oracle on 256 queries {recall}"
+        print(line)
+        for r in ranks:
+            launched(r[key][4], path_kernels, f"sharded {key}, rank {r['shard']}")
+            print(f"    rank {r['shard']}: {r[key][3]:.2f}s, launches {nonzero(r[key][4])}")
+    del single
+
+    emb = dense_corpus(DEVICE)
+    q = torch.from_numpy(dense_q).to(DEVICE)
+    for name, metric, kind in DENSE_STORES:
+        store = dense_store(emb, metric, kind)
+        v, i, _, _ = agree(("dense", name))
+        ref = dense_topk(q, store.embeddings, k=PAR_K, metric=metric, sq_norms=store.sq_norms,
+                         scales=store.scales, k_pad=16)
+        err, _ = check_topk((torch.from_numpy(v), torch.from_numpy(i)), ref,
+                            f"sharded dense {name}")
+        print(f"  sharded flat dense {name}: {DENSE_N} x {DENSE_D}, {DENSE_Q} queries, k "
+              f"{PAR_K}; equal to the single dense_topk on the card (max abs err {err:.3g}, "
+              f"recall@10 1.0)")
+        for r in ranks:
+            launched(r["dense", name][3], ("dense_topk",), f"sharded dense {name}")
+            print(f"    rank {r['shard']}: {r['dense', name][2]:.3f}s, launches "
+                  f"{nonzero(r['dense', name][3])}")
+    del emb, store
+
+    ids, scores, _, _ = agree("ivf")
+    ref = IVFEngine(ivf, nprobe=IVF_NPROBE, device=DEVICE).search_embeddings(ivf_q, k=PAR_K)
+    err, _ = check_topk((torch.from_numpy(scores), torch.from_numpy(ids)),
+                        (torch.from_numpy(ref.scores), torch.from_numpy(ref.doc_indices)),
+                        "sharded IVF")
+    print(f"  sharded IVF: {IVF_N} x {DENSE_D}, nlist {IVF_NLIST}, nprobe {IVF_NPROBE}, Q "
+          f"{QUANT_Q}, k {PAR_K}; equal to the single IVFEngine on the card (max abs err "
+          f"{err:.3g})")
+    for r in ranks:
+        launched(r["ivf"][3], ("ivf_topk", "dense_topk"), "sharded IVF")
+        print(f"    rank {r['shard']}: init {r['ivf_init_s']:.1f}s, search {r['ivf'][2]:.3f}s, "
+              f"launches {nonzero(r['ivf'][3])}")
+
+
+def assert_oracle_topk(ids, scores, index, queries, what: str) -> None:
+    """BM25 (ids, scores) [Q, k] against the exact host oracle: the top-k
+    score multiset, and each returned doc's own oracle score (ties order
+    freely), at the f32-against-f64 tolerance (ROADMAP caveats)."""
+    import numpy as np
+
+    for row, q in enumerate(queries):
+        oracle = index.score_all(q)
+        top = np.sort(oracle)[::-1][: scores.shape[1]]
+        hit = ids[row] >= 0
+        if not (np.allclose(scores[row][hit], top[: hit.sum()], rtol=1e-4, atol=5e-4)
+                and np.allclose(oracle[ids[row][hit]], scores[row][hit], rtol=1e-4, atol=5e-4)):
+            raise AssertionError(f"{what}: row {row} differs from the oracle")
+
+
+def tp_inputs(index):
+    """The TP forward's tokens [TP_BATCH, TP_SEQ] and the decode's prompts."""
+    import numpy as np
+
+    tokens = np.random.default_rng(PAR_TOKENS_SEED).integers(0, 256_000, (TP_BATCH, TP_SEQ))
+    return tokens, loop_questions(index)[:TP_BATCH]
+
+
+def _par_tp_rank(rank, world, dev, tokens, prompts):
+    """One rank of tp 2 at Gemma-2B width (phase 5's weights, sharded): the
+    forward on [8, 512] tokens in bf16 and with int8 weights (head on the
+    last position), and a 32-token eager decode in f32 (weights and
+    products) and in bf16."""
+    import dataclasses
+
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models.decode import generate
+    from probing_rag_tpu_torch.models.gemma import (
+        CaptureSpec, GemmaConfig, forward, init_params, quantize_lm_params,
+    )
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.parallel import make_mesh, shard_lm_params
+
+    mesh = make_mesh(TP_MESH, dev.type)
+    group = mesh.get_group("tp")
+    cfg = GemmaConfig.gemma_2b()
+    capture = CaptureSpec.for_probing(cfg)
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                       dtype=torch.bfloat16)
+    trees = {"bf16": shard_lm_params(full, mesh)}
+    trees["int8"] = shard_lm_params(quantize_lm_params(full), mesh)
+    del full
+    out = {}
+    tok = torch.from_numpy(tokens).to(dev)
+    with torch.inference_mode():
+        for name, params in trees.items():
+            kernels.reset_launches()
+            rank_sync(dev)
+            t0 = time.time()
+            logits, _, caps = forward(params, tok, cfg, capture=capture, logits_last_only=True,
+                                      tp=group)
+            rank_sync(dev)
+            out[name] = (logits[:, -1].cpu().numpy(), caps[:, :, -1].cpu().numpy(),
+                         time.time() - t0, dict(kernels.LAUNCHES))
+    f32 = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    trees["f32"] = shard_lm_params(f32, mesh)
+    del f32, trees["int8"]
+    cfgs = {"f32": dataclasses.replace(cfg, compute_dtype=torch.float32), "bf16": cfg}
+    for name in ("f32", "bf16"):
+        rank_sync(dev)
+        t0 = time.time()
+        _, res = generate(trees[name], cfgs[name], ByteTokenizer(cfg.vocab_size), prompts,
+                          max_new_tokens=TP_DECODE, capture=capture, paragraph_stop=False,
+                          eager=True, tp=group)
+        out["decode", name] = (res.tokens, res.n_generated, res.pooled_captures,
+                               time.time() - t0)
+    return out
+
+
+def _par_nccl_rank(rank, world, dev, prompts):
+    """NCCL at world size 1: the graphed decode step at tp 1 (its
+    all-reduces captured in the graph) against the unsharded graphed step."""
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch.models import graphs
+    from probing_rag_tpu_torch.models.decode import generate
+    from probing_rag_tpu_torch.models.gemma import CaptureSpec, GemmaConfig, init_params
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.parallel import make_mesh, shard_lm_params
+
+    mesh = make_mesh((1, 1), "cuda")
+    cfg = GemmaConfig.gemma_2b()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                         dtype=torch.bfloat16)
+    kw = dict(max_new_tokens=TP_DECODE, capture=CaptureSpec.for_probing(cfg),
+              paragraph_stop=False)
+    tok = ByteTokenizer(cfg.vocab_size)
+    _, ref = generate(params, cfg, tok, prompts, **kw)
+    before = graphs.CAPTURES["count"]
+    _, got = generate(shard_lm_params(params, mesh), cfg, tok, prompts,
+                      tp=mesh.get_group("tp"), **kw)
+    return {"captures": graphs.CAPTURES["count"] - before,
+            "equal": {n: bool(np.array_equal(getattr(ref, n), getattr(got, n)))
+                      for n in ("tokens", "token_valid", "pooled_captures", "n_generated")}}
+
+
+def phase_par_tp(index, lm_params) -> None:
+    """TP at Gemma-2B width over two ranks on the card (gloo) against the
+    unsharded forward and decode on the card; matmul_int8 at the sharded
+    shapes against its plain version; then NCCL at world size 1."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch.models.decode import generate
+    from probing_rag_tpu_torch.models.gemma import (
+        CaptureSpec, GemmaConfig, forward, init_params, quantize_lm_params,
+    )
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.ops import matmul as mm
+    from probing_rag_tpu_torch.parallel import run_ranks
+
+    cfg = GemmaConfig.gemma_2b()
+    capture = CaptureSpec.for_probing(cfg)
+    tokens, prompts = tp_inputs(index)
+    world = TP_MESH[0] * TP_MESH[1]
+    t0 = time.time()
+    ranks = run_ranks(_par_tp_rank, world, "gloo", rank_device(), tokens, prompts)
+    print(f"  TP: {world} ranks (mesh {TP_MESH}, gloo, all on cuda:0; {NO_SCALING}) in "
+          f"{time.time() - t0:.1f}s")
+    for name in ("bf16", "int8", ("decode", "f32"), ("decode", "bf16")):
+        for r in ranks[1:]:
+            for a, b in zip(ranks[0][name], r[name]):
+                if isinstance(a, np.ndarray) and not np.array_equal(a, b):
+                    raise AssertionError(f"TP {name}: ranks disagree")
+
+    tok = torch.from_numpy(tokens).to(DEVICE)
+    trees = {"bf16": lm_params, "int8": quantize_lm_params(lm_params)}
+    with torch.inference_mode():
+        for name, params in trees.items():
+            logits, _, caps = forward(params, tok, cfg, capture=capture, logits_last_only=True)
+            ref, ref_caps = logits[:, -1].cpu().numpy(), caps[:, :, -1].cpu().numpy()
+            got, got_caps, s, counts = ranks[0][name]
+            scale = float(np.abs(ref).max())
+            drift = float(np.abs(got - ref).max()) / scale
+            cap_drift = float(np.abs(got_caps - ref_caps).max() / np.abs(ref_caps).max())
+            agree = float((got.argmax(-1) == ref.argmax(-1)).mean())
+            if not np.isfinite(got).all() or drift > TP_DRIFT:
+                raise AssertionError(f"TP forward {name}: logit drift {drift} > {TP_DRIFT}")
+            if name == "int8":
+                launched(counts, ("matmul_int8",), "TP int8 forward")
+            print(f"  TP forward {name} [{TP_BATCH} x {TP_SEQ}]: {s:.2f}s on rank 0; logit "
+                  f"drift {drift:.3g} of the largest logit {scale:.3g} (limit {TP_DRIFT}), "
+                  f"captures {cap_drift:.3g} of the largest, last-token argmax agreement "
+                  f"{agree}; rank launches {[nonzero(r[name][3]) for r in ranks]}")
+    del trees
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 44)
+    m = TP_BATCH * TP_SEQ
+    for label, k, n in (("wq", 2048, 1024), ("wo", 1024, 2048), ("w_gate/w_up", 2048, 8192),
+                        ("w_down", 8192, 2048)):
+        x, q, s = mm_operands(gen, m, k, n, False, torch.bfloat16)
+        mm.last_plan = None
+        got = mm.matmul_int8(x, q, s, dt=torch.bfloat16)
+        plan = mm.last_plan
+        err, differ = mm_check(got, mm.matmul_int8_plain(x, q, s, dt=torch.bfloat16),
+                               torch.bfloat16, f"TP {label}")
+        ms = cuda_ms(lambda: mm.matmul_int8(x, q, s, dt=torch.bfloat16))
+        b = bound(x.numel() * 2 + q.numel() + n * 4 + m * n * 2, 2 * m * n * k, "bf16")
+        print(f"  matmul_int8 at the tp-2 shape {label} [{m} x {k} -> {n}], "
+              f"{plan.regime if plan else 'plain'}: max "
+              f"abs err {err:.3g} ({differ:.4f} of the outputs differ); {ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        del x, q, s, got
+
+    tokz = ByteTokenizer(cfg.vocab_size)
+    kw = dict(max_new_tokens=TP_DECODE, capture=capture, paragraph_stop=False, eager=True)
+    f32 = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    cfgs = {"f32": dataclasses.replace(cfg, compute_dtype=torch.float32), "bf16": cfg}
+    for name, params in (("f32", f32), ("bf16", lm_params)):
+        sync()
+        t0 = time.time()
+        _, ref = generate(params, cfgs[name], tokz, prompts, **kw)
+        ref_s = time.time() - t0
+        tokens_tp, n_gen, pooled, tp_s = ranks[0]["decode", name]
+        same_rows = (tokens_tp == ref.tokens).all(axis=1)
+        pooled_err = float(np.abs(pooled - ref.pooled_captures).max())
+        line = (f"  TP eager decode {name}, {TP_DECODE} tokens x {TP_BATCH}: {tp_s:.1f}s on "
+                f"rank 0 against {ref_s:.1f}s unsharded; rows equal {int(same_rows.sum())}/"
+                f"{TP_BATCH}, pooled captures max abs diff {pooled_err:.3g}")
+        if name == "f32":
+            if not same_rows.all() or not np.array_equal(n_gen, ref.n_generated):
+                raise AssertionError("TP f32 decode tokens differ from the unsharded decode")
+        else:
+            gaps = decode_gaps(params, cfg, tokz, prompts, tokens_tp, ref.tokens)
+            if gaps and max(gaps) > TP_DRIFT:
+                raise AssertionError(f"TP bf16 decode parts where the logit gap is {max(gaps)}")
+            line += (f"; where rows part, the unsharded logit gap between the two tokens is "
+                     f"at most {max(gaps, default=0.0):.3g} of the largest logit (limit "
+                     f"{TP_DRIFT})")
+        print(line)
+    del f32
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    nccl = run_ranks(_par_nccl_rank, 1, "nccl", "cuda", prompts)[0]
+    if not all(nccl["equal"].values()) or nccl["captures"] < 1:
+        raise AssertionError(f"NCCL tp 1 graphed decode: {nccl}")
+    print(f"  NCCL, world size 1: the graphed TP decode step (tp 1, {nccl['captures']} "
+          f"capture with its all-reduces inside) bit-equal to the unsharded graphed step "
+          f"({nccl['equal']}); {time.time() - t0:.1f}s")
+
+
+def decode_gaps(params, cfg, tokz, prompts, got, ref) -> list:
+    """For each row where the TP tokens ``got`` part from the unsharded
+    ``ref``: the unsharded forward (no cache) on the prompt and the common
+    prefix, and the gap between its logits for the two tokens at the first
+    parting step, as a share of its largest logit."""
+    import numpy as np
+    import torch
+
+    from probing_rag_tpu_torch.models.gemma import forward
+
+    gaps = []
+    for row in np.nonzero((got != ref).any(axis=1))[0]:
+        step = int(np.argmax(got[row] != ref[row]))
+        seq = tokz.encode(prompts[row], add_bos=True) + [int(t) for t in ref[row, :step]]
+        with torch.inference_mode():
+            logits = forward(params, torch.tensor([seq], device=DEVICE), cfg,
+                             logits_last_only=True)[0][0, -1]
+        gap = float(logits[int(ref[row, step])] - logits[int(got[row, step])])
+        gaps.append(abs(gap) / float(logits.abs().max()))
+    return gaps
+
+
+def phase_parallel(index, docs_tokens, queries, lm_params) -> None:
+    """Phase 12: the native builder, then the sharded retrieval engines and
+    TP, each part with its seconds."""
+    import torch
+
+    for label, fn in (("native", lambda: phase_native(index, docs_tokens, queries)),
+                      ("sharded retrieval", lambda: phase_par_retrieval(index, queries)),
+                      ("tensor parallelism", lambda: phase_par_tp(index, lm_params))):
+        t0 = time.time()
+        fn()
+        torch.cuda.empty_cache()
+        print(f"  [12] {label}: {time.time() - t0:.1f}s")
+
+
 def main() -> int:
     import argparse
 
@@ -3039,6 +3620,8 @@ def main() -> int:
                     help="only phases 1, 2 and phase 10 (over the phase-4 index and phase 5's model)")
     ap.add_argument("--baselines", action="store_true",
                     help="only phases 1, 2 and phase 11 (over the phase-4 index and phase 5's model)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only phases 1, 2 and phase 12 (over the phase-4 index and phase 5's weights)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3077,6 +3660,11 @@ def main() -> int:
             index, docs_tokens, _, _ = build_zipf_index()
             phase_baselines(gemma_2b_lm(docs_tokens), index)
         return 0
+    if args.parallel:
+        with Phase("12 native builder, sharded retrieval, tensor parallelism"):
+            index, docs_tokens, queries, _ = build_zipf_index()
+            phase_parallel(index, docs_tokens, queries, gemma_2b_lm(docs_tokens)[0])
+        return 0
     with Phase("3 kernels vs plain"):
         import numpy as np
 
@@ -3106,7 +3694,7 @@ def main() -> int:
         del engine, dma_engine
     with Phase("5 main path"):
         launches, lm, questions = phase_main_path(index, docs_tokens, cpu_engine)
-    del cpu_engine, queries
+    del cpu_engine
     torch.cuda.empty_cache()
     with Phase("6 dense kernels vs plain"):
         phase_dense_kernels(results)
@@ -3126,6 +3714,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("11 baselines and the CLI chain"):
         phase_baselines(lm, index)
+    torch.cuda.empty_cache()
+    with Phase("12 native builder, sharded retrieval, tensor parallelism"):
+        phase_parallel(index, docs_tokens, queries, lm[0])
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every kernel's fields, then the extra shapes some carry (the wide

@@ -15,6 +15,13 @@ through a pinned copy and an event, and never runs more than
 no output. ``eager=True`` (and every CPU call) runs the same step without
 the graph. ``decode_greedy_split`` (an XLA boundary) is not ported.
 
+Tensor parallelism: ``decode_greedy(tp=group)`` and ``generate(tp=group)``
+run every forward with ``gemma.forward(tp=group)`` on this rank's slices;
+the KV cache is replicated and every rank selects the same tokens. A
+graphed step captures its collectives, which NCCL allows; gloo
+collectives cannot be captured, so a graphed step over a gloo group
+raises and the caller passes ``eager=True``.
+
 Stop conditions (parity with exp_rag.py:173-200):
 - EOS selected (per row; finished rows keep appending EOS),
 - the paragraph stop: the decoded text gains a new "\\n\\n" paragraph
@@ -34,6 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from probing_rag_tpu_torch.models.gemma import (
     CaptureSpec,
@@ -127,6 +135,7 @@ def _prefill_impl(
     eos_id: int,
     sampling: SamplingConfig,
     generator: Optional[torch.Generator] = None,
+    tp: Optional[dist.ProcessGroup] = None,
 ):
     """Prompt forward: fills the KV cache, selects the first token.
     Returns ``(kv, g1, finished0, counts)``: ``counts`` is the [B, V]
@@ -143,7 +152,7 @@ def _prefill_impl(
         params, prompt_tokens, cfg,
         capture=CaptureSpec(),  # prompt-forward captures are excluded from the gate
         kv_cache=dict(kv, pos=torch.zeros((), dtype=torch.int64, device=dev)),
-        positions=rope_prompt, attn_valid=slot_valid, logits_last_only=True,
+        positions=rope_prompt, attn_valid=slot_valid, logits_last_only=True, tp=tp,
     )
     # freq_penalty parity: the penalty counts every token of the sequence so
     # far, prompt included (pad slots excluded); finished rows keep counting
@@ -205,7 +214,7 @@ class DecodeState(StaticState):
 
 def _decode_step(params: Params, st: DecodeState, generator: Optional[torch.Generator], *,
                  cfg: GemmaConfig, capture: CaptureSpec, eos_id: int,
-                 sampling: SamplingConfig) -> None:
+                 sampling: SamplingConfig, tp: Optional[dist.ProcessGroup] = None) -> None:
     """One decode step in place over ``st``, the body of the JAX loop: feed
     the previous token at cache slot ``t + step`` (RoPE position
     ``prompt_len + step``), pool its captures for rows not yet finished,
@@ -216,7 +225,7 @@ def _decode_step(params: Params, st: DecodeState, generator: Optional[torch.Gene
     logits, _, caps = forward(
         params, st.prev[:, None], cfg,
         capture=capture, kv_cache=dict(st.kv, pos=step + st.t),
-        positions=(st.prompt_len + step)[:, None], attn_valid=st.slot_valid,
+        positions=(st.prompt_len + step)[:, None], attn_valid=st.slot_valid, tp=tp,
     )
     cap_ok = ~st.finished  # parity: tokens processed before the stop trigger
     if capture.n_sites:
@@ -236,11 +245,15 @@ def _decode_step(params: Params, st: DecodeState, generator: Optional[torch.Gene
 
 def _decode_loop(params, b: int, t: int, *, cfg: GemmaConfig, capture: CaptureSpec,
                  max_new_tokens: int, eos_id: int, sampling: SamplingConfig, kv_dtype,
-                 device, eager: bool) -> Loop:
+                 device, eager: bool, tp: Optional[dist.ProcessGroup] = None) -> Loop:
     """The decode loop's state for this call: on the card (unless
     ``eager``) a cached captured step for these parameters and shapes,
-    else fresh buffers run eagerly."""
+    else fresh buffers run eagerly. A graphed step over a ``tp`` group
+    that is not NCCL's raises."""
     graphed = device.type == "cuda" and not eager
+    if graphed and tp is not None and dist.get_backend(tp) != "nccl":
+        raise ValueError(f"a CUDA graph cannot capture {dist.get_backend(tp)} collectives: "
+                         "decode with eager=True (or over an nccl group)")
 
     def make() -> Loop:
         kv = init_kv_cache(cfg, b, t + max_new_tokens, dtype=kv_dtype, device=device)
@@ -252,7 +265,7 @@ def _decode_loop(params, b: int, t: int, *, cfg: GemmaConfig, capture: CaptureSp
     if not graphed:
         return make()
     key = ("decode", tree_key(params), cfg, capture, sampling, str(kv_dtype), b, t,
-           max_new_tokens, eos_id, str(device))
+           max_new_tokens, eos_id, str(device), None if tp is None else id(tp))
     return GRAPHS.get(key, make)
 
 
@@ -272,6 +285,7 @@ def _decode_loop_impl(
     sampling: SamplingConfig,
     generator: Optional[torch.Generator] = None,
     check_every: int = CHECK_EVERY,
+    tp: Optional[dist.ProcessGroup] = None,
 ):
     """The decode loop over a prefilled cache: at most ``max_new_tokens -
     1`` steps (:func:`_decode_step`), stopping at the first host check
@@ -282,7 +296,7 @@ def _decode_loop_impl(
 
     def step(gen):
         _decode_step(params, st, gen, cfg=cfg, capture=capture, eos_id=eos_id,
-                     sampling=sampling)
+                     sampling=sampling, tp=tp)
 
     loop.run(step, lambda: st.finished, max_new_tokens - 1, check_every, generator)
     n_generated = st.valid.sum(dim=-1, dtype=torch.int32)
@@ -305,14 +319,16 @@ def decode_greedy(
     kv_int4: bool = False,
     eager: bool = False,
     check_every: int = CHECK_EVERY,
+    tp: Optional[dist.ProcessGroup] = None,
 ):
     """Prefill + decode loop (greedy, or sampled with ``sampling``, drawing
     from ``generator``: a fresh one seeded 0 when None, as the JAX decode
     takes key 0). ``stops`` are the StopTables arrays as bool tensors on
     the device; ``kv_int8`` / ``kv_int4`` quantize the KV cache. On the
     card the step runs as a replayed CUDA graph unless ``eager``; a
-    capture that fails raises. Returns (tokens, token_valid, pooled,
-    n_pooled, n_generated) as tensors."""
+    capture that fails raises. ``tp``: the tensor-parallel group,
+    ``params`` this rank's slices (module docstring). Returns (tokens,
+    token_valid, pooled, n_pooled, n_generated) as tensors."""
     b, t = prompt_tokens.shape
     dev = prompt_tokens.device
     if sampling.do_sample and generator is None:
@@ -320,16 +336,18 @@ def decode_greedy(
     with torch.inference_mode():
         loop = _decode_loop(params, b, t, cfg=cfg, capture=capture,
                             max_new_tokens=max_new_tokens, eos_id=eos_id, sampling=sampling,
-                            kv_dtype=_kv_dtype(cfg, kv_int8, kv_int4), device=dev, eager=eager)
+                            kv_dtype=_kv_dtype(cfg, kv_int8, kv_int4), device=dev, eager=eager,
+                            tp=tp)
         _, g1, finished0, counts = _prefill_impl(
             params, prompt_tokens, prompt_valid, stops, loop.state.kv,
             cfg=cfg, max_new_tokens=max_new_tokens, eos_id=eos_id, sampling=sampling,
-            generator=generator,
+            generator=generator, tp=tp,
         )
         return _decode_loop_impl(
             params, loop, g1, finished0, counts, prompt_valid, stops,
             cfg=cfg, capture=capture, max_new_tokens=max_new_tokens,
             eos_id=eos_id, sampling=sampling, generator=generator, check_every=check_every,
+            tp=tp,
         )
 
 
@@ -351,12 +369,16 @@ def generate(
     spec_oracle=None,  # [B, >= max_new] drafts for drafter="oracle"
     eager: bool = False,
     check_every: int = CHECK_EVERY,
+    tp: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[List[str], DecodeResult]:
     """End-to-end batched generation: tokenize, decode on the parameters'
     device, detokenize. Sampling draws from a generator on that device
     seeded with ``seed``; ``spec`` runs ``speculative.decode_speculative``
-    (greedy only). Returns (full_texts, DecodeResult) where
-    ``full_texts[i]`` is prompt + generation."""
+    (greedy only). ``tp``: the tensor-parallel group, ``params`` this
+    rank's slices; speculation does not run under TP. Returns (full_texts,
+    DecodeResult) where ``full_texts[i]`` is prompt + generation."""
+    if spec is not None and tp is not None:
+        raise ValueError("speculative decode does not run under tensor parallelism")
     if spec is not None and sampling.do_sample:
         raise ValueError("speculative decode is greedy-exact only; "
                          "disable sampling or speculation")
@@ -390,7 +412,8 @@ def generate(
         generator = (torch.Generator(device=dev).manual_seed(seed)
                      if sampling.do_sample else None)
         gen, gen_valid, pooled, n_pooled, n_gen = decode_greedy(
-            params, tokens_t, valid_t, stops, sampling=sampling, generator=generator, **common,
+            params, tokens_t, valid_t, stops, sampling=sampling, generator=generator, tp=tp,
+            **common,
         )
     gen = gen.to(torch.int32).cpu().numpy()
     gen_valid = gen_valid.cpu().numpy()

@@ -26,6 +26,17 @@ per-channel int8 ``{"q": int8, "s": f32}``, grouped int4 ``{"qp": uint8,
 compute with; they are unpacked per call). Every w8a16 product, the tied
 head included, runs on ``ops/matmul.py::matmul_int8``; the KV cache may be
 int8 or int4 (``init_kv_cache``).
+
+Tensor parallelism (``forward(tp=group)``, parameters from
+``parallel/mesh.py::shard_lm_params``): JAX gets it from GSPMD with the
+forward unchanged; here the collectives are written out. Each rank holds
+``n_heads / tp`` query heads (``wq`` by column), ``w_gate``/``w_up`` by
+column, ``wo``/``w_down`` by row (each of these two products ends in an
+``all_reduce``), the embedding and an untied head by vocab (the lookup
+zeroes the ids outside the rank's rows and all-reduces; the head's
+vocab-sharded logits are all-gathered). ``wk``/``wv`` and the KV cache
+are replicated. The residual stream, the captures and the logits are the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from probing_rag_tpu_torch.ops.matmul import matmul_int8
@@ -423,11 +435,18 @@ def quantize_lm_params(
     return out
 
 
-def _quant_acts(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quant_acts(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 activations: [..., D] -> (int8 values, f32
-    scales [..., 1]); the row max is taken in f32."""
+    scales [..., 1]); the row max is taken in f32. With ``group`` the rows
+    are split over its ranks along D (a row-split product under TP) and
+    the max is all-reduced, so every rank quantizes with the unsharded
+    row's scale."""
     x32 = x.float()
-    s = x32.abs().amax(dim=-1, keepdim=True) / 127.0
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    s = amax / 127.0
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     return torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8), s
 
@@ -446,7 +465,8 @@ def _int8_product(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ q.double()).to(torch.int32)
 
 
-def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0) -> torch.Tensor:
+def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0,
+        amax_group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """``x @ w`` for plain and quantized weights (the branches of the JAX
     ``_mm``). ``act8_rows``: from that many activation rows (prefill) an
     int8 weight runs w8a8 and a rank-1 int4 weight w4a8, the activations
@@ -454,7 +474,8 @@ def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0) -> torch.Tensor
     product; below it (decode) int8 and rank-1 int4 run w8a16 on the
     ``matmul_int8`` kernel. Grouped int4 batches its product over groups up
     to ``_INT4_DEQUANT_ROWS`` rows, and multiplies by a transient
-    dequantized copy above."""
+    dequantized copy above. ``amax_group``: the TP group of a row-split
+    product, whose w8a8 activation scale is the max over its ranks."""
     if not isinstance(w, dict):
         return x.to(dt) @ w.to(dt)
     lead, d = x.shape[:-1], x.shape[-1]
@@ -477,7 +498,7 @@ def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0) -> torch.Tensor
     else:  # per-channel int8
         q, s = w["q"], w["s"]
     if act8_rows and rows >= act8_rows:
-        xq, xs = _quant_acts(x2)
+        xq, xs = _quant_acts(x2, amax_group)
         y = (_int8_product(xq, q).float() * xs * s.float()).to(dt)
     else:
         y = matmul_int8(x2.to(dt).contiguous(), q, s, dt=dt)
@@ -502,6 +523,27 @@ def _attn_core(
     out = torch.einsum("bkgts,bksh->btkgh", probs.to(v.dtype).float(), v.float())
     out = out.reshape(b, t, kv * groups * hd)
     return out, (probs.reshape(b, kv * groups, t, -1) if return_probs else None)
+
+
+def _all_reduce(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The sum over ``group``'s ranks of their partial ``x`` (in f32, as
+    the residual stream), or ``x`` without a group."""
+    if group is None:
+        return x
+    x = x.float().contiguous()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def _all_gather(x: torch.Tensor, group: Optional[dist.ProcessGroup], dim: int = -1
+                ) -> torch.Tensor:
+    """The ranks' slices of ``x`` along ``dim``, concatenated in rank order."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def _attention(q, k, v, mask, return_probs: bool = False):
@@ -542,20 +584,26 @@ def _block(
     cfg: GemmaConfig,
     cache: Optional[Tuple],  # (kv_cache, layer, slots) | None
     return_probs: bool = False,
+    tp: Optional[dist.ProcessGroup] = None,
 ):
     """One transformer block. Returns (resid_mid, resid_post, the layer's
     attention probs [B, H, T, S] f32 if ``return_probs`` else None).
 
     With ``cache``, the new tokens' K/V are written into the layer's slice
     of the stacked cache at ``slots`` IN PLACE (the caller's cache tensors
-    change), and attention reads all of the layer's slots under the mask."""
+    change), and attention reads all of the layer's slots under the mask.
+
+    With ``tp``, ``lp`` holds this rank's slices: its query heads attend
+    over their kv heads of the replicated cache, and ``wo`` and ``w_down``
+    give partial sums that are all-reduced (the returned probs are the
+    rank's heads)."""
     b, t, d = x.shape
     dt = cfg.compute_dtype
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
     a8 = cfg.act_int8_rows
 
     attn_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one).to(dt)
-    q = _mm(attn_in, lp["wq"], dt, a8).reshape(b, t, h, hd)
+    q = _mm(attn_in, lp["wq"], dt, a8).reshape(b, t, -1, hd)  # h heads, h / tp under TP
     k = _mm(attn_in, lp["wk"], dt, a8).reshape(b, t, kvh, hd)
     v = _mm(attn_in, lp["wv"], dt, a8).reshape(b, t, kvh, hd)
     q = rope(q, positions, cfg.rope_theta)
@@ -566,15 +614,19 @@ def _block(
         k = _cache_update(kv, "k", k, layer, slots, dt)
         v = _cache_update(kv, "v", v, layer, slots, dt)
 
+    if tp is not None and kvh > 1:  # the kv heads of this rank's query heads
+        share = kvh // dist.get_world_size(tp)
+        k = k.narrow(1, dist.get_rank(tp) * share, share)
+        v = v.narrow(1, dist.get_rank(tp) * share, share)
     attn, probs = _attention(q, k.to(dt), v.to(dt), mask, return_probs)
-    attn_out = _mm(attn.to(dt), lp["wo"], dt, a8).to(cfg.resid_dtype)
+    attn_out = _all_reduce(_mm(attn.to(dt), lp["wo"], dt, a8, tp), tp).to(cfg.resid_dtype)
     resid_mid = x + attn_out
 
     x_in = rms_norm(resid_mid, lp["mlp_norm"], cfg.norm_eps, cfg.norm_plus_one).to(dt)
     gate = _mm(x_in, lp["w_gate"], dt, a8)
     gate = F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu" else F.silu(gate)
     up = _mm(x_in, lp["w_up"], dt, a8)
-    mlp_out = _mm(gate * up, lp["w_down"], dt, a8).to(cfg.resid_dtype)
+    mlp_out = _all_reduce(_mm(gate * up, lp["w_down"], dt, a8, tp), tp).to(cfg.resid_dtype)
     return resid_mid, resid_mid + mlp_out, probs
 
 
@@ -589,6 +641,7 @@ def forward(
     attn_valid: Optional[torch.Tensor] = None,  # no-cache: [B,T]; cache: [B,S] slot validity
     attn_probs_layer: Optional[int] = None,  # also return this layer's attention probs
     logits_last_only: bool = False,  # head only on the final position
+    tp: Optional[dist.ProcessGroup] = None,  # tensor-parallel group (shard_lm_params' params)
 ):
     """LM forward. Returns (logits [B,T,V] f32, new_kv_cache | None,
     captures [n_sites, B, T, D] | None), and with ``attn_probs_layer`` (an
@@ -604,15 +657,32 @@ def forward(
     so a step can be captured in a CUDA graph. For left-padded prompts,
     pass per-row RoPE ``positions`` and mark pad slots invalid in
     ``attn_valid`` — masking uses buffer indices, rotation uses
-    ``positions``."""
+    ``positions``.
+
+    ``tp``: the process group of a tensor-parallel run, ``params`` this
+    rank's slices (``parallel/mesh.py::shard_lm_params``); every rank
+    passes the same tokens and gets the same outputs (module docstring)."""
     b, t = tokens.shape
     dev = tokens.device
     emb = params["embed"]
+    ids, inside = tokens, None
+    if tp is not None:  # vocab-sharded: this rank looks up its own rows
+        from probing_rag_tpu_torch.parallel.mesh import mqa_safe_tp  # imports this module
+
+        if not mqa_safe_tp(cfg, dist.get_world_size(tp)):
+            raise ValueError(f"{cfg.n_kv_heads} kv heads do not split over tp "
+                             f"{dist.get_world_size(tp)}")
+        rows_here = (emb["s"] if isinstance(emb, dict) else emb).shape[0]
+        local = tokens - dist.get_rank(tp) * rows_here
+        inside = (local >= 0) & (local < rows_here)
+        ids = local.clamp(0, rows_here - 1)
     if isinstance(emb, dict):  # quantized per row: dequantize the looked-up rows
-        rows = emb["q"][tokens] if "q" in emb else _unpack_int4(emb["qp"][tokens])
-        x = rows.to(cfg.resid_dtype) * emb["s"][tokens]
+        rows = emb["q"][ids] if "q" in emb else _unpack_int4(emb["qp"][ids])
+        x = rows.to(cfg.resid_dtype) * emb["s"][ids]
     else:
-        x = emb[tokens].to(cfg.resid_dtype)
+        x = emb[ids].to(cfg.resid_dtype)
+    if tp is not None:
+        x = _all_reduce(x * inside[..., None], tp).to(cfg.resid_dtype)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
 
@@ -649,9 +719,9 @@ def forward(
         if kv_cache is not None:
             cache = (kv_cache, layer, slots)
         resid_mid, resid_post, probs = _block(lp, x, positions, mask, cfg, cache,
-                                              return_probs=layer == probs_layer)
+                                              return_probs=layer == probs_layer, tp=tp)
         if probs is not None:
-            attn_probs = probs
+            attn_probs = _all_gather(probs, tp, dim=1)
         for i, site in want.get(layer, ()):
             caps[i] = resid_mid if site == "resid_mid" else resid_post
         x = resid_post
@@ -672,7 +742,7 @@ def forward(
         logits = logits.reshape(*x.shape[:-1], q.shape[0])
     else:
         logits = x.to(dt) @ emb.to(dt).T
-    logits = logits.float()
+    logits = _all_gather(logits.float(), tp)  # vocab shards under TP
 
     new_cache = None
     if kv_cache is not None:

@@ -39,7 +39,13 @@ from probing_rag_tpu_torch.ops.sparse import (
     postings_gather,
     segment_topk,
 )
-from probing_rag_tpu_torch.retrieval.bm25_index import BM25Index
+from probing_rag_tpu_torch.retrieval.bm25_index import (
+    BM25Index,
+    align_csr,
+    align_up,
+    bitonic_tables,
+    build_bitonic_store,
+)
 
 # bound on one chunk's [rows, pad] tile (device memory, not results)
 MAX_TILE_ELEMS = 1 << 26
@@ -56,6 +62,8 @@ DMA_MAX_PAD = 1 << 20
 # the narrowest row of the dma buckets and of a short tail: every short pad
 # is a multiple of 1024
 MIN_PAD = 1024
+# the dma mode's postings alignment (``align_csr``'s default)
+ALIGNMENT = 1024
 
 
 def _next_pow2(n: int, floor: int) -> int:
@@ -131,6 +139,25 @@ def _dedup_term_ids(term_id_lists: Sequence[np.ndarray]):
     uniq = [uniq_ids[r, : cnt[r]] for r in range(n)]
     weights = [wt[r, : cnt[r]] for r in range(n)]
     return uniq, weights, True
+
+
+def _pad_rows(term_id_lists: Sequence[np.ndarray],
+              weight_lists: Optional[Sequence[np.ndarray]] = None):
+    """Ragged rows -> ([N, TQ] int64 ids, [N, TQ] mask, [N, TQ] f32
+    weights, 1.0 where absent or when ``weight_lists`` is None)."""
+    n = len(term_id_lists)
+    tq = max((len(i) for i in term_id_lists), default=1) or 1
+    ids = np.zeros((n, tq), np.int64)
+    mask = np.zeros((n, tq), bool)
+    wt = np.ones((n, tq), np.float32)
+    for r, row in enumerate(term_id_lists):
+        m = len(row)
+        if m:
+            ids[r, :m] = row
+            mask[r, :m] = True
+            if weight_lists is not None:
+                wt[r, :m] = weight_lists[r]
+    return ids, mask, wt
 
 
 def _weight_blocks(
@@ -219,7 +246,16 @@ class BM25Engine:
     1024-blocks in device memory.
 
     ``last_widths`` holds, for the last search, the row widths each route
-    ran and how many rows each."""
+    ran and how many rows each.
+
+    The planner reads per-term tables with a leading shard axis ([S, T]:
+    posting lengths, aligned starts and lengths, compact starts), and
+    routes, buckets and trims on the worst shard, so that every shard of a
+    doc-sharded index takes the same decisions. This engine is one shard
+    (S = 1); ``parallel/sharded_bm25.py::ShardedBM25Engine`` holds one of
+    several and merges each chunk's top-k over the ranks (``_merge``)."""
+
+    _shard = 0  # this engine's row of the [S, T] tables
 
     def __init__(self, index: BM25Index, device="cuda", *, mode: str = "bitonic",
                  max_pad: Optional[int] = None, q_tile: int = 256):
@@ -240,26 +276,50 @@ class BM25Engine:
         self.last_stats = {"n_queries": 0, "n_fallback": 0, "n_trimmed": 0}
         self.last_widths: dict = {}
         put = self._put
+        offsets, own = self._shard_csrs(index)
+        sh_lens = offsets[:, 1:] - offsets[:, :-1]  # [S, T]
         if mode == "bitonic":
             self.max_pad = BITONIC_MAX_PAD if max_pad is None else max_pad
             if not 1 <= self.max_pad <= MAX_SORT_WIDTH:
                 raise ValueError(f"max_pad must be in [1, {MAX_SORT_WIDTH}], got {self.max_pad}")
-            st = index.bitonic_csr()
+            st = build_bitonic_store(*own, sentinel=index.n_docs)
             self._store = st
             self._dev_store = tuple(
                 put(a) for a in (st.doc_e, st.imp_e, st.doc_o, st.imp_o,
                                  st.doc_c, st.imp_c, st.doc_r, st.imp_r)
             )
-            self._term_lens = (index.term_offsets[1:] - index.term_offsets[:-1]).astype(np.int64)
-            self._compact_offsets = index.term_offsets[:-1].astype(np.int64)
+            self._sh_lens = sh_lens
+            self._sh_astart, self._sh_alen = bitonic_tables(sh_lens, st.min_len, st.block)
+            self._sh_offs = offsets[:, :-1]
+            self._sh_nnz = offsets[:, -1]
+            # the over-cap trim's table: one kept term set on every shard
+            self._term_lens = sh_lens.max(axis=0)
             return
         self.max_pad = DMA_MAX_PAD if max_pad is None else max_pad
         if self._bucket_pad(self.max_pad, base=4) > MAX_SORT_WIDTH:
             raise ValueError(f"max_pad {self.max_pad} buckets wider than {MAX_SORT_WIDTH}")
-        offsets, doc, imp = index.aligned_csr()
-        self._aligned_offsets = put(offsets)
+        a_offsets, doc, imp = align_csr(*own, sentinel=index.n_docs, alignment=ALIGNMENT)
+        self._aligned_offsets = put(a_offsets)
         self._aligned = (put(doc), put(imp))
-        self._term_lens = (offsets[1:] - offsets[:-1]).astype(np.int64)
+        # the worst shard's aligned lengths: the trim's and the buckets' table
+        self._term_lens = align_up(sh_lens, ALIGNMENT).max(axis=0)
+
+    def _shard_csrs(self, index: BM25Index):
+        """([S, T+1] int64 term offsets of every shard, this engine's own
+        (term offsets, postings doc, postings impact)): the whole index."""
+        offsets = index.term_offsets.astype(np.int64)
+        return offsets[None], (offsets, index.postings_doc, index.postings_impact)
+
+    def _merge(self, scores: torch.Tensor, docs: torch.Tensor, k: int):
+        """A chunk's top-k as it leaves the device (one shard: as it is)."""
+        return scores, docs
+
+    def _present(self, mask: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """[S, N, TQ] slots that hold a term on each shard. Over several
+        shards a term absent from one takes no slot there (JAX
+        ``_plan_bitonic_shards``); one shard keeps a slot for every query
+        term, as the JAX single engine does."""
+        return mask[None] & (lens > 0) if lens.shape[0] > 1 else mask[None]
 
     # ------------------------------------------------------------ planning
     def _plan_bitonic(
@@ -267,44 +327,27 @@ class BM25Engine:
         term_id_lists: Sequence[np.ndarray],
         weight_lists: Optional[Sequence[np.ndarray]] = None,
     ):
-        """Per-(query, term) descriptors: source offset (E/O store | compact),
-        reversed-compact offset, slot width (aligned len for long terms, one
-        block for short), real length, long-term flag, row slot totals and
+        """Per-(query, term) descriptors on this engine's shard: source
+        offset (E/O store | compact), reversed-compact offset, slot width
+        (aligned len for long terms, one block for short), real length,
+        long-term flag; then the rows' slot totals on the worst shard and
         the [N, TQ] weight table (1.0 where absent). Never trims."""
-        st = self._store
-        block = st.block
-        a_start, a_len = st.aligned_start, st.aligned_len
-        n = len(term_id_lists)
-        tq = max((len(i) for i in term_id_lists), default=1) or 1
-        ids = np.zeros((n, tq), np.int64)
-        mask = np.zeros((n, tq), bool)
-        wt = np.ones((n, tq), np.float32)
-        for r, row in enumerate(term_id_lists):  # ragged -> padded (cheap)
-            m = len(row)
-            if m:
-                ids[r, :m] = row
-                mask[r, :m] = True
-                if weight_lists is not None:
-                    wt[r, :m] = weight_lists[r]
+        ids, mask, wt = _pad_rows(term_id_lists, weight_lists)
+        lens = self._sh_lens[:, ids]  # [S, N, TQ]
+        present = self._present(mask, lens)
+        alen = self._sh_alen[:, ids]
+        isbig = present & (alen > 0)
+        slot = np.where(isbig, alen, np.where(present, self._store.block, 0))
+        totals = slot.sum(axis=2).max(axis=0)
 
-        lens = np.where(mask, self._term_lens[ids], 0)
-        alens = np.where(mask, a_len[ids], 0)
-        isbig = alens > 0
-        slot = np.where(isbig, alens, np.where(mask, block, 0)).astype(np.int64)
-        totals = slot.sum(axis=1)
-
-        starts = np.where(mask, self._compact_offsets[ids], 0)
-        src = np.where(isbig, a_start[ids], starts).astype(np.int32)
-        srcr = np.where(isbig | ~mask, 0, st.nnz - starts - lens).astype(np.int32)
-        return (
-            src,
-            srcr,
-            slot.astype(np.int32),
-            lens.astype(np.int32),
-            isbig.astype(np.int32),
-            totals,
-            wt,
-        )
+        s = self._shard
+        big, here = isbig[s], present[s]
+        starts = self._sh_offs[s, ids]
+        src = np.where(big, self._sh_astart[s, ids], np.where(here, starts, 0))
+        srcr = np.where(here & ~big, self._sh_nnz[s] - starts - lens[s], 0)
+        i32 = lambda a: a.astype(np.int32)  # noqa: E731
+        return (i32(src), i32(srcr), i32(slot[s]), i32(np.where(here, lens[s], 0)), i32(big),
+                totals, wt)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -319,12 +362,12 @@ class BM25Engine:
         for start in range(0, len(rows), chunk):
             sel = np.asarray(rows[start : start + chunk])
             wtblk = put(_weight_blocks(slot[sel], wt[sel], pad, block))
-            scores, docs = bm25_search_bitonic(
+            scores, docs = self._merge(*bm25_search_bitonic(
                 self._dev_store,
                 put(src[sel]), put(srcr[sel]), put(slot[sel]),
                 put(rlen[sel]), put(big[sel]), wtblk,
                 pad=pad, sentinel=self.index.n_docs, k=k, block=block,
-            )
+            ), k)
             out_docs[sel] = docs.cpu().numpy()
             out_scores[sel] = scores.cpu().numpy()
 
@@ -332,17 +375,19 @@ class BM25Engine:
         """Dedup, plan and route one batch: returns (term lists, weight
         lists or None, plan, over) where ``over`` marks the rows for the
         over-cap hybrid and rows over ``FALLBACK_MAX_PAD`` real postings
-        are already trimmed. Sets ``last_stats``."""
+        (of the worst shard) are already trimmed. Sets ``last_stats``."""
         term_id_lists, weights, _ = _dedup_term_ids(term_id_lists)
         plan = self._plan_bitonic(term_id_lists, weights)
         # routed on the full slot totals, before any trim, as the JAX engine
         # routes (its bm25.py:484)
         over = plan[5] > self.max_pad
-        # trim_to_cap changes only rows over the cap: find them from the
-        # plan's real lengths (a Python loop over every query would outweigh
-        # the rest of the host planning). Under the default max_pad no
-        # bitonic row holds that many postings, so only hybrid rows trim.
-        trim = np.nonzero(plan[3].sum(axis=1, dtype=np.int64) > FALLBACK_MAX_PAD)[0]
+        # trim_to_cap changes only rows over the cap: find them vectorized
+        # (a Python loop over every query would outweigh the rest of the
+        # host planning). Under the default max_pad no bitonic row holds
+        # that many postings, so only hybrid rows trim.
+        ids, mask, _ = _pad_rows(term_id_lists)
+        real = np.where(mask, self._term_lens[ids], 0).sum(axis=1)
+        trim = np.nonzero(real > FALLBACK_MAX_PAD)[0]
         if len(trim) or over.any():
             term_id_lists = list(term_id_lists)
             weights = list(weights) if weights is not None else [
@@ -383,35 +428,37 @@ class BM25Engine:
         """The over-cap hybrid's plan, for rows already trimmed to
         ``FALLBACK_MAX_PAD`` real postings: split into long terms (an aligned
         region in the store) and short ones, bucket by ``(pad_big,
-        pad_short)`` with a ``2 * block`` floor on ``pad_short`` when long
-        terms exist (keeps the fold seam on an even block), chunk by
-        ``q_tile`` and by ``MAX_TILE_ELEMS``. Yields ``(rows, pad_big,
-        pad_short, descriptors)``: long starts, aligned lengths and weights,
-        short compact starts, lengths and weights, as [rows, TQ] arrays.
-        Port of the JAX engine's planner in ``_search_fallback``; a hybrid
-        row is at most ``MAX_SORT_WIDTH`` wide (see there)."""
-        st = self._store
-        block = st.block
-        a_len, a_start = st.aligned_len, st.aligned_start
-        entries = []
+        pad_short)`` of the worst shard with a ``2 * block`` floor on
+        ``pad_short`` when long terms exist (keeps the fold seam on an even
+        block), chunk by ``q_tile`` and by ``MAX_TILE_ELEMS``. Yields
+        ``(rows, pad_big, pad_short, descriptors)``: this shard's long
+        starts, aligned lengths and weights, short compact starts, lengths
+        and weights, as [rows, TQ] arrays packed left. Port of the JAX
+        engine's planner in ``_search_fallback``; a hybrid row is at most
+        ``MAX_SORT_WIDTH`` wide (see there)."""
+        block = self._store.block
+        ids, mask, wt = _pad_rows(term_id_lists, weight_lists)
+        lens = self._sh_lens[:, ids]  # [S, R, TQ]
+        present = self._present(mask, lens)
+        alen = self._sh_alen[:, ids]
+        isbig = present & (alen > 0)
+        short = present & ~isbig
+        bt = np.where(isbig, alen, 0).sum(axis=2).max(axis=0)
+        stot = np.where(short, lens, 0).sum(axis=2).max(axis=0)
         buckets: dict = {}
-        for i, (ids, w) in enumerate(zip(term_id_lists, weight_lists)):
-            ids = np.asarray(ids, np.int64)
-            w = np.asarray(w, np.float32)
-            isbig = a_len[ids] > 0
-            big_ids, short_ids = ids[isbig], ids[~isbig]
-            bt = int(a_len[big_ids].sum())
-            stot = int(self._term_lens[short_ids].sum())
-            entries.append((big_ids, short_ids, w[isbig], w[~isbig]))
-            ps = _next_pow2(max(stot, 1), max(2 * block, MIN_PAD) if bt else MIN_PAD)
-            buckets.setdefault((_pad_for_big(bt, ps), ps), []).append(i)
+        for i in range(len(ids)):
+            ps = _next_pow2(max(int(stot[i]), 1), max(2 * block, MIN_PAD) if bt[i] else MIN_PAD)
+            buckets.setdefault((_pad_for_big(int(bt[i]), ps), ps), []).append(i)
         self.last_widths["hybrid"] = {key: len(r) for key, r in sorted(buckets.items())}
+        s = self._shard
+        isbig, short, lens, alen = isbig[s], short[s], lens[s], alen[s]
+        a_start, offs = self._sh_astart[s], self._sh_offs[s]
         for (pad_big, pad_short), rows in sorted(buckets.items()):
             width = max(pad_big, pad_short)
             if width > MAX_SORT_WIDTH:  # ruled out by MAX_SORT_WIDTH's bound
                 raise ValueError(f"over-cap row {width} wide, over {MAX_SORT_WIDTH}")
-            tqb = max(max(len(entries[i][0]) for i in rows), 1)
-            tqs = max(max(len(entries[i][1]) for i in rows), 1)
+            nb, ns = isbig[rows].sum(axis=1), short[rows].sum(axis=1)
+            tqb, tqs = max(int(nb.max()), 1), max(int(ns.max()), 1)
             chunk = min(self.q_tile, max(1, MAX_TILE_ELEMS // width))
             for start in range(0, len(rows), chunk):
                 sel = rows[start : start + chunk]
@@ -423,14 +470,14 @@ class BM25Engine:
                 srlen = np.zeros((m, tqs), np.int32)
                 sw = np.ones((m, tqs), np.float32)
                 for r, i in enumerate(sel):
-                    big_ids, short_ids, wb, ws = entries[i]
-                    nb, ns = len(big_ids), len(short_ids)
-                    bstarts[r, :nb] = a_start[big_ids]
-                    blens[r, :nb] = a_len[big_ids]
-                    bw[r, :nb] = wb
-                    ssrc[r, :ns] = self._compact_offsets[short_ids]
-                    srlen[r, :ns] = self._term_lens[short_ids]
-                    sw[r, :ns] = ws
+                    b, sh = isbig[i], short[i]
+                    nb_i, ns_i = int(b.sum()), int(sh.sum())
+                    bstarts[r, :nb_i] = a_start[ids[i, b]]
+                    blens[r, :nb_i] = alen[i, b]
+                    bw[r, :nb_i] = wt[i, b]
+                    ssrc[r, :ns_i] = offs[ids[i, sh]]
+                    srlen[r, :ns_i] = lens[i, sh]
+                    sw[r, :ns_i] = wt[i, sh]
                 yield sel, pad_big, pad_short, (bstarts, blens, bw, ssrc, srlen, sw)
 
     def _search_fallback(self, term_id_lists: Sequence[np.ndarray],
@@ -459,7 +506,7 @@ class BM25Engine:
                                              pad=pad_short, sentinel=sentinel)
                 k_start = 2
             doc, imp = sort_pairs(doc, imp, k_start=k_start)
-            scores, docs = segment_topk(doc, imp, k=k, sentinel=sentinel)
+            scores, docs = self._merge(*segment_topk(doc, imp, k=k, sentinel=sentinel), k)
             out_docs[sel] = docs.cpu().numpy()
             out_scores[sel] = scores.cpu().numpy()
         return out_docs, out_scores
@@ -472,8 +519,8 @@ class BM25Engine:
 
     def _search_group(self, term_id_lists: Sequence[np.ndarray], k: int, pad: int):
         """One chunk of the dma mode: trim each row to ``max_pad`` aligned
-        postings (counted), pad the term axis, and run the fused search at
-        ``pad``."""
+        postings of the worst shard (counted), pad the term axis, and run
+        the fused search at ``pad``."""
         kept = []
         for ids in term_id_lists:
             ids, _, _, trimmed = trim_to_cap(
@@ -489,10 +536,10 @@ class BM25Engine:
             qm[r, : len(ids)] = True
         self.last_widths.setdefault("dma", {})
         self.last_widths["dma"][pad] = self.last_widths["dma"].get(pad, 0) + m
-        scores, docs = bm25_search_padded_fused(
+        scores, docs = self._merge(*bm25_search_padded_fused(
             self._aligned_offsets, *self._aligned, self._put(qt), self._put(qm),
             pad=pad, sentinel=self.index.n_docs, k=k,
-        )
+        ), k)
         return docs.cpu().numpy(), scores.cpu().numpy()
 
     def _search_dma(self, term_id_lists: Sequence[np.ndarray], k: int, buckets: dict,

@@ -65,6 +65,18 @@ def _compute_idf(n_docs: int, doc_freqs: np.ndarray, config: BM25Config) -> np.n
     return np.where(idf < 0, eps, idf)
 
 
+
+def _impacts(term_of_posting: np.ndarray, postings_doc: np.ndarray, tf: np.ndarray,
+             doc_freqs: np.ndarray, doc_lens: np.ndarray, config: BM25Config) -> np.ndarray:
+    """Per-posting impact ``idf(t) * tf * (k1+1) / (tf + k1*(1 - b +
+    b*dl/avgdl))`` as f32, shared by every builder."""
+    n_docs = len(doc_lens)
+    idf = _compute_idf(n_docs, doc_freqs.astype(np.float64), config)
+    avgdl = float(doc_lens.mean()) if n_docs else 0.0
+    dl_norm = config.k1 * (1.0 - config.b + config.b * doc_lens.astype(np.float64) / max(avgdl, 1e-9))
+    impact = idf[term_of_posting] * tf * (config.k1 + 1.0) / (tf + dl_norm[postings_doc])
+    return impact.astype(np.float32)
+
 @dataclass
 class BM25Index:
     config: BM25Config
@@ -98,6 +110,42 @@ class BM25Index:
         config = config or BM25Config()
         analyzer = config.analyzer()
         return cls.build_tokenized([analyzer(t) for t in texts], config, doc_ids)
+
+    @classmethod
+    def build_native(
+        cls,
+        texts: Sequence[str],
+        config: Optional[BM25Config] = None,
+        doc_ids: Optional[Sequence[str]] = None,
+    ) -> "BM25Index":
+        """CSR build through the C++ indexer (``probing_rag_tpu_torch.
+        native``): the tokenize/stem/count loop runs in C++, the idf and
+        impact math in numpy as :meth:`build_tokenized` does it. The native
+        Porter stemmer is the original algorithm, so ``config`` defaults to
+        ``stemmer_mode='original'`` and a stemming ``'nltk'`` config raises.
+        A failed compile raises; there is no fallback to :meth:`build`."""
+        from probing_rag_tpu_torch import native
+
+        config = config or BM25Config(stemmer_mode="original")
+        if config.stem and config.stemmer_mode != "original":
+            raise ValueError("the native builder implements the original Porter "
+                             "algorithm; use BM25Config(stemmer_mode='original')")
+        vocab, term_offsets, doc_arr, tf_arr, doc_lens = native.build_postings(
+            texts, lowercase=config.lowercase, remove_stopwords=config.remove_stopwords,
+            stem=config.stem,
+        )
+        n_docs = len(texts)
+        doc_freqs = term_offsets[1:] - term_offsets[:-1]
+        term_of_posting = np.repeat(np.arange(len(vocab), dtype=np.int64), doc_freqs)
+        return cls(
+            config=config,
+            vocab=vocab,
+            term_offsets=term_offsets,
+            postings_doc=doc_arr,
+            postings_impact=_impacts(term_of_posting, doc_arr, tf_arr, doc_freqs, doc_lens, config),
+            doc_lens=doc_lens,
+            doc_ids=list(doc_ids) if doc_ids is not None else [str(i) for i in range(n_docs)],
+        )
 
     @classmethod
     def build_tokenized_ids(
@@ -152,18 +200,12 @@ class BM25Index:
         doc_freqs = np.bincount(term_arr, minlength=n_terms).astype(np.int64)
         term_offsets = np.zeros(n_terms + 1, dtype=np.int64)
         np.cumsum(doc_freqs, out=term_offsets[1:])
-        idf = _compute_idf(n_docs, doc_freqs.astype(np.float64), config)
-        avgdl = float(doc_lens.mean()) if n_docs else 0.0
-        dl_norm = config.k1 * (
-            1.0 - config.b + config.b * doc_lens.astype(np.float64) / max(avgdl, 1e-9)
-        )
-        impact = idf[term_arr] * tf_arr * (config.k1 + 1.0) / (tf_arr + dl_norm[doc_arr])
         return cls(
             config=config,
             vocab={f"t{t}": t for t in range(n_terms)},
             term_offsets=term_offsets,
             postings_doc=doc_arr,
-            postings_impact=impact.astype(np.float32),
+            postings_impact=_impacts(term_arr, doc_arr, tf_arr, doc_freqs, doc_lens, config),
             doc_lens=doc_lens.astype(np.int32),
             doc_ids=list(doc_ids) if doc_ids is not None else [str(i) for i in range(n_docs)],
         )
@@ -207,17 +249,12 @@ class BM25Index:
         term_offsets = np.zeros(n_terms + 1, dtype=np.int64)
         np.cumsum(doc_freqs, out=term_offsets[1:])
 
-        idf = _compute_idf(n_docs, doc_freqs.astype(np.float64), config)
-        avgdl = float(doc_lens.mean()) if n_docs else 0.0
-        dl_norm = config.k1 * (1.0 - config.b + config.b * doc_lens.astype(np.float64) / max(avgdl, 1e-9))
-        impact = idf[term_arr] * tf_arr * (config.k1 + 1.0) / (tf_arr + dl_norm[doc_arr])
-
         return cls(
             config=config,
             vocab=vocab,
             term_offsets=term_offsets,
             postings_doc=doc_arr,
-            postings_impact=impact.astype(np.float32),
+            postings_impact=_impacts(term_arr, doc_arr, tf_arr, doc_freqs, doc_lens, config),
             doc_lens=doc_lens,
             doc_ids=list(doc_ids) if doc_ids is not None else [str(i) for i in range(n_docs)],
         )
@@ -290,6 +327,22 @@ class BM25Index:
         )
 
 
+def align_up(lens: np.ndarray, alignment: int) -> np.ndarray:
+    """Posting lengths rounded up to whole ``alignment`` blocks."""
+    return -(-lens // alignment) * alignment
+
+
+def bitonic_tables(lens: np.ndarray, min_len: int = 256, block: int = 1024):
+    """The long-term tables of :func:`build_bitonic_store` from posting
+    lengths ``[..., T]`` (a leading axis gives one row a shard): aligned
+    starts (-1 for short terms) and aligned lengths (0 for short), int64."""
+    big = lens >= min_len
+    alen = np.where(big, align_up(lens, block), 0)
+    start = np.zeros_like(alen)
+    np.cumsum(alen[..., :-1], axis=-1, out=start[..., 1:])
+    return np.where(big, start, -1), alen
+
+
 def align_csr(
     term_offsets: np.ndarray,
     postings_doc: np.ndarray,
@@ -313,7 +366,7 @@ def align_csr(
     n_terms = len(term_offsets) - 1
     nnz = len(postings_doc)
     lens = (term_offsets[1:] - term_offsets[:-1]).astype(np.int64)
-    pad_lens = ((lens + alignment - 1) // alignment) * alignment
+    pad_lens = align_up(lens, alignment)
     a_offsets = np.zeros(n_terms + 1, np.int64)
     np.cumsum(pad_lens, out=a_offsets[1:])
     total = int(a_offsets[-1]) + guard
@@ -389,14 +442,10 @@ def build_bitonic_store(
     natural corpora with min_len=256)."""
     if min_len > block:
         raise ValueError(f"min_len ({min_len}) must be <= block ({block})")
-    n_terms = len(term_offsets) - 1
     nnz = len(postings_doc)
     lens = (term_offsets[1:] - term_offsets[:-1]).astype(np.int64)
+    a_start, pad_lens = bitonic_tables(lens, min_len, block)
     is_big = lens >= min_len
-
-    pad_lens = np.where(is_big, ((lens + block - 1) // block) * block, 0)
-    a_start = np.zeros(n_terms, np.int64)
-    np.cumsum(pad_lens[:-1], out=a_start[1:])
     # floor of one block, as in the JAX store (equal arrays on both sides)
     total = max(int(pad_lens.sum()), block)
     if total >= 2**31 or nnz + 2 * block >= 2**31:
@@ -447,7 +496,7 @@ def build_bitonic_store(
         min_len=min_len,
         sentinel=sentinel,
         nnz=nnz,
-        aligned_start=np.where(is_big, a_start, -1).astype(np.int32),
+        aligned_start=a_start.astype(np.int32),
         aligned_len=pad_lens.astype(np.int32),
         doc_e=doc_e,
         imp_e=imp_e,
