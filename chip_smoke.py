@@ -91,13 +91,28 @@ and the script exits non-zero:
    eager one) and peak memory for bf16, int8 + int8 KV, int8 +
    act_int8_rows 512 + int8 KV and rank-1 int4 + int4 KV.
 9. generation: at Gemma-2B width on phase 5's weights, batch 8, the
-   retrieval-round prompts, 150 tokens with stops off. The decode step
+   retrieval-round prompts, 150 tokens with stops off. First the decode
+   attention kernel against its plain version at [8 x 8 heads x 3,862
+   slots x 256] (the retrieval round's cache) for the f32 (T 1), bf16,
+   int8 and int4 caches at T 1 (a decode step) and 5 (a verify round),
+   rows 0-6 left-padded and row 7 all pad, each with its split plan, max
+   abs error and limit, kernel / plain ms, bound and, on the bf16 cache,
+   ``scaled_dot_product_attention`` as a yardstick; f32 compute over the
+   int8 and int4 caches and at T 5; Mistral-7B's shape (32 heads over 8 kv
+   heads at 128) and one tensor-parallel rank's kv-head slice of it. The
+   bf16 limit is ``rounding_tolerance``'s, element by element, and two
+   faults (probabilities left unrounded, one tile dropped) must exceed it.
+   Then the decode step
    replayed as a CUDA graph against the same step run eagerly, bf16 and
    int8 weights + int8 KV: tokens, validity, counts and pooled captures
    bit-equal, matmul_int8 launched 127 times a step plus the prefill's,
-   the capture's seconds, host checks, tokens/s both ways, the step's
-   wall and one replay's device time, and a ``torch.profiler`` breakdown
-   of a replay; speculative decode (k 4) on the weights upcast to f32
+   decode_attention 18 times a step (one a layer; the prefill runs the
+   plain ops), the capture's seconds, host checks, tokens/s both ways, the
+   step's wall and one replay's device time, and a ``torch.profiler``
+   breakdown of a replay; the same graphed step with plain attention
+   (rows that part must part where the logit gap is within
+   ``ATTN_DRIFT``), and in f32 the graphed decode's tokens equal to the
+   plain-attention step's; speculative decode (k 4) on the weights upcast to f32
    equal to graphed greedy with the prompt drafter and with the oracle
    drafter at acceptance 1 (greedy's tokens), and in bf16 with both
    drafters (rows equal, rounds, tokens per forward, tokens/s); a sampled
@@ -165,7 +180,8 @@ its bound (``bound``). The line before the last is the card's name and
 power limit; the last line is the result as one JSON object.
 
 ``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
-matmul_int8 cases alone; ``--train`` runs phases 1, 2 and phase 10, and
+matmul_int8 cases alone; ``--attention`` phases 1, 2 and phase 9's
+decode attention cases; ``--train`` runs phases 1, 2 and phase 10, and
 ``--baselines`` phases 1, 2 and 11, ``--parallel`` phases 1, 2 and 12
 (each with the phase-4 index and phase 5's model).
 """
@@ -234,6 +250,17 @@ TIED_HEAD = (2048, 256_000)  # (K, N): the [V, D] embedding read transposed
 N_QUANT_QUESTIONS = 8
 GEN_TOKENS = 150  # phase 9's decode length, stops off
 SPEC_K = 4
+# phase 9's decode attention cases: batch 8 over the retrieval-round cache
+# (3,712 prompt slots + GEN_TOKENS), left pads of rows 0-6 (row 7 is all
+# pad), at T 1 (a decode step) and SPEC_K + 1 (a verify round)
+ATTN_SLOTS = 3712 + GEN_TOKENS
+ATTN_PADS = (0, 37, 300, 1000, 2000, 3000, 3700)
+# a cache this many times longer, timed once: whether the kernel's distance
+# from its byte bound is a fixed cost or a cost per byte
+ATTN_LONG = 16
+# bf16 decode, kernel against plain attention: where a row parts, the plain
+# model's logit gap between the two tokens, as a share of its largest logit
+ATTN_DRIFT = 0.05
 
 # H100 SXM data sheet: HBM rate and dense peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -253,6 +280,8 @@ REPLACES = {
     "matmul_int8": "probing_rag_tpu/ops/pallas_matmul.py:27",
     "postings_gather": "probing_rag_tpu/ops/pallas_sparse.py:208",
     "postings_assemble": "probing_rag_tpu/ops/pallas_sparse.py:389",
+    # not a Pallas kernel: XLA's fused attention over the cache
+    "decode_attention": "probing_rag_tpu/models/gemma.py:755",
 }
 SOURCES = {
     "bm25_gather": f"{REPO_KERNELS}/bm25_gather.cu",
@@ -264,6 +293,7 @@ SOURCES = {
     "matmul_int8": f"{REPO_KERNELS}/matmul_int8.cu",
     "postings_gather": f"{REPO_KERNELS}/postings_gather.cu",
     "postings_assemble": f"{REPO_KERNELS}/postings_assemble.cu",
+    "decode_attention": f"{REPO_KERNELS}/decode_attention.cu",
 }
 # the kernels each path must launch
 BM25_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_topk",
@@ -1166,7 +1196,7 @@ def phase_main_path(index, docs_tokens, cpu_engine):
     print(f"  each search's stats: {retriever.stats}")
     if not any(st["n_fallback"] > 0 for st in retriever.stats[1:]):
         raise AssertionError("no later search of the loop routed a row to the over-cap hybrid")
-    missing = [n for n in BM25_KERNELS if launches[n] == 0]
+    missing = [n for n in BM25_KERNELS + ("decode_attention",) if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the BM25 path: {missing}")
 
@@ -2148,6 +2178,237 @@ class LastLoop:
         return False
 
 
+def attention_operands(gen, kind: str, t: int, dt, s=None, model: str = "gemma_2b"):
+    """Seeded operands of one decode attention case at ``model``'s width
+    (``GemmaConfig``'s heads, kv heads and head dim), batch 8: q [8, t, H,
+    hd] in ``dt``; one layer's K and V over ``s`` slots (``ATTN_SLOTS`` by
+    default) in the cache's format (``kind`` "f32", "bf16", "int8" or
+    "int4", from the port's own KV quantizers) with their scales; the
+    decode mask of the cursor at the last t slots, rows 0-6 left-padded by
+    ``ATTN_PADS`` and row 7 all pad (every slot masked)."""
+    import torch
+
+    from probing_rag_tpu_torch.models.gemma import GemmaConfig
+    from probing_rag_tpu_torch.ops.attention import pack_int4, quant_kv, quant_kv4
+
+    cfg = getattr(GemmaConfig, model)()
+    b, h, kvh, hd = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = ATTN_SLOTS if s is None else s
+    x = torch.randn((2, b, kvh, s, hd), generator=gen, device=DEVICE)
+    scales = (None, None)
+    if kind == "int8":
+        q8, sc = quant_kv(x)
+        (k, v), scales = q8, (sc[0, ..., 0], sc[1, ..., 0])
+    elif kind == "int4":
+        q4, sc = quant_kv4(x)  # sc [2, B, KV, S, G]
+        k, v = pack_int4(q4[0]), pack_int4(q4[1])
+        merged = sc.transpose(-1, -2).reshape(2, b, -1, s).contiguous()  # the cache's layout
+        scales = (merged[0], merged[1])
+    else:
+        k, v = x.to(torch.float32 if kind == "f32" else torch.bfloat16)
+    q = torch.randn((b, t, h, hd), generator=gen, device=DEVICE).to(dt)
+    slot = torch.arange(s, device=DEVICE)
+    pads = torch.tensor(list(ATTN_PADS) + [s], device=DEVICE)
+    valid = slot[None, :] >= pads[:, None]  # [B, S]
+    causal = slot[None, :] <= (s - t + torch.arange(t, device=DEVICE))[:, None]  # [T, S]
+    mask = (valid[:, None, :] & causal[None])[:, None]  # [B, 1, T, S]
+    return q, k.contiguous(), v.contiguous(), mask, scales
+
+
+def kv_head_slice(q, k, v, ks, vs, first: int, count: int):
+    """kv heads [first, first + count) of a case's operands, as a
+    tensor-parallel rank holds them (``gemma._rank_kv_heads``): narrowed
+    views of the cache and scales (int4: a scale row per group), and the
+    query heads of those kv heads."""
+    kvh, h = k.shape[1], q.shape[2]
+    g = h // kvh
+    rows = ks.shape[1] // kvh if ks is not None else 0
+    ks, vs = ((x.narrow(1, first * rows, count * rows) if x is not None else None)
+              for x in (ks, vs))
+    return (q.narrow(2, first * g, count * g), k.narrow(1, first, count),
+            v.narrow(1, first, count), ks, vs)
+
+
+def tolerance_controls(q, k, v, mask, ks, vs, dt, ref, tol) -> tuple:
+    """Two faults held to the bf16 limit ``tol`` around the plain output
+    ``ref``: the plain version with its probabilities left unrounded, and
+    with one tile (``TILE`` slots from the middle of the cache) dropped from
+    the value sum. Returns how many elements of each exceed the limit and
+    its worst ratio to it; either being 0 means the check cannot see the
+    fault."""
+    import torch
+
+    from probing_rag_tpu_torch.ops import attention as at
+
+    b, t, h, hd = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    vd = at.dequant_kv(v, vs, dt).float()
+    _, p = at.attn_core(q.reshape(b, t, kvh, h // kvh, hd), at.dequant_kv(k, ks, dt), vd, mask,
+                        return_probs=True)
+    p = p.reshape(b, kvh, h // kvh, t, s)
+
+    def excess(pp):
+        out = torch.einsum("bkgts,bksh->btkgh", pp, vd).reshape(b, t, h * hd)
+        ratio = (out - ref).abs() / tol
+        return int((ratio > 1).sum()), float(ratio.max())
+
+    dropped = p.to(dt).float()
+    s0 = at.TILE * (s // at.TILE // 2)
+    dropped[..., s0:s0 + at.TILE] = 0.0
+    return excess(p), excess(dropped)
+
+
+def attention_case(gen, kind: str, t: int, dt, slots=None, model: str = "gemma_2b",
+                   kv_heads=None, timed: bool = True) -> dict:
+    """One ``decode_attention`` case: the kernel against its plain version
+    on the card (same operands), on ``kv_heads`` (first, count) of the
+    cache where given; timed: its plan, kernel / plain ms, the bound and,
+    for a bf16 cache, ``scaled_dot_product_attention`` on the same inputs
+    as the library yardstick. Tolerance: f32 compute 1e-5 + 1e-5 |ref|
+    (sums in another order); bf16 compute ``rounding_tolerance`` element by
+    element (a probability may round to the neighbouring bf16 value only
+    within 1e-5 of itself of a rounding midpoint, plus 1e-5 of the sum of
+    |p v| for the f32 sums), which the two faults of
+    ``tolerance_controls`` must exceed. Prints the case's line; returns its
+    numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from probing_rag_tpu_torch.ops import attention as at
+
+    q, k, v, mask, (ks, vs) = attention_operands(gen, kind, t, dt, slots, model)
+    if kv_heads is not None:
+        q, k, v, ks, vs = kv_head_slice(q, k, v, ks, vs, *kv_heads)
+    at.last_plan = None
+    got = at.decode_attention(q, k, v, mask, k_scale=ks, v_scale=vs, dt=dt)
+    plan = at.last_plan
+    ref = at.decode_attention_plain(q, k, v, mask, k_scale=ks, v_scale=vs, dt=dt)
+    sync()
+    err = float((got - ref).abs().max())
+    if dt == torch.float32:
+        tol = 1e-5 + 1e-5 * ref.abs()
+        limit = "1e-5 + 1e-5 |ref|"
+    else:
+        tol = at.rounding_tolerance(q, k, v, mask, k_scale=ks, v_scale=vs, dt=dt)
+        (n_un, r_un), (n_drop, r_drop) = tolerance_controls(q, k, v, mask, ks, vs, dt, ref, tol)
+        limit = (f"per element, max {float(tol.max()):.3g}, median {float(tol.median()):.3g}; "
+                 f"worst err/limit {float(((got - ref).abs() / tol).max()):.3g}; controls over "
+                 f"it: unrounded probabilities {n_un} elements (worst {r_un:.3g}x), one tile "
+                 f"dropped {n_drop} (worst {r_drop:.3g}x)")
+        if n_un == 0 or n_drop == 0:
+            raise AssertionError(f"decode_attention {kind} T {t}: the bf16 limit lets a fault "
+                                 f"through ({limit})")
+    h, hd = q.shape[2], q.shape[3]
+    what = (f"decode_attention {model} {kind} cache, {'bf16' if dt == torch.bfloat16 else 'f32'} "
+            f"compute, T {t}, [{q.shape[0]} x {h} heads / {k.shape[1]} kv x {k.shape[2]} slots x "
+            f"{hd}]" + (f", kv heads {kv_heads[0]}-{sum(kv_heads) - 1} of a slice" if kv_heads
+                        else ""))
+    if not torch.isfinite(got).all() or not bool(((got - ref).abs() <= tol).all()):
+        raise AssertionError(f"{what}: kernel differs from plain by {err} (limit {limit})")
+    blocks = plan.nsplit * k.shape[0] * k.shape[1] if plan else 0
+    how = f"{plan.nsplit} splits of {plan.tiles_per_split} tiles, {blocks} blocks" if plan else "plain"
+    if not timed:
+        print(f"  {what}, {how}: max abs err {err:.3g} (limit {limit})", flush=True)
+        del got, ref, tol
+        return {"max_abs_err": err}
+    # row 7 masks every slot: each weighs 1 / S, rounded to the compute type
+    w = torch.tensor(1.0 / k.shape[2]).to(dt).float()
+    vmean = w * at.dequant_kv(v, vs, dt).float()[7].sum(dim=1)  # [KV, hd]
+    kvh = vmean.shape[0]
+    pad_row = float((got[7].reshape(t, kvh, -1, vmean.shape[1]) - vmean[:, None]).abs().max())
+    del got, ref, tol
+    ms = cuda_ms(lambda: at.decode_attention(q, k, v, mask, k_scale=ks, v_scale=vs, dt=dt))
+    plain_ms = cuda_ms(lambda: at.decode_attention_plain(q, k, v, mask, k_scale=ks, v_scale=vs,
+                                                         dt=dt))
+    b, s = q.shape[0], k.shape[2]
+    cache_bytes = sum(x.numel() * x.element_size() for x in (k, v, ks, vs) if x is not None)
+    nbytes = cache_bytes + q.numel() * q.element_size() + mask.numel() + b * t * h * hd * 4
+    bnd = bound(nbytes, 4 * b * h * t * s * hd, "f32" if dt == torch.float32 else "bf16")
+    lib_ms = None
+    line = ""
+    if kind == "bf16":  # one PyTorch call of the same function on a bf16 cache
+        qh = q.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
+
+        try:
+            sdpa()
+            sync()
+            lib_ms = cuda_ms(sdpa)
+            line = f"; scaled_dot_product_attention {lib_ms:.4f} ms"
+        except (RuntimeError, TypeError) as e:
+            line = f"; scaled_dot_product_attention: none ({str(e).splitlines()[0][:60]})"
+    print(f"  {what}, {how}: max abs err {err:.3g} (limit {limit}); pad row (all slots masked) "
+          f"vs v summed at weight 1 / S {pad_row:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; cache "
+          f"{cache_bytes / 1e6:.1f} MB){line}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bnd}
+
+
+def phase_attention_kernels(results: dict) -> None:
+    """``decode_attention`` against its plain version at phase 9's shape
+    for the f32 (T 1), bf16, int8 and int4 caches at T 1 and ``SPEC_K`` +
+    1, each with left-pad rows and an all-pad row, timed, then the bf16 T 1
+    case over a cache ``ATTN_LONG`` times longer. Untimed checks: f32
+    compute over the int8 and int4 caches and at T ``SPEC_K`` + 1; at
+    Mistral-7B's shape (G 4, head dim 128) the int8 and int4 caches at T 1
+    and ``SPEC_K`` + 1 in bf16 and f32, and the same on kv heads 2-3 of 8
+    (one rank of four under tensor parallelism). The kernels line takes
+    the bf16 T 1 case (a bf16 decode step's layer) and the others' times."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    verify = SPEC_K + 1
+    cases = [("f32", 1, f32)] + [(kind, t, bf16) for kind in ("bf16", "int8", "int4")
+                                 for t in (1, verify)]
+    out = {}
+    for kind, t, dt in cases:
+        out[(kind, t)] = attention_case(gen, kind, t, dt)
+    main = out[("bf16", 1)]
+    long = attention_case(gen, "bf16", 1, bf16, ATTN_LONG * ATTN_SLOTS)
+    checks = [attention_case(gen, kind, t, f32, timed=False)
+              for kind, t in (("int8", 1), ("int4", 1), ("f32", verify), ("int8", verify),
+                              ("int4", verify))]
+    checks += [attention_case(gen, kind, t, dt, model="mistral_7b", kv_heads=heads, timed=False)
+               for heads in (None, (2, 2)) for kind in ("int8", "int4") for t in (1, verify)
+               for dt in (bf16, f32)]
+    results["decode_attention"] = {
+        **main, "max_abs_err": max(r["max_abs_err"] for r in [*out.values(), *checks]),
+        **{f"long_cache_{key}": long[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "shape": f"[8 x 8 x {ATTN_SLOTS} x 256] bf16 cache, T 1",
+        **{f"{kind}_t{t}_{key}": r[key] for (kind, t), r in out.items() if (kind, t) != ("bf16", 1)
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "verify_library_ms": out[("bf16", verify)]["library_ms"],
+    }
+
+
+class PlainAttention:
+    """Routes the LM's decode attention to its plain version while open
+    (a step captured inside captures the plain ops); the graph cache is
+    cleared on the way in and out, so that no step captured with the other
+    routing is replayed."""
+
+    def __enter__(self):
+        from probing_rag_tpu_torch.models import gemma
+        from probing_rag_tpu_torch.models.graphs import GRAPHS
+        from probing_rag_tpu_torch.ops.attention import decode_attention_plain
+
+        GRAPHS.clear()
+        self.saved = gemma.decode_attention
+        gemma.decode_attention = decode_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        from probing_rag_tpu_torch.models import gemma
+        from probing_rag_tpu_torch.models.graphs import GRAPHS
+
+        gemma.decode_attention = self.saved
+        GRAPHS.clear()
+        return False
+
+
 def replay_ms(loop, reps: int = 20) -> float:
     """Device milliseconds of one replay of ``loop``'s captured step
     (``cuda_ms``, the raw graph: these launches count nowhere), its step
@@ -2182,12 +2443,16 @@ def step_profile(loop, reps: int = 5, top: int = 8) -> str:
         f"{name[:60]} {ms:.3f}" for ms, name in rows[:top]))
 
 
-def phase_generation(lm, index, questions) -> dict:
+def phase_generation(lm, index, questions, results: dict) -> dict:
     """Generation as the JAX package runs it, at Gemma-2B width on phase 5's
     bf16 weights, batch 8, the retrieval-round prompts, ``GEN_TOKENS`` new
-    tokens with stops off: the graphed decode against the eager step (bf16,
-    and int8 weights + int8 KV, whose matmul_int8 launches must be 127 a
-    step plus the prefill's), speculative decode (k = ``SPEC_K``) against
+    tokens with stops off: decode attention's kernel against its plain
+    version (``phase_attention_kernels``); the graphed decode against the
+    eager step (bf16, and int8 weights + int8 KV, whose matmul_int8
+    launches must be 127 a step plus the prefill's, and decode_attention's
+    one a layer a step), and against the graphed step with plain attention
+    (bf16: where a row parts, within ``ATTN_DRIFT``; f32: equal tokens);
+    speculative decode (k = ``SPEC_K``) against
     greedy in f32 and bf16 with the prompt and oracle drafters, seeded
     sampling, and the probing loop with ``spec_k`` over the phase-4 BM25
     index. Returns that loop's launch counts."""
@@ -2205,6 +2470,7 @@ def phase_generation(lm, index, questions) -> dict:
     from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
     from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
 
+    phase_attention_kernels(results)
     params, cfg, probers, tok, store = lm
     engine = BM25Engine(index, device=DEVICE)
     questions = questions[:N_QUANT_QUESTIONS]
@@ -2241,6 +2507,7 @@ def phase_generation(lm, index, questions) -> dict:
         kernels.reset_launches()
         t_graph, res_g, loop = run(p, cfg, **kv)
         mm = kernels.LAUNCHES["matmul_int8"]
+        attn = kernels.LAUNCHES["decode_attention"]
         t_eager, res_e, eloop = run(p, cfg, eager=True, **kv)
         same(res_g, res_e, f"{label}: graph vs eager")
         if loop.steps != steps_max or int(res_g.n_generated.sum()) != 8 * n:
@@ -2253,6 +2520,9 @@ def phase_generation(lm, index, questions) -> dict:
         if kv and mm != prefill_mm + per_step * loop.steps:
             raise AssertionError(f"{label}: matmul_int8 launched {mm} times, not the prefill's "
                                  f"{prefill_mm} + {per_step} x {loop.steps}")
+        if attn != cfg.n_layers * loop.steps:  # the prefill (T 3,712) runs the plain ops
+            raise AssertionError(f"{label}: decode_attention launched {attn} times, not "
+                                 f"{cfg.n_layers} x {loop.steps}")
         step_ms = replay_ms(loop)
         wall_g = (t_graph - t1) / loop.steps * 1e3
         wall_e = (t_eager - t1) / eloop.steps * 1e3
@@ -2261,12 +2531,27 @@ def phase_generation(lm, index, questions) -> dict:
               f"host checks (graph), {eloop.checks} (eager) for {loop.steps} steps; prefill "
               f"{t1:.3f}s; decode {8 * loop.steps / (t_graph - t1):.1f} tokens/s graphed, "
               f"{8 * eloop.steps / (t_eager - t1):.1f} eager; step wall {wall_g:.2f} ms graphed, "
-              f"{wall_e:.2f} ms eager, device {step_ms:.3f} ms (one replay); matmul_int8 "
-              f"launches {mm} (prefill {prefill_mm})", flush=True)
+              f"{wall_e:.2f} ms eager, device {step_ms:.3f} ms (one replay; the plain-op "
+              f"attention step before the kernel, H100 700 W: bf16 8.92 ms wall, 901 tokens/s); "
+              f"matmul_int8 launches {mm} (prefill {prefill_mm}), decode_attention {attn}",
+              flush=True)
         print(f"  {label} step, device time by kernel (torch.profiler, ms a step): "
               f"{step_profile(loop)}", flush=True)
         t_prefill[label] = t1
         graphed[label] = res_g
+        with PlainAttention():
+            run(p, cfg, 1, **kv)
+            t_plain, res_p, ploop = run(p, cfg, **kv)
+            plain_ms = replay_ms(ploop)
+        rows = int((res_p.tokens == res_g.tokens).all(axis=1).sum())
+        gaps = decode_gaps(p, cfg, tok, prompts8, res_g.tokens, res_p.tokens)
+        if gaps and max(gaps) > ATTN_DRIFT:
+            raise AssertionError(f"{label}: decode with the attention kernel parts from plain "
+                                 f"attention at logit gaps {gaps} (limit {ATTN_DRIFT})")
+        print(f"  {label}, graphed step with plain attention: {rows} of 8 rows equal to the "
+              f"kernel's (parting rows' logit gaps {[round(g, 5) for g in gaps]}, limit "
+              f"{ATTN_DRIFT}); step wall {(t_plain - t1) / ploop.steps * 1e3:.2f} ms, device "
+              f"{plain_ms:.3f} ms, {8 * ploop.steps / (t_plain - t1):.1f} tokens/s", flush=True)
     del q8
     GRAPHS.clear()
     torch.cuda.empty_cache()
@@ -2293,6 +2578,14 @@ def phase_generation(lm, index, questions) -> dict:
     run(p32, c32, 1)
     t1_32, _, _ = run(p32, c32, 1)
     t_g32, res32, _ = run(p32, c32)
+    with PlainAttention():
+        run(p32, c32, 1)
+        _, res32_plain, _ = run(p32, c32)
+    same(res32, res32_plain, "f32 graphed decode, attention kernel vs plain")
+    print(f"  f32 graphed decode of {n} tokens with the attention kernel equals the step with "
+          f"plain attention (tokens, validity, counts; pooled max abs diff "
+          f"{float(np.abs(res32.pooled_captures - res32_plain.pooled_captures).max()):.3g})",
+          flush=True)
     t_s32, out32 = spec(p32, c32)
     t_s32, out32 = spec(p32, c32)  # the second call replays the captured round
     for i, name in enumerate(("tokens", "token_valid", "pooled_captures", "n_pooled",
@@ -2371,7 +2664,7 @@ def phase_generation(lm, index, questions) -> dict:
           f"{result.retr_count_list}; kernel launches {launches}", flush=True)
     if result.retr_count_list != [3] * len(questions):
         raise AssertionError(f"spec loop: retr_count {result.retr_count_list} != all 3")
-    missing = [name for name in BM25_KERNELS if launches[name] == 0]
+    missing = [name for name in BM25_KERNELS + ("decode_attention",) if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the spec loop's path: {missing}")
     GRAPHS.clear()
@@ -3622,6 +3915,8 @@ def main() -> int:
                     help="only phases 1, 2 and phase 11 (over the phase-4 index and phase 5's model)")
     ap.add_argument("--parallel", action="store_true",
                     help="only phases 1, 2 and phase 12 (over the phase-4 index and phase 5's weights)")
+    ap.add_argument("--attention", action="store_true",
+                    help="only phases 1, 2 and phase 9's decode attention cases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3644,6 +3939,11 @@ def main() -> int:
         print(f"  build + load {time.time() - t0:.1f}s")
 
     results: dict = {}
+    if args.attention:
+        with Phase("9 decode attention kernels"):
+            phase_attention_kernels(results)
+        print(json.dumps(results))
+        return 0
     if args.matmul:
         with Phase("8 matmul_int8 kernels"):
             phase_matmul_kernels(results, 8 * 3712)
@@ -3707,7 +4007,7 @@ def main() -> int:
     with Phase("8 quantized main path"):
         launches["matmul_int8"] = phase_quantized(lm, index, questions, results)["matmul_int8"]
     with Phase("9 generation"):
-        phase_generation(lm, index, questions)
+        phase_generation(lm, index, questions, results)
     torch.cuda.empty_cache()
     with Phase("10 prober training"):
         phase_prober_training(lm, index, questions, results)

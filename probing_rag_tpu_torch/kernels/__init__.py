@@ -47,11 +47,13 @@ LAUNCHES: Dict[str, int] = {
     "matmul_int8": 0,
     "postings_gather": 0,
     "postings_assemble": 0,
+    "decode_attention": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "bm25_gather": [_P] * 15 + [_I, _I, _LL, _I, _I, _P, _P, _P],
     # keys in, values in, keys out, values out, q, p, row strides in and
@@ -74,6 +76,10 @@ _SIGNATURES = {
     "postings_gather": [_P] * 7 + [_I, _I, _LL, _I, _I, _P, _P, _P],
     # doc_c, imp_c, src, rlen, wt; q, tq, pad, ld, span, sentinel; out doc/imp, stream
     "postings_assemble": [_P] * 5 + [_I, _I, _LL, _LL, _LL, _I, _P, _P, _P],
+    # q, k, v, k/v scales, mask, scores, part m/l/o, out; kind, round_bf16, b,
+    # kvh, g, t, s, hd, grp; cache, scale and mask strides; tiles_per_split,
+    # nsplit, scale, stream
+    "decode_attention": [_P] * 11 + [_I] * 9 + [_LL] * 6 + [_I, _I, _F, _P],
 }
 
 

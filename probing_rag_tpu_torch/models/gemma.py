@@ -16,8 +16,12 @@ untied head) come from the same code through ``GemmaConfig`` flags.
 Layouts are the JAX package's, so converting its parameters is a copy:
 weights ``[in, out]`` stacked over layers (``[L, ...]``), the KV cache
 ``[L, B, KV, S, hd]``. Matmuls run in ``compute_dtype``; the residual stream
-and norms stay f32. Attention is written as the JAX package writes it, in
-plain ops: f32 scores, ``-1e30`` masking, softmax.
+and norms stay f32. Attention computes the JAX package's function: f32
+scores, ``-1e30`` masking, softmax. Over a KV cache at a few query
+positions (the decode step, the speculative verify round) it runs
+``ops/attention.py::decode_attention``, which reads the cache in its stored
+type (a CUDA kernel on the card); prefill, the no-cache forward and
+``attn_probs_layer`` run the plain ops over the dequantized cache.
 
 Quantized serving (``quantize_lm_params``) keeps the JAX boundary formats:
 per-channel int8 ``{"q": int8, "s": f32}``, grouped int4 ``{"qp": uint8,
@@ -49,6 +53,18 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+# the KV cache's formats live with the attention kernel that reads them
+from probing_rag_tpu_torch.ops.attention import (
+    attn_core,
+    decode_attention,
+    dequant_kv,
+    kernel_takes,
+    kv4_group,
+    pack_int4,
+    quant_kv,
+    quant_kv4,
+    unpack_int4,
+)
 from probing_rag_tpu_torch.ops.matmul import matmul_int8
 
 Params = Dict[str, Any]
@@ -265,22 +281,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 _INT4_DEQUANT_ROWS = 1024
 
 
-def _pack_int4(q: torch.Tensor) -> torch.Tensor:
-    """int8 values in [-8, 7] -> uint8 pairs along the last axis: byte j
-    holds columns (2j, 2j+1) as (lo, hi) nibbles biased by +8."""
-    if q.shape[-1] % 2:
-        raise ValueError(f"int4 pack needs an even last dim, got {tuple(q.shape)}")
-    u = (q + 8).to(torch.uint8)
-    return u[..., 0::2] | (u[..., 1::2] << 4)
-
-
-def _unpack_int4(qp: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`_pack_int4`: uint8 [..., F/2] -> int8 [..., F]."""
-    lo = (qp & 0xF).to(torch.int8) - 8
-    hi = (qp >> 4).to(torch.int8) - 8
-    return torch.stack([lo, hi], dim=-1).reshape(*qp.shape[:-1], qp.shape[-1] * 2)
-
-
 def _per_matrix(fn, w: torch.Tensor, *args) -> Params:
     """``fn`` over the trailing [D, F] matrices of a layer-stacked ``w``
     one at a time, so that only one matrix's f32 copy exists; the results
@@ -318,7 +318,7 @@ def _quant_channel_2d(w: torch.Tensor, axis: int, nbits: int) -> Params:
     s = w32.abs().amax(dim=axis, keepdim=True) / qmax
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     q = torch.clamp(torch.round(w32 / s), -qmax, qmax).to(torch.int8)
-    return {"qp": _pack_int4(q), "s": s} if nbits == 4 else {"q": q, "s": s}
+    return {"qp": pack_int4(q), "s": s} if nbits == 4 else {"q": q, "s": s}
 
 
 def _quant_grouped_2d(w: torch.Tensor, group_size: int) -> Params:
@@ -330,7 +330,7 @@ def _quant_grouped_2d(w: torch.Tensor, group_size: int) -> Params:
     s = wg.abs().amax(dim=-2, keepdim=True) / 7.0
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     q = torch.clamp(torch.round(wg / s), -7, 7).to(torch.int8)
-    return {"qp": _pack_int4(q.reshape(d, f)), "gs": s[..., 0, :]}
+    return {"qp": pack_int4(q.reshape(d, f)), "gs": s[..., 0, :]}
 
 
 def _quant_rank1_2d(w: torch.Tensor, group_size: int) -> Params:
@@ -349,7 +349,7 @@ def _quant_rank1_2d(w: torch.Tensor, group_size: int) -> Params:
         rs = (m / s).amax(dim=-1, keepdim=True)  # [K, 1]
     scale4 = rs[:, :, None] * s[None, :, :]  # [K, 1, F] >= m
     q = torch.clamp(torch.round(wg / scale4), -7, 7).to(torch.int8)
-    return {"qp": _pack_int4(q.reshape(d, f)), "rs": rs, "s": s}
+    return {"qp": pack_int4(q.reshape(d, f)), "rs": rs, "s": s}
 
 
 def _group_size_for(dims, cap: int = 128) -> int:
@@ -482,7 +482,7 @@ def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0,
     rows = math.prod(lead)
     x2 = x.reshape(rows, d)
     if "gs" in w:  # grouped int4: q [D, F], gs [K, F], K = D / group
-        q, gs = _unpack_int4(w["qp"]), w["gs"]
+        q, gs = unpack_int4(w["qp"]), w["gs"]
         f, k = q.shape[1], gs.shape[0]
         qg = q.reshape(k, d // k, f)
         if rows > _INT4_DEQUANT_ROWS:
@@ -492,7 +492,7 @@ def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0,
             y = torch.einsum("rkf,kf->rf", part.float(), gs).to(dt)
         return y.reshape(*lead, f)
     if "rs" in w:  # rank-1 int4: the group factor folds into the activations
-        q, rs, s = _unpack_int4(w["qp"]), w["rs"], w["s"]
+        q, rs, s = unpack_int4(w["qp"]), w["rs"], w["s"]
         k = rs.shape[0]
         x2 = (x2.float().reshape(rows, k, d // k) * rs).reshape(rows, d)
     else:  # per-channel int8
@@ -503,26 +503,6 @@ def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0,
     else:
         y = matmul_int8(x2.to(dt).contiguous(), q, s, dt=dt)
     return y.reshape(*lead, q.shape[1])
-
-
-def _attn_core(
-    q: torch.Tensor,  # [B, T, KV, G, hd]
-    k: torch.Tensor,  # [B, KV, S, hd]
-    v: torch.Tensor,  # [B, KV, S, hd]
-    mask: torch.Tensor,  # [B, 1, T, S] bool (True = attend)
-    return_probs: bool = False,
-):
-    """f32 scores, -1e30 masking, softmax, f32-accumulated value sum (the
-    JAX einsums with ``preferred_element_type=f32``). Returns ([B, T, H*hd]
-    f32, the f32 softmax [B, H, T, S] if ``return_probs`` else None)."""
-    b, t, kv, groups, hd = q.shape
-    scores = torch.einsum("btkgh,bksh->bkgts", q.float(), k.float())
-    scores = scores / math.sqrt(hd)
-    scores = scores.masked_fill(~mask[:, :, None], -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgts,bksh->btkgh", probs.to(v.dtype).float(), v.float())
-    out = out.reshape(b, t, kv * groups * hd)
-    return out, (probs.reshape(b, kv * groups, t, -1) if return_probs else None)
 
 
 def _all_reduce(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
@@ -549,31 +529,44 @@ def _all_gather(x: torch.Tensor, group: Optional[dist.ProcessGroup], dim: int = 
 def _attention(q, k, v, mask, return_probs: bool = False):
     b, t, h, hd = q.shape
     kv = k.shape[1]
-    return _attn_core(q.reshape(b, t, kv, h // kv, hd), k, v, mask, return_probs)
+    return attn_core(q.reshape(b, t, kv, h // kv, hd), k, v, mask, return_probs)
 
 
-def _cache_update(kv: Params, name: str, x: torch.Tensor, layer: int, slots: torch.Tensor,
-                  dt: torch.dtype) -> torch.Tensor:
+def _cache_update(kv: Params, name: str, x: torch.Tensor, layer: int, slots: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Writes the new tokens' ``x`` [B, KV, T, hd] into ``kv[name]`` at the
     T buffer ``slots`` (a device tensor) of ``layer`` IN PLACE (quantized
     for an int8 or int4 cache, with their scales) and returns all S slots
-    of the layer in ``dt``: the shapes never depend on the cursor."""
+    of the layer as stored, with its scales (None for a bf16 or f32
+    cache): the shapes never depend on the cursor."""
     buf = kv[name][layer]
     if buf.dtype == torch.uint8:  # int4, nibble-packed; scales [L, B, KV*G, S]
-        q, s = _quant_kv4(x)  # s [B, KV, T, G]
+        q, s = quant_kv4(x)  # s [B, KV, T, G]
         b, kvh, t, g = s.shape
         scales = kv[f"{name}_scale"][layer]
-        buf.index_copy_(2, slots, _pack_int4(q))
+        buf.index_copy_(2, slots, pack_int4(q))
         scales.index_copy_(2, slots, s.transpose(-1, -2).reshape(b, kvh * g, t))
-        return _dequant_kv4(_unpack_int4(buf), scales, dt)
+        return buf, scales
     if buf.dtype == torch.int8:  # scales [L, B, KV, S]
-        q, s = _quant_kv(x)
+        q, s = quant_kv(x)
         scales = kv[f"{name}_scale"][layer]
         buf.index_copy_(2, slots, q)
         scales.index_copy_(2, slots, s[..., 0])
-        return buf.to(dt) * scales[..., None].to(dt)
+        return buf, scales
     buf.index_copy_(2, slots, x.to(buf.dtype))
-    return buf
+    return buf, None
+
+
+def _rank_kv_heads(x: Optional[torch.Tensor], kvh: int, tp: dist.ProcessGroup
+                   ) -> Optional[torch.Tensor]:
+    """This rank's kv heads of a cache layer [B, KV, S, ..] or of its
+    scales [B, KV * rows, S] (int4: a row per group): the heads of the
+    rank's query heads."""
+    if x is None:
+        return None
+    share = kvh // dist.get_world_size(tp)
+    rows = x.shape[1] // kvh
+    return x.narrow(1, dist.get_rank(tp) * share * rows, share * rows)
 
 
 def _block(
@@ -609,16 +602,20 @@ def _block(
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta).transpose(1, 2)  # [B, KV, T, hd]
     v = v.transpose(1, 2)
+    k_scale = v_scale = None
     if cache is not None:
         kv, layer, slots = cache
-        k = _cache_update(kv, "k", k, layer, slots, dt)
-        v = _cache_update(kv, "v", v, layer, slots, dt)
+        k, k_scale = _cache_update(kv, "k", k, layer, slots)
+        v, v_scale = _cache_update(kv, "v", v, layer, slots)
 
     if tp is not None and kvh > 1:  # the kv heads of this rank's query heads
-        share = kvh // dist.get_world_size(tp)
-        k = k.narrow(1, dist.get_rank(tp) * share, share)
-        v = v.narrow(1, dist.get_rank(tp) * share, share)
-    attn, probs = _attention(q, k.to(dt), v.to(dt), mask, return_probs)
+        k, v, k_scale, v_scale = (_rank_kv_heads(a, kvh, tp) for a in (k, v, k_scale, v_scale))
+    if cache is not None and not return_probs and kernel_takes(t, q.shape[2] // k.shape[1], hd):
+        # a decode step or a verify round: the cache read in its stored type
+        attn, probs = decode_attention(q, k, v, mask, k_scale=k_scale, v_scale=v_scale, dt=dt), None
+    else:
+        attn, probs = _attention(q, dequant_kv(k, k_scale, dt), dequant_kv(v, v_scale, dt), mask,
+                                 return_probs)
     attn_out = _all_reduce(_mm(attn.to(dt), lp["wo"], dt, a8, tp), tp).to(cfg.resid_dtype)
     resid_mid = x + attn_out
 
@@ -677,7 +674,7 @@ def forward(
         inside = (local >= 0) & (local < rows_here)
         ids = local.clamp(0, rows_here - 1)
     if isinstance(emb, dict):  # quantized per row: dequantize the looked-up rows
-        rows = emb["q"][ids] if "q" in emb else _unpack_int4(emb["qp"][ids])
+        rows = emb["q"][ids] if "q" in emb else unpack_int4(emb["qp"][ids])
         x = rows.to(cfg.resid_dtype) * emb["s"][ids]
     else:
         x = emb[ids].to(cfg.resid_dtype)
@@ -736,7 +733,7 @@ def forward(
         logits = _mm(x.to(dt), params["lm_head"], dt, cfg.act_int8_rows)
     elif isinstance(emb, dict):
         # the per-row embedding scale is the head's per-logit column scale
-        q = emb["q"] if "q" in emb else _unpack_int4(emb["qp"])
+        q = emb["q"] if "q" in emb else unpack_int4(emb["qp"])
         x2 = x.to(dt).reshape(-1, cfg.d_model).contiguous()
         logits = matmul_int8(x2, q, emb["s"], dt=dt, transpose_rhs=True)
         logits = logits.reshape(*x.shape[:-1], q.shape[0])
@@ -760,14 +757,14 @@ def init_kv_cache(
 
     ``dtype=torch.int8``: values quantized per (token, kv-head), with f32
     scales ``k_scale``/``v_scale`` [L, B, KV, S]. ``dtype="int4"``: one
-    scale per (token, kv-head, ``_kv4_group`` lanes of the head dim),
+    scale per (token, kv-head, ``kv4_group`` lanes of the head dim),
     stored [L, B, KV*G, S] (the JAX merged layout), and the values
-    nibble-packed as uint8 [L, B, KV, S, hd/2] (``_pack_int4``): a quarter
+    nibble-packed as uint8 [L, B, KV, S, hd/2] (``pack_int4``): a quarter
     of a bf16 cache."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     vshape, sshape, vdt = shape, shape[:-1], dtype
     if dtype == "int4":
-        g = cfg.head_dim // _kv4_group(cfg.head_dim)
+        g = cfg.head_dim // kv4_group(cfg.head_dim)
         vshape, vdt = (*shape[:-1], cfg.head_dim // 2), torch.uint8
         sshape = (cfg.n_layers, batch, cfg.n_kv_heads * g, max_len)
     cache = {
@@ -779,44 +776,3 @@ def init_kv_cache(
         cache["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
         cache["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=device)
     return cache
-
-
-def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., hd] -> (int8 values, f32 scales [..., 1]); one scale per row."""
-    x32 = x.float()
-    s = x32.abs().amax(dim=-1, keepdim=True) / 127.0
-    s = torch.where(s == 0.0, torch.ones_like(s), s)
-    return torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8), s
-
-
-# Sub-channel group width of the int4 KV cache: one scale per 32 head-dim
-# lanes (per token, per kv-head); a head_dim 32 does not divide gets one
-# group per head.
-KV4_GROUP = 32
-
-
-def _kv4_group(head_dim: int) -> int:
-    return KV4_GROUP if head_dim % KV4_GROUP == 0 else head_dim
-
-
-def _quant_kv4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., hd] -> (int8 values in [-7, 7] [..., hd], f32 scales [..., G]):
-    one symmetric max-abs scale per ``_kv4_group`` slice of the head dim."""
-    hd = x.shape[-1]
-    g = _kv4_group(hd)
-    xg = x.float().reshape(*x.shape[:-1], hd // g, g)
-    s = xg.abs().amax(dim=-1) / 7.0
-    s = torch.where(s == 0.0, torch.ones_like(s), s)
-    q = torch.clamp(torch.round(xg / s[..., None]), -7, 7)
-    return q.reshape(x.shape).to(torch.int8), s
-
-
-def _dequant_kv4(q: torch.Tensor, s_m: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """q [..., KV, S, hd] int4 values (as int8), s_m [..., KV*G, S] f32 ->
-    [..., KV, S, hd] in ``dt``."""
-    hd = q.shape[-1]
-    ng = hd // _kv4_group(hd)
-    kv, s_len = q.shape[-3], q.shape[-2]
-    s = s_m.reshape(*s_m.shape[:-2], kv, ng, s_len).transpose(-1, -2)[..., None]  # [.., KV, S, G, 1]
-    xg = q.reshape(*q.shape[:-1], ng, hd // ng).to(dt) * s.to(dt)
-    return xg.reshape(q.shape)

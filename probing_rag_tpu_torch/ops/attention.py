@@ -1,0 +1,309 @@
+"""Decode attention over the whole static KV cache: a CUDA kernel and its
+plain PyTorch version, with the cache's int8 and int4 formats (quantizers,
+nibble packing, dequantizers).
+
+Not a port of a Pallas kernel. The JAX package leaves attention to XLA
+(``probing_rag_tpu/models/gemma.py::_attn_core``, ``:755``, called by
+``_attention``, ``:787``), which fuses the convert of a bf16, int8 or int4
+cache into the score and value dots. Plain PyTorch ops cannot fuse it: they
+write an f32 copy of the whole cache and run f32 products over it every
+step. :func:`decode_attention` computes ``_attn_core``'s function for the
+few query positions of a decode step or a speculative verify round and
+reads the cache in its stored type: ``kernels/csrc/decode_attention.cu``
+for CUDA tensors (one call launches its three passes and counts one launch),
+:func:`decode_attention_plain` for CPU tensors; there is no other switch.
+
+The cache layer is ``init_kv_cache``'s: K and V ``[B, KV, S, hd]`` in bf16
+or f32; int8 with f32 scales ``[B, KV, S]`` (one a slot and kv head); or
+nibble-packed int4 ``uint8 [B, KV, S, hd/2]`` with f32 scales ``[B, KV*G,
+S]``, one per :func:`kv4_group` lanes of the head dim. The int4 weights of
+quantized serving share the nibble packing (:func:`pack_int4`).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from probing_rag_tpu_torch import kernels
+
+# decode_attention.cu: slots per tile, query rows (G x T) and head dim it takes
+TILE = 128
+MAX_ROWS = 64
+MAX_HEAD_DIM = 256
+# splits: about this many blocks an SM over all (batch row, kv head) pairs
+_BLOCKS_PER_SM = 2
+_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2, torch.uint8: 3}
+
+# Sub-channel group width of the int4 KV cache: one scale per 32 head-dim
+# lanes (per token, per kv-head); a head_dim 32 does not divide gets one
+# group per head.
+KV4_GROUP = 32
+
+
+def kv4_group(head_dim: int) -> int:
+    return KV4_GROUP if head_dim % KV4_GROUP == 0 else head_dim
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] -> uint8 pairs along the last axis: byte j
+    holds columns (2j, 2j+1) as (lo, hi) nibbles biased by +8."""
+    if q.shape[-1] % 2:
+        raise ValueError(f"int4 pack needs an even last dim, got {tuple(q.shape)}")
+    u = (q + 8).to(torch.uint8)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def unpack_int4(qp: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: uint8 ``[..., F/2]`` -> int8 ``[..., F]``."""
+    lo = (qp & 0xF).to(torch.int8) - 8
+    hi = (qp >> 4).to(torch.int8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(*qp.shape[:-1], qp.shape[-1] * 2)
+
+
+def quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 values, f32 scales [..., 1]); one scale per row."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1, keepdim=True) / 127.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    return torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8), s
+
+
+def quant_kv4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 values in [-7, 7] [..., hd], f32 scales [..., G]):
+    one symmetric max-abs scale per :func:`kv4_group` slice of the head dim."""
+    hd = x.shape[-1]
+    g = kv4_group(hd)
+    xg = x.float().reshape(*x.shape[:-1], hd // g, g)
+    s = xg.abs().amax(dim=-1) / 7.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(xg / s[..., None]), -7, 7)
+    return q.reshape(x.shape).to(torch.int8), s
+
+
+def dequant_kv4(q: torch.Tensor, s_m: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """q [..., KV, S, hd] int4 values (as int8), s_m [..., KV*G, S] f32 ->
+    [..., KV, S, hd] in ``dt``."""
+    hd = q.shape[-1]
+    ng = hd // kv4_group(hd)
+    kv, s_len = q.shape[-3], q.shape[-2]
+    s = s_m.reshape(*s_m.shape[:-2], kv, ng, s_len).transpose(-1, -2)[..., None]  # [.., KV, S, G, 1]
+    xg = q.reshape(*q.shape[:-1], ng, hd // ng).to(dt) * s.to(dt)
+    return xg.reshape(q.shape)
+
+
+def dequant_kv(buf: torch.Tensor, scale: Optional[torch.Tensor], dt: torch.dtype) -> torch.Tensor:
+    """A cache layer in ``dt`` (the JAX ``_block``'s dequantize): int4
+    ``dt(q) * dt(group scale)``, int8 ``dt(q) * dt(slot scale)``, a bf16 or
+    f32 layer cast."""
+    if buf.dtype == torch.uint8:
+        return dequant_kv4(unpack_int4(buf), scale, dt)
+    if buf.dtype == torch.int8:
+        return buf.to(dt) * scale[..., None].to(dt)
+    return buf.to(dt)
+
+
+def attn_core(
+    q: torch.Tensor,  # [B, T, KV, G, hd]
+    k: torch.Tensor,  # [B, KV, S, hd]
+    v: torch.Tensor,  # [B, KV, S, hd]
+    mask: torch.Tensor,  # [B, 1, T, S] bool (True = attend)
+    return_probs: bool = False,
+):
+    """f32 scores, -1e30 masking, softmax, f32-accumulated value sum (the
+    JAX einsums with ``preferred_element_type=f32``). Returns ([B, T, H*hd]
+    f32, the f32 softmax [B, H, T, S] if ``return_probs`` else None)."""
+    b, t, kv, groups, hd = q.shape
+    scores = torch.einsum("btkgh,bksh->bkgts", q.float(), k.float())
+    scores = scores / math.sqrt(hd)
+    scores = scores.masked_fill(~mask[:, :, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bksh->btkgh", probs.to(v.dtype).float(), v.float())
+    out = out.reshape(b, t, kv * groups * hd)
+    return out, (probs.reshape(b, kv * groups, t, -1) if return_probs else None)
+
+
+def kernel_takes(t: int, groups: int, head_dim: int) -> bool:
+    """Whether the kernel takes ``t`` query positions of ``groups`` query
+    heads a kv head at ``head_dim`` (32, 64, 128 or 256: a lane holds 8
+    head-dim lanes, four lanes share a slot's row in the score pass, a warp
+    holds whole rows in the value pass): the decode step and the verify
+    round of Gemma-2B and Mistral-7B. Prefill does not, nor a head_dim of
+    16 (``tiny_mistral``): those run the plain ops."""
+    return (t * groups <= MAX_ROWS and 32 <= head_dim <= MAX_HEAD_DIM
+            and MAX_HEAD_DIM % head_dim == 0)
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """How :func:`decode_attention` cuts the slots: ``tiles`` of ``TILE``
+    slots, ``tiles_per_split`` of them a block, ``nsplit`` blocks a (batch
+    row, kv head)."""
+
+    tiles: int
+    tiles_per_split: int
+    nsplit: int
+
+
+# the plan of the last call launched on the card (read by chip_smoke.py)
+last_plan: AttentionPlan | None = None
+
+
+def plan_decode_attention(pairs: int, s: int, sm_count: int = 132) -> AttentionPlan:
+    """Splits for ``pairs`` (batch row, kv head) pairs over ``s`` slots:
+    about ``_BLOCKS_PER_SM`` blocks an SM in all, every split at least one
+    tile and none empty."""
+    tiles = math.ceil(s / TILE)
+    want = max(1, math.ceil(_BLOCKS_PER_SM * sm_count / pairs))
+    per = math.ceil(tiles / min(want, tiles))
+    return AttentionPlan(tiles, per, math.ceil(tiles / per))
+
+
+def _check(q, k, v, mask, k_scale, v_scale, dt):
+    """Shapes and types both versions take. Returns (b, t, h, hd, kv, s)."""
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dt must be bf16 or f32, got {dt}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"need q [B, T, H, hd] and k, v [B, KV, S, hd(/2)], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, hd = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    if k.dtype != v.dtype or k.dtype not in _KINDS:
+        raise TypeError(f"k and v must share a bf16, f32, int8 or uint8 (int4) type, got "
+                        f"{k.dtype}, {v.dtype}")
+    if k.shape[0] != b or h % kv or k.shape[3] != (hd // 2 if k.dtype == torch.uint8 else hd):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if tuple(mask.shape) != (b, 1, t, s) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool [{b}, 1, {t}, {s}], got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    quantized = k.dtype in (torch.int8, torch.uint8)
+    if quantized != (k_scale is not None) or quantized != (v_scale is not None):
+        raise ValueError("an int8 or int4 cache needs k_scale and v_scale, and only it")
+    if quantized:
+        rows = kv * (hd // kv4_group(hd)) if k.dtype == torch.uint8 else kv
+        want = (b, rows, s)
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+            raise ValueError(f"scales must be {want}, got {tuple(k_scale.shape)}, "
+                             f"{tuple(v_scale.shape)}")
+    return b, t, h, hd, kv, s
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor, *, k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           dt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of :func:`decode_attention`: the cache dequantized to
+    ``dt`` (:func:`dequant_kv`), then :func:`attn_core`."""
+    b, t, h, hd, kv, s = _check(q, k, v, mask, k_scale, v_scale, dt)
+    kd, vd = dequant_kv(k, k_scale, dt), dequant_kv(v, v_scale, dt)
+    return attn_core(q.reshape(b, t, kv, h // kv, hd), kd, vd, mask)[0]
+
+
+def rounding_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: torch.Tensor, *, k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None,
+                       dt: torch.dtype = torch.bfloat16, rel: float = 1e-5) -> torch.Tensor:
+    """How far, element by element, an output ``[B, T, H*hd]`` computed as
+    :func:`decode_attention_plain` computes it may lie from that version's
+    when its f32 probabilities differ from the plain ones by at most ``rel``
+    of themselves (scores and sums in another order).
+
+    Each probability ``p`` is rounded to ``dt`` before the value sum. Where
+    ``p (1 - rel)`` and ``p (1 + rel)`` round to the same value, both
+    versions round to it and that slot adds no difference; where they round
+    to neighbours, the slot may differ by that one step times ``|v|``. Add
+    ``rel`` of the sum of ``|p v|`` for the f32 sums' order. At ``dt`` f32
+    every slot may differ by up to ``2 rel p |v|``."""
+    b, t, h, hd, kv, s = _check(q, k, v, mask, k_scale, v_scale, dt)
+    vd = dequant_kv(v, v_scale, dt).float()
+    g = h // kv
+    _, p = attn_core(q.reshape(b, t, kv, g, hd), dequant_kv(k, k_scale, dt), vd, mask,
+                     return_probs=True)
+    p = p.reshape(b, kv, g, t, s)
+    step = (p * (1 + rel)).to(dt).float() - (p * (1 - rel)).to(dt).float()
+    w = step + rel * p.to(dt).float()
+    return torch.einsum("bkgts,bksh->btkgh", w, vd.abs()).reshape(b, t, h * hd)
+
+
+def _strides(x: torch.Tensor, what: str):
+    """Byte strides of ``x``'s first two dims; its last two must be
+    contiguous (slots of a row back to back)."""
+    if x.stride(-1) != 1 or x.stride(-2) != x.shape[-1]:
+        raise ValueError(f"{what}: the kernel needs contiguous slot rows, strides {x.stride()}")
+    return x.stride(0) * x.element_size(), x.stride(1) * x.element_size()
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     dt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``_attn_core``'s output ``[B, T, H*hd]`` f32 for q ``[B, T, H, hd]``
+    over every slot of one cache layer: ``k``, ``v`` ``[B, KV, S, hd]``
+    (bf16 or f32), int8 with ``k_scale``/``v_scale`` ``[B, KV, S]``, or
+    int4 (uint8 ``[B, KV, S, hd/2]``) with ``[B, KV*G, S]``; ``mask`` bool
+    ``[B, 1, T, S]``; ``dt`` the compute type the cache is dequantized to
+    and the probabilities are rounded to (the kernel takes ``q`` in it). A
+    kv-head slice of a cache (tensor parallelism) is taken as it is: each
+    (batch row, kv head) needs only contiguous slot rows. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (:func:`kernel_takes` must hold)."""
+    b, t, h, hd, kv, s = _check(q, k, v, mask, k_scale, v_scale, dt)
+    dev = k.device
+    if dev.type == "cpu":
+        return decode_attention_plain(q, k, v, mask, k_scale=k_scale, v_scale=v_scale, dt=dt)
+    if dev.type != "cuda":
+        raise ValueError(f"no decode_attention for device {dev}")
+    for name, x in (("q", q), ("v", v), ("mask", mask), ("k_scale", k_scale),
+                    ("v_scale", v_scale)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} on {x.device}, k on {dev}")
+    if q.dtype != dt:
+        raise TypeError(f"decode_attention kernel needs q in {dt}, got {q.dtype}")
+    groups = h // kv
+    if not kernel_takes(t, groups, hd):
+        raise ValueError(f"decode_attention kernel takes G x T <= {MAX_ROWS} query rows and a "
+                         f"head_dim that is a power of two from 8 to {MAX_HEAD_DIM}; got G "
+                         f"{groups}, T {t}, head_dim {hd}")
+    kv_b, kv_h = _strides(k, "k")
+    if (_strides(v, "v") != (kv_b, kv_h) or k.data_ptr() % 16 or v.data_ptr() % 16
+            or kv_b % 16 or kv_h % 16):
+        raise ValueError("k and v must share strides, with 16-byte aligned bases and strides")
+    sc_b = sc_r = 0
+    if k_scale is not None:
+        if (k_scale.stride() != v_scale.stride() or k_scale.stride(-1) != 1
+                or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+            raise ValueError("k_scale and v_scale must be f32 with contiguous slots and "
+                             "shared strides")
+        sc_b, sc_r = k_scale.stride(0), k_scale.stride(1)
+    if mask.stride(-1) != 1:
+        mask = mask.contiguous()
+    global last_plan
+    plan = plan_decode_attention(b * kv, s, kernels.sm_count(dev))
+    r = groups * t
+    q = q.contiguous()
+    scores = torch.empty((b * kv, r, s), dtype=torch.float32, device=dev)
+    part_m = torch.empty((b * kv, r, plan.nsplit), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_o = torch.empty((plan.nsplit, b * kv, r, hd), dtype=torch.float32, device=dev)
+    out = torch.empty((b, t, h * hd), dtype=torch.float32, device=dev)
+    scale = float(np.float32(1.0) / np.float32(math.sqrt(hd)))  # as the card's divide by a scalar
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        kernels.check(
+            lib.decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                0 if k_scale is None else k_scale.data_ptr(),
+                0 if v_scale is None else v_scale.data_ptr(), mask.data_ptr(),
+                scores.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_o.data_ptr(),
+                out.data_ptr(), _KINDS[k.dtype], int(dt == torch.bfloat16), b, kv, groups, t, s,
+                hd, kv4_group(hd), kv_b, kv_h, sc_b, sc_r, mask.stride(0), mask.stride(2),
+                plan.tiles_per_split, plan.nsplit, scale, kernels.stream_ptr(dev),
+            ),
+            "decode_attention",
+        )
+    kernels.LAUNCHES["decode_attention"] += 1
+    last_plan = plan
+    return out

@@ -5,9 +5,10 @@ against the JAX package on the CPU, at tiny width.
   on a converted JAX tree: the int8 values and packed nibbles equal byte for
   byte, the f32 scales within 1e-6 relative (the same f32 divisions and
   maxima; the tolerance only covers a differently fused division).
-- The int4 KV quantizer at head_dim 32, 128 and 256 (1, 4 and 8 groups)
-  against JAX's ``_quant_kv4`` / ``_dequant_kv4`` and a numpy oracle of the
-  group rule, and the int8 KV quantizer against ``_quant_kv``.
+- The int4 KV quantizer (``ops/attention.py``) at head_dim 32, 128 and
+  256 (1, 4 and 8 groups) against JAX's ``_quant_kv4`` / ``_dequant_kv4``
+  and a numpy oracle of the group rule, and the int8 KV quantizer against
+  ``_quant_kv``.
 - The quantized forward (int8; int8 + ``act_int8_rows``; grouped int4 in
   both of its forms; rank-1 int4 with and without w4a8) on the same
   quantized tree, f32 compute: logits within 1e-4 (sums in another order).
@@ -27,6 +28,7 @@ import torch
 
 from probing_rag_tpu.models import gemma as jg
 from probing_rag_tpu_torch.models import gemma as tg
+from probing_rag_tpu_torch.ops import attention as at
 from probing_rag_tpu_torch.weights import lm_params_from_jax
 
 from test_torch_gemma import configs, left_padded, numpy_params, to_jax
@@ -105,9 +107,9 @@ def test_lm_params_from_jax_checks_quantized_shapes():
 def test_int4_pack_matches_jax():
     rng = np.random.default_rng(0)
     q = rng.integers(-8, 8, size=(3, 5, 8)).astype(np.int8)
-    packed = tg._pack_int4(torch.from_numpy(q))
+    packed = at.pack_int4(torch.from_numpy(q))
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jg._pack_int4(jnp.asarray(q))))
-    np.testing.assert_array_equal(tg._unpack_int4(packed).numpy(), q)
+    np.testing.assert_array_equal(at.unpack_int4(packed).numpy(), q)
 
 
 def kv4_oracle(x, group):
@@ -125,7 +127,7 @@ def test_kv4_quantizer_matches_jax_and_oracle(head_dim):
     rng = np.random.default_rng(head_dim)
     x = rng.normal(size=(2, 3, 5, head_dim)).astype(np.float32)
     x[0, 0, 0, :32] = 0.0  # an all-zero group takes scale 1
-    q, s = tg._quant_kv4(torch.from_numpy(x))
+    q, s = at.quant_kv4(torch.from_numpy(x))
     groups = head_dim // 32
     assert s.shape == (2, 3, 5, groups)
     oq, os_ = kv4_oracle(x, 32)
@@ -136,7 +138,7 @@ def test_kv4_quantizer_matches_jax_and_oracle(head_dim):
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     # the merged [.., KV*G, S] scale store, dequantized
     s_m = s.transpose(-1, -2).reshape(2, 3 * groups, 5)
-    back = tg._dequant_kv4(q, s_m, torch.float32).numpy()
+    back = at.dequant_kv4(q, s_m, torch.float32).numpy()
     want = np.asarray(jg._dequant_kv4(jq, jnp.asarray(s_m.numpy()), jnp.float32))
     np.testing.assert_array_equal(back, want)
     np.testing.assert_array_equal(back, (oq.reshape(2, 3, 5, groups, 32) * os_[..., None])
@@ -146,7 +148,7 @@ def test_kv4_quantizer_matches_jax_and_oracle(head_dim):
 
 def test_kv8_quantizer_matches_jax():
     x = np.random.default_rng(1).normal(size=(2, 1, 7, 32)).astype(np.float32)
-    q, s = tg._quant_kv(torch.from_numpy(x))
+    q, s = at.quant_kv(torch.from_numpy(x))
     jq, js = jg._quant_kv(jnp.asarray(x))
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
