@@ -99,17 +99,27 @@ and the script exits non-zero:
    abs error and limit, kernel / plain ms, bound and, on the bf16 cache,
    ``scaled_dot_product_attention`` as a yardstick; f32 compute over the
    int8 and int4 caches and at T 5; Mistral-7B's shape (32 heads over 8 kv
-   heads at 128) and one tensor-parallel rank's kv-head slice of it. The
-   bf16 limit is ``rounding_tolerance``'s, element by element, and two
-   faults (probabilities left unrounded, one tile dropped) must exceed it.
-   Then the decode step
+   heads at 128) and one tensor-parallel rank's kv-head slice of it. Then
+   the prefill attention kernel against its plain version: the retrieval
+   round's prefill (8 x 3,712 prompt tokens into 3,862 slots, the same
+   pads and all-pad row) over bf16, int8 and int4 caches, the capture
+   forward's no-cache shape (8 x 1,536, positions-style pads), Mistral-7B's
+   at 1,024 tokens over int8 and its kv-head slice; each with kernel /
+   plain / ``scaled_dot_product_attention`` ms and the bound from its
+   attended pairs, its rows with no attendable slot against the mean of
+   v. The bf16 limit is ``rounding_tolerance``'s, element by element, and
+   two faults (probabilities left unrounded, one tile dropped) must exceed
+   it. Then the decode step
    replayed as a CUDA graph against the same step run eagerly, bf16 and
    int8 weights + int8 KV: tokens, validity, counts and pooled captures
    bit-equal, matmul_int8 launched 127 times a step plus the prefill's,
-   decode_attention 18 times a step (one a layer; the prefill runs the
-   plain ops), the capture's seconds, host checks, tokens/s both ways, the
-   step's wall and one replay's device time, and a ``torch.profiler``
-   breakdown of a replay; the same graphed step with plain attention
+   decode_attention 18 times a step (one a layer), prefill_attention 18
+   times a prefill, the capture's seconds, host checks, tokens/s both
+   ways, the step's wall and one replay's device time, and a
+   ``torch.profiler`` breakdown of a replay; the prefill's seconds and
+   peak GiB with the kernel and with plain attention in the same call, and
+   a ``torch.profiler`` breakdown of one bf16 prefill each way; the same
+   graphed step with plain attention
    (rows that part must part where the logit gap is within
    ``ATTN_DRIFT``), and in f32 the graphed decode's tokens equal to the
    plain-attention step's; speculative decode (k 4) on the weights upcast to f32
@@ -127,8 +137,9 @@ and the script exits non-zero:
    the default 12 sites, max_len 1536, batch 8 (best dev accuracy > 0.9),
    one train step on the card against the CPU, the trained stack saved and
    read by the CLI's ``_load_probers`` to gate a loop batch,
-   ``prober_offline_eval`` against the CPU, and the capture forward with
-   int8 weights (matmul_int8 at [12288 x 2048 -> 16384] with its bound
+   ``prober_offline_eval`` against the CPU, the capture forward's seconds
+   through prefill_attention (18 launches) and with plain attention, and
+   the capture forward with int8 weights (matmul_int8 at [12288 x 2048 -> 16384] with its bound
    and ``torch._weight_int8pack_mm``).
 11. baselines and the CLI chain (``phase_baselines``): on phase 5's
    weights over the phase-4 index with a word tokenizer (an id decodes to
@@ -176,12 +187,12 @@ The probing loops of phases 5, 7, 8, 9 and 10 run the decode step graphed
 Kernel times are CUDA-event means after a warm-up, with the card given a
 head start (``cuda_ms``). The kernels line lists, for each kernel, its
 launches on its path, its max abs error, kernel / plain / library ms and
-its bound (``bound``). The line before the last is the card's name and
+its bound (``bound``): eleven kernels. The line before the last is the card's name and
 power limit; the last line is the result as one JSON object.
 
 ``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
 matmul_int8 cases alone; ``--attention`` phases 1, 2 and phase 9's
-decode attention cases; ``--train`` runs phases 1, 2 and phase 10, and
+decode and prefill attention cases; ``--train`` runs phases 1, 2 and phase 10, and
 ``--baselines`` phases 1, 2 and 11, ``--parallel`` phases 1, 2 and 12
 (each with the phase-4 index and phase 5's model).
 """
@@ -253,11 +264,18 @@ SPEC_K = 4
 # phase 9's decode attention cases: batch 8 over the retrieval-round cache
 # (3,712 prompt slots + GEN_TOKENS), left pads of rows 0-6 (row 7 is all
 # pad), at T 1 (a decode step) and SPEC_K + 1 (a verify round)
-ATTN_SLOTS = 3712 + GEN_TOKENS
+ATTN_PROMPT = 3712
+ATTN_SLOTS = ATTN_PROMPT + GEN_TOKENS
 ATTN_PADS = (0, 37, 300, 1000, 2000, 3000, 3700)
 # a cache this many times longer, timed once: whether the kernel's distance
 # from its byte bound is a fixed cost or a cost per byte
 ATTN_LONG = 16
+# phase 9's prefill attention cases: the retrieval round's prompt length
+# (ATTN_PADS are its pads; other lengths scale them), the capture forward's
+# (TRAIN_MAX_LEN) and Mistral-7B's, short enough that its plain version's f32
+# [8, 32, T, S] scores fit beside it
+PREFILL_T = ATTN_PROMPT
+PREFILL_MISTRAL_T = 1024
 # bf16 decode, kernel against plain attention: where a row parts, the plain
 # model's logit gap between the two tokens, as a share of its largest logit
 ATTN_DRIFT = 0.05
@@ -282,6 +300,7 @@ REPLACES = {
     "postings_assemble": "probing_rag_tpu/ops/pallas_sparse.py:389",
     # not a Pallas kernel: XLA's fused attention over the cache
     "decode_attention": "probing_rag_tpu/models/gemma.py:755",
+    "prefill_attention": "probing_rag_tpu/models/gemma.py:755",
 }
 SOURCES = {
     "bm25_gather": f"{REPO_KERNELS}/bm25_gather.cu",
@@ -294,6 +313,7 @@ SOURCES = {
     "postings_gather": f"{REPO_KERNELS}/postings_gather.cu",
     "postings_assemble": f"{REPO_KERNELS}/postings_assemble.cu",
     "decode_attention": f"{REPO_KERNELS}/decode_attention.cu",
+    "prefill_attention": f"{REPO_KERNELS}/prefill_attention.cu",
 }
 # the kernels each path must launch
 BM25_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_topk",
@@ -1196,9 +1216,13 @@ def phase_main_path(index, docs_tokens, cpu_engine):
     print(f"  each search's stats: {retriever.stats}")
     if not any(st["n_fallback"] > 0 for st in retriever.stats[1:]):
         raise AssertionError("no later search of the loop routed a row to the over-cap hybrid")
-    missing = [n for n in BM25_KERNELS + ("decode_attention",) if launches[n] == 0]
+    missing = [n for n in BM25_KERNELS + ("decode_attention", "prefill_attention")
+               if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the BM25 path: {missing}")
+    if launches["prefill_attention"] % cfg.n_layers:
+        raise AssertionError(f"prefill_attention launched {launches['prefill_attention']} times, "
+                             f"not {cfg.n_layers} a prefill")
 
     # the loop's first search (the questions) and last one (whole
     # generations, over-cap rows) again: kernels against the plain path
@@ -2189,11 +2213,28 @@ def attention_operands(gen, kind: str, t: int, dt, s=None, model: str = "gemma_2
     import torch
 
     from probing_rag_tpu_torch.models.gemma import GemmaConfig
-    from probing_rag_tpu_torch.ops.attention import pack_int4, quant_kv, quant_kv4
 
     cfg = getattr(GemmaConfig, model)()
     b, h, kvh, hd = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = ATTN_SLOTS if s is None else s
+    k, v, scales = cache_layer(gen, kind, b, kvh, s, hd)
+    q = torch.randn((b, t, h, hd), generator=gen, device=DEVICE).to(dt)
+    slot = torch.arange(s, device=DEVICE)
+    pads = torch.tensor(list(ATTN_PADS) + [s], device=DEVICE)
+    valid = slot[None, :] >= pads[:, None]  # [B, S]
+    causal = slot[None, :] <= (s - t + torch.arange(t, device=DEVICE))[:, None]  # [T, S]
+    mask = (valid[:, None, :] & causal[None])[:, None]  # [B, 1, T, S]
+    return q, k, v, mask, scales
+
+
+def cache_layer(gen, kind: str, b: int, kvh: int, s: int, hd: int):
+    """One seeded cache layer (K, V ~ N(0, 1), [b, kvh, s, hd]) in the
+    cache's format ``kind`` ("f32", "bf16", "int8" or "int4", from the
+    port's own KV quantizers) with its scales (None, None for f32 and bf16)."""
+    import torch
+
+    from probing_rag_tpu_torch.ops.attention import pack_int4, quant_kv, quant_kv4
+
     x = torch.randn((2, b, kvh, s, hd), generator=gen, device=DEVICE)
     scales = (None, None)
     if kind == "int8":
@@ -2206,13 +2247,7 @@ def attention_operands(gen, kind: str, t: int, dt, s=None, model: str = "gemma_2
         scales = (merged[0], merged[1])
     else:
         k, v = x.to(torch.float32 if kind == "f32" else torch.bfloat16)
-    q = torch.randn((b, t, h, hd), generator=gen, device=DEVICE).to(dt)
-    slot = torch.arange(s, device=DEVICE)
-    pads = torch.tensor(list(ATTN_PADS) + [s], device=DEVICE)
-    valid = slot[None, :] >= pads[:, None]  # [B, S]
-    causal = slot[None, :] <= (s - t + torch.arange(t, device=DEVICE))[:, None]  # [T, S]
-    mask = (valid[:, None, :] & causal[None])[:, None]  # [B, 1, T, S]
-    return q, k.contiguous(), v.contiguous(), mask, scales
+    return k.contiguous(), v.contiguous(), scales
 
 
 def kv_head_slice(q, k, v, ks, vs, first: int, count: int):
@@ -2249,7 +2284,7 @@ def tolerance_controls(q, k, v, mask, ks, vs, dt, ref, tol) -> tuple:
 
     def excess(pp):
         out = torch.einsum("bkgts,bksh->btkgh", pp, vd).reshape(b, t, h * hd)
-        ratio = (out - ref).abs() / tol
+        ratio = ((out - ref).abs() / tol).nan_to_num(nan=0.0)  # 0 / 0: no error where none may be
         return int((ratio > 1).sum()), float(ratio.max())
 
     dropped = p.to(dt).float()
@@ -2384,29 +2419,207 @@ def phase_attention_kernels(results: dict) -> None:
     }
 
 
+def prefill_operands(gen, kind: str, t: int, cache: bool, model: str = "gemma_2b"):
+    """Seeded operands of one prefill attention case at ``model``'s width,
+    batch 8: q [8, t, H, hd] bf16, one layer's K and V in the cache's format
+    ``kind`` with their scales, and the structured mask (qpos, kpos, valid).
+    ``cache``: the retrieval round's prefill, t prompt slots of which rows
+    0-6 are left-padded by ``ATTN_PADS`` (scaled to t) and row 7 is all pad,
+    then ``GEN_TOKENS`` slots for the decode (valid, not yet attendable);
+    qpos = kpos = the slot (the cursor at 0), as ``forward`` masks a cache.
+    Else the capture forward's no-cache shape: S = t, left pads likewise,
+    positions ``cumsum(valid) - 1`` clamped at 0 for both qpos and kpos (a
+    pad row attends the first real token, after it in the buffer)."""
+    import torch
+
+    from probing_rag_tpu_torch.models.gemma import GemmaConfig
+
+    cfg = getattr(GemmaConfig, model)()
+    b, h, kvh, hd = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = t + GEN_TOKENS if cache else t
+    k, v, scales = cache_layer(gen, kind, b, kvh, s, hd)
+    q = torch.randn((b, t, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    pads = torch.tensor([p * t // ATTN_PROMPT for p in ATTN_PADS] + [t], device=DEVICE)
+    tok = torch.arange(t, device=DEVICE)
+    prompt_valid = tok[None, :] >= pads[:, None]  # [B, t]
+    if cache:
+        valid = torch.cat([prompt_valid, torch.ones((b, s - t), dtype=torch.bool,
+                                                    device=DEVICE)], dim=1)
+        qpos = tok[None, :].expand(b, t)
+        kpos = torch.arange(s, device=DEVICE)[None, :].expand(b, s)
+    else:
+        valid = prompt_valid
+        qpos = kpos = torch.clamp(torch.cumsum(valid.long(), dim=-1) - 1, min=0)
+    return q, k, v, (qpos, kpos, valid), scales
+
+
+def prefill_case(gen, label: str, kind: str, t: int, cache: bool, model: str = "gemma_2b",
+                 kv_heads=None) -> dict:
+    """One ``prefill_attention`` case: the kernel against its plain version
+    on the card (same operands; on ``kv_heads`` (first, count) of the cache
+    where given), held element by element to ``rounding_tolerance`` (which
+    the two faults of ``tolerance_controls`` must exceed); rows with no
+    attendable slot (left pads of the cache path, the all-pad row) against
+    v summed at weight bf16(1 / S); kernel / plain ms,
+    ``scaled_dot_product_attention`` on the same bf16 operands (the cache
+    dequantized first) and bool mask as the library yardstick, and the
+    bound from the attended (row, slot) pairs. Prints the case's line;
+    returns its numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from probing_rag_tpu_torch.ops import attention as at
+
+    bf16 = torch.bfloat16
+    q, k, v, (qpos, kpos, valid), (ks, vs) = prefill_operands(gen, kind, t, cache, model)
+    if kv_heads is not None:
+        q, k, v, ks, vs = kv_head_slice(q, k, v, ks, vs, *kv_heads)
+    got = at.prefill_attention(q, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs, dt=bf16)
+    ref = at.prefill_attention_plain(q, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs, dt=bf16)
+    mask = at.structured_mask(qpos, kpos, valid)
+    sync()
+    err = float((got - ref).abs().max())
+    tol = at.rounding_tolerance(q, k, v, mask, k_scale=ks, v_scale=vs, dt=bf16)
+    ratio = float(((got - ref).abs() / tol).nan_to_num(nan=0.0).max())
+    ok = bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= tol).all())
+    b, _, h, hd = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    # rows with no attendable slot: bf16(1 / S) v over all S slots
+    dead = ~mask[:, 0].any(dim=-1)  # [B, T]
+    w = torch.tensor(1.0 / s).to(bf16).float()
+    vmean = w * at.dequant_kv(v, vs, bf16).float().sum(dim=2)  # [B, KV, hd]
+    want = vmean[:, None, :, None, :].expand(b, t, kvh, h // kvh, hd).reshape(b, t, h * hd)
+    dead_err = float((got - want).abs()[dead].max()) if bool(dead.any()) else 0.0
+    what = (f"prefill_attention {label}: {model} {kind} cache, [{b} x {t} positions x {h} heads / "
+            f"{kvh} kv x {s} slots x {hd}]")
+    tol_max, tol_med = float(tol.max()), float(tol.median())
+    del tol
+    (n_un, r_un), (n_drop, r_drop) = tolerance_controls(q, k, v, mask, ks, vs, bf16, ref,
+                                                        at.rounding_tolerance(
+                                                            q, k, v, mask, k_scale=ks,
+                                                            v_scale=vs, dt=bf16))
+    limit = (f"per element, max {tol_max:.3g}, median {tol_med:.3g}; worst err/limit "
+             f"{ratio:.3g}; controls over it: unrounded probabilities {n_un} elements (worst "
+             f"{r_un:.3g}x), one tile dropped {n_drop} (worst {r_drop:.3g}x)")
+    if not ok:
+        raise AssertionError(f"{what}: kernel differs from plain by {err} ({limit})")
+    if n_un == 0 or n_drop == 0:
+        raise AssertionError(f"{what}: the bf16 limit lets a fault through ({limit})")
+    if dead_err > 1e-5 * float(want.abs().max()) + 1e-6:
+        raise AssertionError(f"{what}: rows with no attendable slot differ from the mean of v "
+                             f"by {dead_err}")
+    del got, ref, want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: at.prefill_attention(q, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs,
+                                              dt=bf16))
+    plain_ms = cuda_ms(lambda: at.prefill_attention_plain(q, k, v, qpos, kpos, valid,
+                                                          k_scale=ks, v_scale=vs, dt=bf16),
+                       reps=2)
+    torch.cuda.empty_cache()
+    pairs = int(mask.sum())  # attended (position, slot) pairs; each meets the G heads
+    ops = 4.0 * hd * pairs * (h // kvh) * kvh
+    nbytes = (sum(x.numel() * x.element_size() for x in (q, k, v, ks, vs, qpos, kpos, valid)
+                  if x is not None) + b * t * h * hd * 4)
+    bnd = bound(nbytes, ops, "bf16")
+    qh, kd, vd = q.transpose(1, 2), at.dequant_kv(k, ks, bf16), at.dequant_kv(v, vs, bf16)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask, enable_gqa=True)
+
+    try:
+        sdpa()
+        sync()
+        lib_ms = cuda_ms(sdpa)
+        line = f"scaled_dot_product_attention {lib_ms:.4f} ms"
+    except (RuntimeError, TypeError) as e:
+        lib_ms, line = None, f"scaled_dot_product_attention: none ({str(e).splitlines()[0][:60]})"
+    print(f"  {what}: max abs err {err:.3g} (limit {limit}); {int(dead.sum())} rows with no "
+          f"attendable slot vs v summed at weight 1 / S {dead_err:.3g}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {line}, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
+          f"{pairs} attended pairs a head, {ops:.3g} operations, {nbytes / 1e6:.1f} MB)",
+          flush=True)
+    del q, k, v, ks, vs, qh, kd, vd, mask
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bnd}
+
+
+def phase_prefill_kernels(results: dict) -> None:
+    """``prefill_attention`` against its plain version (``prefill_case``):
+    the retrieval round's prefill at Gemma-2B width (8 x ``PREFILL_T``
+    prompt tokens into ``PREFILL_T`` + ``GEN_TOKENS`` slots, left pads and
+    an all-pad row) over bf16, int8 and int4 caches; the capture forward's
+    no-cache shape (8 x ``TRAIN_MAX_LEN``, positions-style pads); Mistral-7B's
+    (32 heads / 8 kv x 128) at ``PREFILL_MISTRAL_T`` over an int8 cache,
+    whole and on kv heads 2-3 (a tensor-parallel rank's slice). The kernels
+    line takes the bf16 prefill case and the others' times."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    out = {
+        "prefill bf16": prefill_case(gen, "retrieval prefill", "bf16", PREFILL_T, True),
+        "prefill int8": prefill_case(gen, "retrieval prefill", "int8", PREFILL_T, True),
+        "prefill int4": prefill_case(gen, "retrieval prefill", "int4", PREFILL_T, True),
+        "capture": prefill_case(gen, "capture forward", "bf16", TRAIN_MAX_LEN, False),
+        "mistral": prefill_case(gen, "prefill", "int8", PREFILL_MISTRAL_T, True, "mistral_7b"),
+        "mistral slice": prefill_case(gen, "prefill", "int8", PREFILL_MISTRAL_T, True,
+                                      "mistral_7b", (2, 2)),
+    }
+    main = out["prefill bf16"]
+    results["prefill_attention"] = {
+        **main, "max_abs_err": max(r["max_abs_err"] for r in out.values()),
+        "shape": f"[8 x {PREFILL_T} x 8 x {PREFILL_T + GEN_TOKENS} x 256] bf16 cache",
+        **{f"{name.replace(' ', '_')}_{key}": r[key] for name, r in out.items()
+           if name != "prefill bf16" for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+    }
+
+
 class PlainAttention:
-    """Routes the LM's decode attention to its plain version while open
-    (a step captured inside captures the plain ops); the graph cache is
-    cleared on the way in and out, so that no step captured with the other
-    routing is replayed."""
+    """Routes the LM's decode and prefill attention to their plain versions
+    while open (a step captured inside captures the plain ops); the graph
+    cache is cleared on the way in and out, so that no step captured with
+    the other routing is replayed."""
 
     def __enter__(self):
         from probing_rag_tpu_torch.models import gemma
         from probing_rag_tpu_torch.models.graphs import GRAPHS
-        from probing_rag_tpu_torch.ops.attention import decode_attention_plain
+        from probing_rag_tpu_torch.ops import attention as at
 
         GRAPHS.clear()
-        self.saved = gemma.decode_attention
-        gemma.decode_attention = decode_attention_plain
+        self.saved = gemma.decode_attention, gemma.prefill_attention
+        gemma.decode_attention = at.decode_attention_plain
+        gemma.prefill_attention = at.prefill_attention_plain
         return self
 
     def __exit__(self, *exc):
         from probing_rag_tpu_torch.models import gemma
         from probing_rag_tpu_torch.models.graphs import GRAPHS
 
-        gemma.decode_attention = self.saved
+        gemma.decode_attention, gemma.prefill_attention = self.saved
         GRAPHS.clear()
         return False
+
+
+def device_profile(fn, reps: int = 1, top: int = 8) -> str:
+    """Where ``fn()`` spends its device time: ``torch.profiler`` over one
+    call of ``fn`` (``reps`` runs of what it times), the kernels' device
+    milliseconds a run by name (the kernels' own events: an op that
+    launches a kernel carries its time too), the largest ``top`` and the
+    total."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    if not rows:
+        return "the profiler saw no device time"
+    total = sum(ms for ms, _ in rows)
+    return (f"{total:.3f} ms in {len(rows)} kernels; " + "; ".join(
+        f"{name[:60]} {ms:.3f}" for ms, name in rows[:top]))
 
 
 def replay_ms(loop, reps: int = 20) -> float:
@@ -2422,25 +2635,16 @@ def replay_ms(loop, reps: int = 20) -> float:
 
 def step_profile(loop, reps: int = 5, top: int = 8) -> str:
     """Where one replay of ``loop``'s captured step spends its device time:
-    ``torch.profiler`` over ``reps`` raw replays, the kernels' device
-    milliseconds a step by name, the largest ``top`` and the total."""
+    ``device_profile`` over ``reps`` raw replays, in ms a step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    def replays():
+        for _ in range(reps):
+            loop.graph.graph.replay()
 
     with torch.inference_mode():
         loop.state.step.zero_()
-        sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                loop.graph.graph.replay()
-            sync()
-    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
-    if not rows:
-        return "the profiler saw no device time"
-    total = sum(ms for ms, _ in rows)
-    return (f"{total:.3f} ms in {len(rows)} kernels; " + "; ".join(
-        f"{name[:60]} {ms:.3f}" for ms, name in rows[:top]))
+        return device_profile(replays, reps, top)
 
 
 def phase_generation(lm, index, questions, results: dict) -> dict:
@@ -2471,6 +2675,7 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
     from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
 
     phase_attention_kernels(results)
+    phase_prefill_kernels(results)
     params, cfg, probers, tok, store = lm
     engine = BM25Engine(index, device=DEVICE)
     questions = questions[:N_QUANT_QUESTIONS]
@@ -2492,6 +2697,12 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
             if not np.array_equal(getattr(a, name), getattr(b, name)):
                 raise AssertionError(f"{what}: {name} differ")
 
+    def prefill(p, c, **kw):  # a 1-token call: the prefill; seconds and peak GiB
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t, _, _ = run(p, c, 1, **kw)
+        return t, (torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0)
+
     tokens, valid = _pad_batch([tok.encode(q, add_bos=True) for q in prompts8], tok.pad_id)
     print(f"  batch 8, prompts padded to {tokens.shape[1]} tokens, {n} new tokens, stops off")
     t_prefill = {}
@@ -2501,8 +2712,12 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
         GRAPHS.clear()
         run(p, cfg, 1, **kv)
         kernels.reset_launches()
-        t1, _, _ = run(p, cfg, 1, **kv)
+        t1, peak1 = prefill(p, cfg, **kv)
         prefill_mm = kernels.LAUNCHES["matmul_int8"]
+        if kernels.LAUNCHES["prefill_attention"] != cfg.n_layers:
+            raise AssertionError(f"{label}: the prefill launched prefill_attention "
+                                 f"{kernels.LAUNCHES['prefill_attention']} times, not "
+                                 f"{cfg.n_layers}")
         t_first, _, _ = run(p, cfg, **kv)  # captures the step
         kernels.reset_launches()
         t_graph, res_g, loop = run(p, cfg, **kv)
@@ -2520,7 +2735,7 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
         if kv and mm != prefill_mm + per_step * loop.steps:
             raise AssertionError(f"{label}: matmul_int8 launched {mm} times, not the prefill's "
                                  f"{prefill_mm} + {per_step} x {loop.steps}")
-        if attn != cfg.n_layers * loop.steps:  # the prefill (T 3,712) runs the plain ops
+        if attn != cfg.n_layers * loop.steps:  # the prefill (T 3,712) runs prefill_attention
             raise AssertionError(f"{label}: decode_attention launched {attn} times, not "
                                  f"{cfg.n_layers} x {loop.steps}")
         step_ms = replay_ms(loop)
@@ -2539,10 +2754,22 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
               f"{step_profile(loop)}", flush=True)
         t_prefill[label] = t1
         graphed[label] = res_g
+        if label == "bf16":
+            print(f"  bf16 prefill (8 x {tokens.shape[1]} tokens), device time by kernel "
+                  f"(torch.profiler, ms): {device_profile(lambda: run(p, cfg, 1, **kv))}",
+                  flush=True)
         with PlainAttention():
             run(p, cfg, 1, **kv)
+            t1_plain, peak_plain = prefill(p, cfg, **kv)
+            if label == "bf16":
+                print(f"  bf16 prefill with plain attention, device time by kernel "
+                      f"(torch.profiler, ms): {device_profile(lambda: run(p, cfg, 1, **kv))}",
+                      flush=True)
             t_plain, res_p, ploop = run(p, cfg, **kv)
             plain_ms = replay_ms(ploop)
+        print(f"  {label} prefill (8 x {tokens.shape[1]} tokens, a 1-token generate call): "
+              f"{t1:.3f}s, peak {peak1:.2f} GiB with prefill_attention; {t1_plain:.3f}s, peak "
+              f"{peak_plain:.2f} GiB with plain attention", flush=True)
         rows = int((res_p.tokens == res_g.tokens).all(axis=1).sum())
         gaps = decode_gaps(p, cfg, tok, prompts8, res_g.tokens, res_p.tokens)
         if gaps and max(gaps) > ATTN_DRIFT:
@@ -2664,7 +2891,8 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
           f"{result.retr_count_list}; kernel launches {launches}", flush=True)
     if result.retr_count_list != [3] * len(questions):
         raise AssertionError(f"spec loop: retr_count {result.retr_count_list} != all 3")
-    missing = [name for name in BM25_KERNELS + ("decode_attention",) if launches[name] == 0]
+    missing = [name for name in BM25_KERNELS + ("decode_attention", "prefill_attention")
+               if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the spec loop's path: {missing}")
     GRAPHS.clear()
@@ -2828,8 +3056,19 @@ def phase_prober_training(lm, index, questions, results: dict) -> dict:
     n_steps = sum("losses" in h for h in history)
     tokens, labels8, pred_lens = ptrain.tensorize_examples(train[:TRAIN_BATCH], tok, tc.max_len)
     capture = lambda p: ptrain.capture_activations(p, cfg, tokens, tc.sites, tok.pad_id)
-    capture_s = cuda_ms(lambda: capture(params), reps=3) / 1e3
+    kernels.reset_launches()
     caps = capture(params)
+    sync()
+    if kernels.LAUNCHES["prefill_attention"] != cfg.n_layers:
+        raise AssertionError(f"the capture forward launched prefill_attention "
+                             f"{kernels.LAUNCHES['prefill_attention']} times, not {cfg.n_layers}")
+    launches["capture"] = {"prefill_attention": cfg.n_layers}
+    capture_s = cuda_ms(lambda: capture(params), reps=3) / 1e3
+    with PlainAttention():
+        caps_plain = capture(params)
+        capture_plain_s = cuda_ms(lambda: capture(params), reps=3) / 1e3
+    cap_rel = float((caps - caps_plain).norm() / caps_plain.norm())
+    del caps_plain
     lab = torch.as_tensor(labels8, dtype=torch.int64, device=DEVICE)
     pl = torch.as_tensor(pred_lens, dtype=torch.int64, device=DEVICE)
     scratch = tree_to(stacked, DEVICE)
@@ -2842,7 +3081,9 @@ def phase_prober_training(lm, index, questions, results: dict) -> dict:
           f"epoch: {t_train:.1f}s (after the first make_optimizer's {t_opt:.1f}s), "
           f"{len(train) * tc.epochs / t_train:.1f} training examples/s; "
           f"capture forward [{tc.batch_size} x {tc.max_len}] -> [{len(tc.sites)}, "
-          f"{tc.batch_size}, {tc.max_len}, {cfg.d_model}] f32 {capture_s:.3f}s a batch; prober "
+          f"{tc.batch_size}, {tc.max_len}, {cfg.d_model}] f32 {capture_s:.3f}s a batch through "
+          f"prefill_attention ({cfg.n_layers} launches), {capture_plain_s:.3f}s with plain "
+          f"attention (captures' relative difference {cap_rel:.3g}); prober "
           f"step {step_ms:.3f} ms; peak {peak / 2**30:.2f} GiB; mean loss by epoch "
           f"{[round(l, 4) for l in epoch_loss]}; dev accuracy by epoch {dev_acc}", flush=True)
     if max(dev_acc[-1]) <= 0.9:
@@ -3916,7 +4157,7 @@ def main() -> int:
     ap.add_argument("--parallel", action="store_true",
                     help="only phases 1, 2 and phase 12 (over the phase-4 index and phase 5's weights)")
     ap.add_argument("--attention", action="store_true",
-                    help="only phases 1, 2 and phase 9's decode attention cases")
+                    help="only phases 1, 2 and phase 9's decode and prefill attention cases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3940,8 +4181,9 @@ def main() -> int:
 
     results: dict = {}
     if args.attention:
-        with Phase("9 decode attention kernels"):
+        with Phase("9 attention kernels"):
             phase_attention_kernels(results)
+            phase_prefill_kernels(results)
         print(json.dumps(results))
         return 0
     if args.matmul:

@@ -48,6 +48,7 @@ LAUNCHES: Dict[str, int] = {
     "postings_gather": 0,
     "postings_assemble": 0,
     "decode_attention": 0,
+    "prefill_attention": 0,
 }
 
 _P = ctypes.c_void_p
@@ -80,6 +81,9 @@ _SIGNATURES = {
     # kvh, g, t, s, hd, grp; cache, scale and mask strides; tiles_per_split,
     # nsplit, scale, stream
     "decode_attention": [_P] * 11 + [_I] * 9 + [_LL] * 6 + [_I, _I, _F, _P],
+    # q, k, v, k/v scales, qpos, kpos, valid, keff, tmin, vpart, vsum, out;
+    # kind, b, kvh, g, t, s, hd, grp; cache and scale strides; scale, stream
+    "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_F, _P],
 }
 
 
@@ -140,9 +144,10 @@ def build(verbose: bool = False) -> Path:
     for cmd, proc in procs:  # wait for every compile before reporting
         out, err = proc.communicate()
         logs.append((cmd, proc.returncode, out, err))
-    for cmd, rc, out, err in logs:
-        if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}\n{err}")
+    failed = [f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}\n{err}"
+              for cmd, rc, out, err in logs if rc != 0]
+    if failed:  # every failing compile, not only the first
+        raise RuntimeError("\n".join(failed))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
     link = subprocess.run(cmd, capture_output=True, text=True)

@@ -10,54 +10,61 @@
 // (T = 1) or a speculative verify round (T = k + 1) against all S slots of
 // one layer's cache: f32 scores q.k * (1 / sqrt(hd)), -1e30 where the mask
 // is False, a softmax over all S slots, the probabilities rounded to the
-// compute type, f32 sums of p * v. The cache is dequantized in registers as
-// the plain version dequantizes it (dt(q) * dt(scale), rounded to dt). A
-// row whose every slot is masked gives the mean of v over all S slots, as
-// the plain softmax over -1e30 does.
+// compute type, f32 sums of p * v. The cache is dequantized as the plain
+// version dequantizes it (dt(q) * dt(scale), rounded to dt). A row whose
+// every slot is masked gives the mean of v over all S slots, as the plain
+// softmax over -1e30 does.
 //
-// Bound on this card: device-memory bandwidth at T = 1 (each cache byte
-// meets G x T query rows: 8 at Gemma-2B, a few f32 operations a byte); at
-// T = 5 (40 rows) the f32 products on the CUDA cores come close to it.
+// Bound on this card: device-memory bandwidth (each cache byte meets G x T
+// query rows: 8 at a Gemma-2B step, 40 at its verify round, so 16 to 80
+// bf16 operations a cache byte, far under the tensor cores' ~295 a byte).
+// The CUDA-core passes of the first design (PR 13) were bound by their
+// f32 work per slot instead (an int8 cache, half the bytes, ran barely
+// faster than bf16), so with bf16 compute the passes' products run on the
+// tensor cores (attention_mma.cuh: mma.sync m16n8k16 on bf16 operands, f32
+// sums), and the cache streams through a two-stage cp.async ring in shared
+// memory, widened there to bf16 when it is f32, int8 or int4.
 // Design (split-S, flash-decoding): the slots are cut into tiles of 128,
 // and the tiles of each (batch row, kv head) into splits, so that about
-// two blocks an SM run over all SMs. The cache is read straight into
-// registers, 8 head-dim lanes (16 bytes of bf16) at a time, and widened
-// there; it never passes through shared memory. Three launches:
-//   1. scores: the block's q rows sit in shared memory; at a decode step
-//      four neighbouring lanes share four slots, each lane taking every
-//      fourth 8-lane chunk of their K rows, so each q value it reads
-//      serves four slots (a thread a slot when more rows leave no room),
-//      with f32 sums per (slot, query row) in registers. It writes the
-//      masked, scaled scores (B*KV x R x S f32, small beside the cache)
-//      and the split's max and sum of exponentials per row.
+// two blocks an SM run over all SMs. Three launches:
+//   1. scores: cache slots on M, query rows on N (the decode step's 8 rows
+//      are one n8 tile, the verify round's 40 five): A is a 16-slot x 16-lane
+//      tile of K by ldmatrix, B the query rows (bf16 in shared memory), each
+//      warp 16 slots of a 64-slot step. It writes the masked, scaled scores
+//      (B*KV x R x S f32, small beside the cache) and the split's max and
+//      sum of exponentials per row.
 //   2. values: each block first merges every split's (max, sum) of its rows
-//      into the softmax's max and denominator, so the probabilities it
-//      forms from the stored scores are the normalised ones the plain
-//      version rounds to the compute type (a tile of them in shared
-//      memory). A warp holds 8 query rows; its lanes split the head dim 8
-//      lanes each (a whole bf16 V row is one coalesced 512-byte load at hd
-//      256) and walk a share of the slots, summing p * v in registers; the
-//      warps' sums are added in a fixed order. One partial output a split.
+//      into the softmax's max and denominator, so the probabilities it forms
+//      from the stored scores are the normalised ones the plain version
+//      rounds to bf16 (a 64-slot step of them in shared memory). Then
+//      out^T [hd, R] += V^T [hd, 64] P^T [64, R]: A is V^T by ldmatrix.trans
+//      from the staged V tile, B the bf16 probabilities; each warp a quarter
+//      of the head dim. One partial output a split.
 //   3. combine: the partial outputs summed over the splits in order (no
 //      atomics: graph and eager runs give the same bits).
+// With f32 compute (a checking mode) and head dims under 64 the passes are
+// the CUDA-core ones: the cache read straight into registers and widened
+// there, f32 products, the same three launches.
 // No allocation and no host sync: the wrapper hands in the scratch, so the
 // decode step's CUDA graph captures the three launches.
+
+// nvcc-parts: 4
+// The build compiles this file once per part, with NVCC_PART = 0 .. 3 and
+// NVCC_PARTS = 4 (kernels/__init__.py reads the line above): part p holds
+// the tensor-core passes of cache kind p; part 0 also holds the CUDA-core
+// passes, the combine pass and the C entry.
+#ifndef NVCC_PART
+#define NVCC_PART 0
+#define NVCC_PARTS 1
+#endif
+#define IN_PART(p) (NVCC_PARTS == 1 || NVCC_PART == (p))
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "attention_mma.cuh"
 
-namespace {
-
-constexpr int kThreads = 256;       // the value and combine passes
-constexpr int kTile = 128;          // cache slots per tile; a thread a slot in the score pass
-constexpr int kMaxRows = 64;        // G x T
-constexpr int kMaxHeadDim = 256;
-constexpr int kGroupRows = 8;       // query rows a warp holds in the value pass
-constexpr float kMasked = -1e30f;
-
-enum Kind { kBf16 = 0, kF32 = 1, kInt8 = 2, kInt4 = 3 };
+namespace dattn {
 
 struct Args {
   const void* q;              // [B, T, KV, G, hd] in the compute type (bf16 or f32)
@@ -80,9 +87,33 @@ struct Args {
   int round_bf16;             // compute type bf16: values and probabilities rounded to it
 };
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// the tensor-core passes of one cache kind (bf16 compute, hd 64, 128 or 256)
+cudaError_t mma_passes_bf16(const Args& a, int bkv, cudaStream_t stream);
+cudaError_t mma_passes_f32(const Args& a, int bkv, cudaStream_t stream);
+cudaError_t mma_passes_int8(const Args& a, int bkv, cudaStream_t stream);
+cudaError_t mma_passes_int4(const Args& a, int bkv, cudaStream_t stream);
+
+}  // namespace dattn
+
+namespace {
+
+using namespace attn;
+using dattn::Args;
+
+constexpr int kThreads = 256;       // the value and combine passes
+constexpr int kTile = 128;          // cache slots per tile; a thread a slot in the score pass
+constexpr int kMaxRows = 64;        // G x T
+constexpr int kMaxHeadDim = 256;
+constexpr int kGroupRows = 8;       // query rows a warp holds in the value pass
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
+
+#if IN_PART(0)
 
 // Bytes of 8 head-dim lanes of a cache row.
 template <int KIND>
@@ -455,13 +486,6 @@ __global__ void __launch_bounds__(kThreads) attn_combine(Args a, long long total
   a.out[((b * a.t + t) * a.kvh * a.g + h * a.g + g) * a.hd + c] = sum;
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <int KIND, int RMAX, int PARTS>
 cudaError_t launch(const Args& a, int bkv, cudaStream_t stream) {
   const int R = a.g * a.t, hd = a.hd;
@@ -477,8 +501,11 @@ cudaError_t launch(const Args& a, int bkv, cudaStream_t stream) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = set_smem(attn_values<KIND>, value_smem)) != cudaSuccess) return err;
   attn_values<KIND><<<grid, kThreads, value_smem, stream>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long total = (long long)bkv * R * hd;
+  return cudaGetLastError();
+}
+
+cudaError_t combine(const Args& a, int bkv, cudaStream_t stream) {
+  const long long total = (long long)bkv * a.g * a.t * a.hd;
   attn_combine<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       a, total);
   return cudaGetLastError();
@@ -495,7 +522,315 @@ cudaError_t dispatch(const Args& a, int bkv, cudaStream_t stream) {
   return launch<KIND, kMaxRows, 1>(a, bkv, stream);
 }
 
+#endif  // IN_PART(0)
+
+// ================================================================ tensor cores
+
+constexpr int kSub = 64;            // cache slots a step (half a tile)
+constexpr int kMmaThreads = 128;    // four warps
+constexpr int kPStride = kSub + 8;  // bf16 probabilities a row in shared memory (no bank conflicts)
+
+// the block's split: slots [s_begin, s_end), at least one
+__device__ __forceinline__ void split_slots(const Args& a, int& s_begin, int& s_end) {
+  s_begin = blockIdx.x * a.tiles_per_split * kTile;
+  s_end = min(s_begin + a.tiles_per_split * kTile, a.s);
+}
+
+// Pass 1 on the tensor cores. Grid (nsplit, B*KV), kMmaThreads threads;
+// NR n8 tiles of query rows (R <= 8 NR). Warp w takes slots [16 w, 16 w +
+// 16) of each 64-slot step: A = its K rows (ldmatrix), B = q^T (the query
+// rows in shared memory), sums over HD / 16 steps of 16 lanes.
+template <int KIND, int HD, int NR>
+__global__ void __launch_bounds__(kMmaThreads) attn_scores_mma(Args a) {
+  using RG = Ring<KIND, HD, kSub, kMmaThreads>;
+  constexpr int kC = HD / 8, kRp = NR * 8;
+  extern __shared__ float4 smem4[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(smem4);  // [kRp][HD] bf16, swizzled
+  const RG kr{qs + kRp * HD * 2};
+  float* sc = reinterpret_cast<float*>(kr.base + RG::kBytes);  // [kRp][kSub] a step's scores
+  float* st_m = sc + kRp * kSub;                               // [kRp] the split's running max
+  float* st_l = st_m + kRp;                                    // and sum of exponentials
+  const int R = a.g * a.t;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g4 = lane >> 2, t4 = lane & 3;
+  const int bk = blockIdx.y, b = bk / a.kvh, h = bk - b * a.kvh;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  // q [B, T, KV, G, hd]: row r = t * G + g of this (b, h); zeros past R
+  for (int p = threadIdx.x; p < kRp * kC; p += kMmaThreads) {
+    const int r = p / kC, c = p - r * kC, t = r / a.g;
+    const __nv_bfloat16* src = q;
+    if (r < R)
+      src = q + ((((long long)b * a.t + t) * a.kvh + h) * a.g + (r - t * a.g)) * HD + c * 8;
+    cp_async16(smem_u32(qs) + swz<HD>(r, c), src, r < R ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int r = threadIdx.x; r < kRp; r += kMmaThreads) {
+    st_m[r] = -INFINITY;
+    st_l[r] = 0.0f;
+  }
+  const CacheRef ck = cache_ref<KIND>(a.k, a.k_scale, b, h, a.kv_b, a.kv_h, a.sc_b, a.sc_r, HD,
+                                      a.grp, a.s);
+  int s_begin, s_end;
+  split_slots(a, s_begin, s_end);
+  const int nsub = (s_end - s_begin + kSub - 1) / kSub;
+  const uint32_t q_smem = smem_u32(qs);
+  const unsigned char* mrow = a.mask + b * a.m_b;
+  kr.issue(0, ck, s_begin);
+  cp_async_commit();
+  for (int j = 0; j < nsub; ++j) {
+    // the stage written here was last read in step j - 1, before its sync
+    if (j + 1 < nsub) kr.issue((j + 1) & 1, ck, s_begin + (j + 1) * kSub);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // the stage has landed; the last step's stats are read
+    if constexpr (KIND != kBf16) {
+      kr.widen(j & 1, a.grp);
+      __syncthreads();
+    }
+    float acc[NR + 1][4];
+#pragma unroll
+    for (int nt = 0; nt <= NR; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+    const uint32_t kt = kr.tile(j & 1);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ka[4];
+      ldsm_x4(ka, kt + swz<HD>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+#pragma unroll
+      for (int nt = 0; nt < NR; nt += 2) {
+        if (nt + 1 < NR) {
+          uint32_t qb[4];
+          ldsm_x4(qb, q_smem + swz<HD>(nt * 8 + ((lane >> 4) << 3) + (lane & 7),
+                                       kk * 2 + ((lane >> 3) & 1)));
+          mma16816(acc[nt], ka, qb[0], qb[1]);
+          mma16816(acc[nt + 1], ka, qb[2], qb[3]);
+        } else {
+          uint32_t qb[2];
+          ldsm_x2(qb, q_smem + swz<HD>(nt * 8 + (lane & 7), kk * 2 + ((lane >> 3) & 1)));
+          mma16816(acc[nt], ka, qb[0], qb[1]);
+        }
+      }
+    }
+    // acc[nt]: (slot 16 w + g, rows 8 nt + 2t, + 1), (slot + 8, the same rows)
+    const int s0 = s_begin + j * kSub;
+#pragma unroll
+    for (int nt = 0; nt < NR; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int sl = warp * 16 + g4 + (e >> 1) * 8, r = nt * 8 + 2 * t4 + (e & 1);
+        const int slot = s0 + sl;
+        if (r < R) {
+          float x = -INFINITY;  // no slot: no weight in the stats
+          if (slot < s_end) {
+            const bool keep = __ldg(mrow + (r / a.g) * a.m_t + slot) != 0;
+            x = keep ? acc[nt][e] * a.scale : kMasked;
+            a.scores[((long long)bk * R + r) * a.s + slot] = x;
+          }
+          sc[r * kSub + sl] = x;
+        }
+      }
+    __syncthreads();  // the step's scores are written; every warp has read the stage
+    // each row's step max and sum of exponentials, folded into the split's
+    for (int r = warp; r < R; r += kMmaThreads / 32) {
+      const float x0 = sc[r * kSub + lane], x1 = sc[r * kSub + lane + 32];
+      float m = fmaxf(x0, x1);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      float l = expf(x0 - m) + expf(x1 - m);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+      if (lane == 0) {
+        const float mm = fmaxf(st_m[r], m);
+        st_l[r] = st_l[r] * expf(st_m[r] - mm) + l * expf(m - mm);
+        st_m[r] = mm;
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += kMmaThreads) {
+    a.part_m[((long long)bk * R + r) * a.nsplit + blockIdx.x] = st_m[r];
+    a.part_l[((long long)bk * R + r) * a.nsplit + blockIdx.x] = st_l[r];
+  }
+}
+
+// Pass 2 on the tensor cores. Grid (nsplit, B*KV), kMmaThreads threads.
+// out^T [HD, R] = V^T [HD, S] P^T [S, R] over the split's slots: warp w
+// holds lanes [HD/4 w, HD/4 (w + 1)) (HD / 64 m16 tiles) of all rows;
+// A = V^T by ldmatrix.trans from the staged V tile, B = the step's bf16
+// probabilities.
+template <int KIND, int HD, int NR>
+__global__ void __launch_bounds__(kMmaThreads) attn_values_mma(Args a) {
+  using RG = Ring<KIND, HD, kSub, kMmaThreads>;
+  constexpr int kRp = NR * 8, kMT = HD / 64;
+  extern __shared__ float4 smem4[];
+  float* ms = reinterpret_cast<float*>(smem4);  // [kMaxRows] the softmax's max
+  float* ls = ms + kMaxRows;                    // [kMaxRows] and denominator
+  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(ls + kMaxRows);  // [kRp][kPStride]
+  const RG vr{reinterpret_cast<unsigned char*>(ps + kRp * kPStride)};
+  const int R = a.g * a.t;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g4 = lane >> 2, t4 = lane & 3;
+  const int bk = blockIdx.y, b = bk / a.kvh, h = bk - b * a.kvh;
+  const CacheRef cv = cache_ref<KIND>(a.v, a.v_scale, b, h, a.kv_b, a.kv_h, a.sc_b, a.sc_r, HD,
+                                      a.grp, a.s);
+  int s_begin, s_end;
+  split_slots(a, s_begin, s_end);
+  const int nsub = (s_end - s_begin + kSub - 1) / kSub;
+  vr.issue(0, cv, s_begin);
+  cp_async_commit();
+  // a warp a row: the splits' partials merged in a fixed order (every
+  // block of the row gets the same bits)
+  for (int r = warp; r < R; r += kMmaThreads / 32) {
+    const long long row = (long long)bk * R + r;
+    const float* pm = a.part_m + row * a.nsplit;
+    const float* pl = a.part_l + row * a.nsplit;
+    float m = -INFINITY;
+    for (int j = lane; j < a.nsplit; j += 32) m = fmaxf(m, pm[j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float l = 0.0f;
+    for (int j = lane; j < a.nsplit; j += 32) l += pl[j] * expf(pm[j] - m);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      ms[r] = m;
+      ls[r] = l;
+    }
+  }
+  for (int i = threadIdx.x; i < kRp * kPStride; i += kMmaThreads) ps[i] = __float2bfloat16_rn(0.0f);
+  float acc[kMT][NR][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NR; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  const float* srow = a.scores + (long long)bk * R * a.s;
+  __syncthreads();  // ms / ls are written, the probabilities zeroed
+  for (int j = 0; j < nsub; ++j) {
+    // its stage was last read in step j - 1, before the trailing sync
+    if (j + 1 < nsub) vr.issue((j + 1) & 1, cv, s_begin + (j + 1) * kSub);
+    cp_async_commit();
+    const int s0 = s_begin + j * kSub, ns = min(kSub, s_end - s0);
+    for (int base = threadIdx.x; base < R * kSub; base += 8 * kMmaThreads) {
+      float x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {  // eight scores in flight
+        const int p = base + u * kMmaThreads, r = p / kSub, sl = p - r * kSub;
+        x[u] = p < R * kSub && sl < ns ? srow[(long long)r * a.s + s0 + sl] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int p = base + u * kMmaThreads, r = p / kSub, sl = p - r * kSub;
+        if (p < R * kSub)
+          ps[r * kPStride + sl] = __float2bfloat16_rn(sl < ns ? expf(x[u] - ms[r]) / ls[r] : 0.0f);
+      }
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (KIND != kBf16) {
+      vr.widen(j & 1, a.grp);
+      __syncthreads();
+    }
+    const uint32_t vt = vr.tile(j & 1);
+#pragma unroll
+    for (int ks = 0; ks < kSub / 16; ++ks) {
+      uint32_t pb[NR][2];  // (slot 16 ks + 2t, + 1; row 8 nt + g) and slot + 8
+#pragma unroll
+      for (int nt = 0; nt < NR; ++nt) {
+        const __nv_bfloat16* pr = ps + (nt * 8 + g4) * kPStride + ks * 16 + 2 * t4;
+        pb[nt][0] = *reinterpret_cast<const uint32_t*>(pr);
+        pb[nt][1] = *reinterpret_cast<const uint32_t*>(pr + 8);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t va[4];
+        ldsm_x4_t(va, vt + swz<HD>(ks * 16 + ((lane >> 4) << 3) + (lane & 7),
+                                   (warp * (HD / 4) + mt * 16) / 8 + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int nt = 0; nt < NR; ++nt) mma16816(acc[mt][nt], va, pb[nt][0], pb[nt][1]);
+      }
+    }
+    __syncthreads();  // the stage and the probabilities are read
+  }
+  // acc[mt][nt]: (lane HD/4 w + 16 mt + g, rows 8 nt + 2t, + 1), (lane + 8, the same rows)
+  float* out = a.part_o + ((long long)blockIdx.x * gridDim.y + bk) * R * HD;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NR; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = warp * (HD / 4) + mt * 16 + g4 + (e >> 1) * 8, r = nt * 8 + 2 * t4 + (e & 1);
+        if (r < R) out[r * HD + d] = acc[mt][nt][e];
+      }
+}
+
+template <int KIND, int HD, int NR>
+cudaError_t launch_mma(const Args& a, int bkv, cudaStream_t stream) {
+  using RG = Ring<KIND, HD, kSub, kMmaThreads>;
+  constexpr int kRp = NR * 8;
+  const dim3 grid(a.nsplit, bkv);
+  const size_t score_smem =
+      (size_t)kRp * HD * 2 + RG::kBytes + sizeof(float) * ((size_t)kRp * kSub + 2 * kRp);
+  const size_t value_smem =
+      sizeof(float) * 2 * kMaxRows + (size_t)kRp * kPStride * 2 + RG::kBytes;
+  cudaError_t err = set_smem(attn_scores_mma<KIND, HD, NR>, score_smem);
+  if (err != cudaSuccess) return err;
+  attn_scores_mma<KIND, HD, NR><<<grid, kMmaThreads, score_smem, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = set_smem(attn_values_mma<KIND, HD, NR>, value_smem)) != cudaSuccess) return err;
+  attn_values_mma<KIND, HD, NR><<<grid, kMmaThreads, value_smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int KIND, int HD>
+cudaError_t launch_rows(const Args& a, int bkv, cudaStream_t stream) {
+  // a decode step (up to 8 rows: one n8 tile), a verify round of Gemma-2B
+  // (40: five), else 64
+  const int R = a.g * a.t;
+  if (R <= 8) return launch_mma<KIND, HD, 1>(a, bkv, stream);
+  if (R <= 40) return launch_mma<KIND, HD, 5>(a, bkv, stream);
+  return launch_mma<KIND, HD, 8>(a, bkv, stream);
+}
+
+template <int KIND>
+cudaError_t dispatch_mma(const Args& a, int bkv, cudaStream_t stream) {
+  switch (a.hd) {
+    case 64: return launch_rows<KIND, 64>(a, bkv, stream);
+    case 128: return launch_rows<KIND, 128>(a, bkv, stream);
+    case 256: return launch_rows<KIND, 256>(a, bkv, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+namespace dattn {
+
+#if IN_PART(0)
+cudaError_t mma_passes_bf16(const Args& a, int bkv, cudaStream_t stream) {
+  return dispatch_mma<kBf16>(a, bkv, stream);
+}
+#endif
+#if IN_PART(1)
+cudaError_t mma_passes_f32(const Args& a, int bkv, cudaStream_t stream) {
+  return dispatch_mma<kF32>(a, bkv, stream);
+}
+#endif
+#if IN_PART(2)
+cudaError_t mma_passes_int8(const Args& a, int bkv, cudaStream_t stream) {
+  return dispatch_mma<kInt8>(a, bkv, stream);
+}
+#endif
+#if IN_PART(3)
+cudaError_t mma_passes_int4(const Args& a, int bkv, cudaStream_t stream) {
+  return dispatch_mma<kInt4>(a, bkv, stream);
+}
+#endif
+
+}  // namespace dattn
+
+#if IN_PART(0)
 
 // q: [B, T, KV*G, hd] in the compute type (bf16 when round_bf16, else
 // f32). k, v: one layer's cache (kind 0 bf16, 1 f32, 2 int8 with k_scale /
@@ -548,13 +883,27 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   a.scale = scale;
   a.round_bf16 = round_bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bkv = b * kvh;
   cudaError_t err;
-  switch (kind) {
-    case kBf16: err = dispatch<kBf16>(a, b * kvh, st); break;
-    case kF32: err = dispatch<kF32>(a, b * kvh, st); break;
-    case kInt8: err = dispatch<kInt8>(a, b * kvh, st); break;
-    case kInt4: err = dispatch<kInt4>(a, b * kvh, st); break;
-    default: err = cudaErrorInvalidValue;
+  if (round_bf16 && (hd == 64 || hd == 128 || hd == 256)) {  // the tensor-core passes
+    switch (kind) {
+      case kBf16: err = dattn::mma_passes_bf16(a, bkv, st); break;
+      case kF32: err = dattn::mma_passes_f32(a, bkv, st); break;
+      case kInt8: err = dattn::mma_passes_int8(a, bkv, st); break;
+      case kInt4: err = dattn::mma_passes_int4(a, bkv, st); break;
+      default: err = cudaErrorInvalidValue;
+    }
+  } else {
+    switch (kind) {
+      case kBf16: err = dispatch<kBf16>(a, bkv, st); break;
+      case kF32: err = dispatch<kF32>(a, bkv, st); break;
+      case kInt8: err = dispatch<kInt8>(a, bkv, st); break;
+      case kInt4: err = dispatch<kInt4>(a, bkv, st); break;
+      default: err = cudaErrorInvalidValue;
+    }
   }
+  if (err == cudaSuccess) err = combine(a, bkv, st);
   return static_cast<int>(err);
 }
+
+#endif  // IN_PART(0)

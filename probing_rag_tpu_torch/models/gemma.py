@@ -17,11 +17,20 @@ Layouts are the JAX package's, so converting its parameters is a copy:
 weights ``[in, out]`` stacked over layers (``[L, ...]``), the KV cache
 ``[L, B, KV, S, hd]``. Matmuls run in ``compute_dtype``; the residual stream
 and norms stay f32. Attention computes the JAX package's function: f32
-scores, ``-1e30`` masking, softmax. Over a KV cache at a few query
-positions (the decode step, the speculative verify round) it runs
-``ops/attention.py::decode_attention``, which reads the cache in its stored
-type (a CUDA kernel on the card); prefill, the no-cache forward and
-``attn_probs_layer`` run the plain ops over the dequantized cache.
+scores, ``-1e30`` masking, softmax, the probabilities rounded to the
+compute type. ``_block`` routes each call (``ops/attention.py`` holds the
+kernels' wrappers, which read the cache in its stored type):
+
+- ``attn_probs_layer`` (the probabilities are returned): plain ops over
+  the dequantized cache;
+- bf16 compute over the cache at G x T <= 64 query rows a kv head (the
+  decode step, the speculative verify round): ``decode_attention``;
+- every other bf16 call (prefill over the cache, the no-cache forward of
+  the capture and the traces): ``prefill_attention``, with the mask in
+  structured form ``(kpos <= qpos) & valid`` (``forward`` passes the three
+  tensors beside the dense mask);
+- f32 compute (a checking mode): ``decode_attention`` over the cache where
+  ``kernel_takes`` holds, else the plain ops.
 
 Quantized serving (``quantize_lm_params``) keeps the JAX boundary formats:
 per-channel int8 ``{"q": int8, "s": f32}``, grouped int4 ``{"qp": uint8,
@@ -61,8 +70,11 @@ from probing_rag_tpu_torch.ops.attention import (
     kernel_takes,
     kv4_group,
     pack_int4,
+    prefill_attention,
+    prefill_kernel_takes,
     quant_kv,
     quant_kv4,
+    structured_mask,
     unpack_int4,
 )
 from probing_rag_tpu_torch.ops.matmul import matmul_int8
@@ -578,6 +590,8 @@ def _block(
     cache: Optional[Tuple],  # (kv_cache, layer, slots) | None
     return_probs: bool = False,
     tp: Optional[dist.ProcessGroup] = None,
+    *,
+    smask: Tuple,  # ``mask`` as (qpos [B, T], kpos [B, S], valid [B, S] | None)
 ):
     """One transformer block. Returns (resid_mid, resid_post, the layer's
     attention probs [B, H, T, S] f32 if ``return_probs`` else None).
@@ -610,9 +624,15 @@ def _block(
 
     if tp is not None and kvh > 1:  # the kv heads of this rank's query heads
         k, v, k_scale, v_scale = (_rank_kv_heads(a, kvh, tp) for a in (k, v, k_scale, v_scale))
-    if cache is not None and not return_probs and kernel_takes(t, q.shape[2] // k.shape[1], hd):
+    groups = q.shape[2] // k.shape[1]
+    probs = None
+    if not return_probs and cache is not None and kernel_takes(t, groups, hd):
         # a decode step or a verify round: the cache read in its stored type
-        attn, probs = decode_attention(q, k, v, mask, k_scale=k_scale, v_scale=v_scale, dt=dt), None
+        attn = decode_attention(q, k, v, mask, k_scale=k_scale, v_scale=v_scale, dt=dt)
+    elif not return_probs and dt == torch.bfloat16 and prefill_kernel_takes(groups, hd):
+        # prefill or the no-cache forward; the kernel takes contiguous slot rows
+        k, v = (x if x.stride(-2) == x.shape[-1] else x.contiguous() for x in (k, v))
+        attn = prefill_attention(q, k, v, *smask, k_scale=k_scale, v_scale=v_scale, dt=dt)
     else:
         attn, probs = _attention(q, dequant_kv(k, k_scale, dt), dequant_kv(v, v_scale, dt), mask,
                                  return_probs)
@@ -691,16 +711,12 @@ def forward(
         if positions is None:
             positions = buf_idx.expand(b, t)
         key_pos = torch.arange(n_slots, dtype=torch.int64, device=dev)
-        mask = (key_pos[None, None, :] <= buf_idx[:, :, None]).expand(b, t, n_slots)
-        if attn_valid is not None:
-            mask = mask & attn_valid[:, None, :]
+        smask = (buf_idx.expand(b, t), key_pos[None, :].expand(b, n_slots), attn_valid)
     else:
         if positions is None:
             positions = torch.arange(t, dtype=torch.int64, device=dev)[None, :].expand(b, t)
-        mask = positions[:, :, None] >= positions[:, None, :]  # causal
-        if attn_valid is not None:
-            mask = mask & attn_valid[:, None, :]
-    mask = mask[:, None]  # [B, 1, T, S]
+        smask = (positions, positions, attn_valid)  # causal in the positions
+    mask = structured_mask(*smask)  # [B, 1, T, S], for decode_attention and the plain ops
 
     want: Dict[int, list] = {}
     for i, (layer, site) in enumerate(capture.sites):
@@ -716,7 +732,8 @@ def forward(
         if kv_cache is not None:
             cache = (kv_cache, layer, slots)
         resid_mid, resid_post, probs = _block(lp, x, positions, mask, cfg, cache,
-                                              return_probs=layer == probs_layer, tp=tp)
+                                              return_probs=layer == probs_layer, tp=tp,
+                                              smask=smask)
         if probs is not None:
             attn_probs = _all_gather(probs, tp, dim=1)
         for i, site in want.get(layer, ()):

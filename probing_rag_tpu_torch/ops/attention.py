@@ -1,17 +1,31 @@
-"""Decode attention over the whole static KV cache: a CUDA kernel and its
-plain PyTorch version, with the cache's int8 and int4 formats (quantizers,
-nibble packing, dequantizers).
+"""Attention as the JAX package computes it, two CUDA kernels and their
+plain PyTorch versions, with the KV cache's int8 and int4 formats
+(quantizers, nibble packing, dequantizers).
 
 Not a port of a Pallas kernel. The JAX package leaves attention to XLA
 (``probing_rag_tpu/models/gemma.py::_attn_core``, ``:755``, called by
 ``_attention``, ``:787``), which fuses the convert of a bf16, int8 or int4
 cache into the score and value dots. Plain PyTorch ops cannot fuse it: they
-write an f32 copy of the whole cache and run f32 products over it every
-step. :func:`decode_attention` computes ``_attn_core``'s function for the
-few query positions of a decode step or a speculative verify round and
-reads the cache in its stored type: ``kernels/csrc/decode_attention.cu``
-for CUDA tensors (one call launches its three passes and counts one launch),
-:func:`decode_attention_plain` for CPU tensors; there is no other switch.
+write an f32 copy of the cache, f32 scores ``[B, H, T, S]`` and their
+softmax, and run f32 products over them. Two kernels compute
+``_attn_core``'s function and read K and V in their stored type:
+
+- :func:`decode_attention`: the few query positions of a decode step or a
+  speculative verify round (G x T <= 64 query rows a kv head) against the
+  whole cache, with a dense mask; ``kernels/csrc/decode_attention.cu``
+  (three passes, counted as one launch; tensor cores for bf16 compute).
+- :func:`prefill_attention`: any number of query positions (prefill over
+  the cache, the no-cache forward of the capture and the traces) with bf16
+  compute, the mask in structured form ``(kpos <= qpos) & valid``;
+  ``kernels/csrc/prefill_attention.cu`` (three launches counted as one).
+
+CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+version (:func:`decode_attention_plain`, :func:`prefill_attention_plain`);
+there is no other switch. ``models/gemma.py::_block`` routes: the
+probabilities asked for -> plain ops; bf16 compute over the cache at G x T
+<= 64 -> :func:`decode_attention`; other bf16 calls ->
+:func:`prefill_attention`; f32 compute (a checking mode) ->
+:func:`decode_attention` where :func:`kernel_takes` holds, else plain ops.
 
 The cache layer is ``init_kv_cache``'s: K and V ``[B, KV, S, hd]`` in bf16
 or f32; int8 with f32 scales ``[B, KV, S]`` (one a slot and kv head); or
@@ -35,6 +49,12 @@ from probing_rag_tpu_torch import kernels
 TILE = 128
 MAX_ROWS = 64
 MAX_HEAD_DIM = 256
+# prefill_attention.cu: query rows a block (positions x G), the head dims it
+# takes, slots a K tile and a prep chunk
+PREFILL_ROWS = 64
+PREFILL_HEAD_DIMS = (32, 64, 128, 256)
+PREFILL_TILE = 32
+PREFILL_CHUNK = 256
 # splits: about this many blocks an SM over all (batch row, kv head) pairs
 _BLOCKS_PER_SM = 2
 _KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2, torch.uint8: 3}
@@ -165,6 +185,15 @@ def plan_decode_attention(pairs: int, s: int, sm_count: int = 132) -> AttentionP
 
 def _check(q, k, v, mask, k_scale, v_scale, dt):
     """Shapes and types both versions take. Returns (b, t, h, hd, kv, s)."""
+    b, t, h, hd, kv, s = _check_cache(q, k, v, k_scale, v_scale, dt)
+    if tuple(mask.shape) != (b, 1, t, s) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be bool [{b}, 1, {t}, {s}], got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    return b, t, h, hd, kv, s
+
+
+def _check_cache(q, k, v, k_scale, v_scale, dt):
+    """q against one cache layer and its scales. Returns (b, t, h, hd, kv, s)."""
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"dt must be bf16 or f32, got {dt}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -177,9 +206,6 @@ def _check(q, k, v, mask, k_scale, v_scale, dt):
                         f"{k.dtype}, {v.dtype}")
     if k.shape[0] != b or h % kv or k.shape[3] != (hd // 2 if k.dtype == torch.uint8 else hd):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if tuple(mask.shape) != (b, 1, t, s) or mask.dtype != torch.bool:
-        raise ValueError(f"mask must be bool [{b}, 1, {t}, {s}], got {mask.dtype} "
-                         f"{tuple(mask.shape)}")
     quantized = k.dtype in (torch.int8, torch.uint8)
     if quantized != (k_scale is not None) or quantized != (v_scale is not None):
         raise ValueError("an int8 or int4 cache needs k_scale and v_scale, and only it")
@@ -237,6 +263,30 @@ def _strides(x: torch.Tensor, what: str):
     return x.stride(0) * x.element_size(), x.stride(1) * x.element_size()
 
 
+def _cache_strides(k, v, k_scale, v_scale):
+    """The kernels' cache strides: (byte strides of the cache's batch and
+    kv-head dims, element strides of the scales' batch and row dims)."""
+    kv_b, kv_h = _strides(k, "k")
+    if (_strides(v, "v") != (kv_b, kv_h) or k.data_ptr() % 16 or v.data_ptr() % 16
+            or kv_b % 16 or kv_h % 16):
+        raise ValueError("k and v must share strides, with 16-byte aligned bases and strides")
+    sc_b = sc_r = 0
+    if k_scale is not None:
+        if (k_scale.stride() != v_scale.stride() or k_scale.stride(-1) != 1
+                or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+            raise ValueError("k_scale and v_scale must be f32 with contiguous slots and "
+                             "shared strides")
+        sc_b, sc_r = k_scale.stride(0), k_scale.stride(1)
+    return kv_b, kv_h, sc_b, sc_r
+
+
+def _on_device(dev, what: str, **tensors) -> None:
+    """Every tensor given lies on ``dev`` (None is skipped)."""
+    for name, x in tensors.items():
+        if x is not None and x.device != dev:
+            raise ValueError(f"{what}: {name} on {x.device}, k on {dev}")
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
@@ -256,10 +306,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
         return decode_attention_plain(q, k, v, mask, k_scale=k_scale, v_scale=v_scale, dt=dt)
     if dev.type != "cuda":
         raise ValueError(f"no decode_attention for device {dev}")
-    for name, x in (("q", q), ("v", v), ("mask", mask), ("k_scale", k_scale),
-                    ("v_scale", v_scale)):
-        if x is not None and x.device != dev:
-            raise ValueError(f"{name} on {x.device}, k on {dev}")
+    _on_device(dev, "decode_attention", q=q, v=v, mask=mask, k_scale=k_scale, v_scale=v_scale)
     if q.dtype != dt:
         raise TypeError(f"decode_attention kernel needs q in {dt}, got {q.dtype}")
     groups = h // kv
@@ -267,17 +314,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
         raise ValueError(f"decode_attention kernel takes G x T <= {MAX_ROWS} query rows and a "
                          f"head_dim that is a power of two from 8 to {MAX_HEAD_DIM}; got G "
                          f"{groups}, T {t}, head_dim {hd}")
-    kv_b, kv_h = _strides(k, "k")
-    if (_strides(v, "v") != (kv_b, kv_h) or k.data_ptr() % 16 or v.data_ptr() % 16
-            or kv_b % 16 or kv_h % 16):
-        raise ValueError("k and v must share strides, with 16-byte aligned bases and strides")
-    sc_b = sc_r = 0
-    if k_scale is not None:
-        if (k_scale.stride() != v_scale.stride() or k_scale.stride(-1) != 1
-                or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
-            raise ValueError("k_scale and v_scale must be f32 with contiguous slots and "
-                             "shared strides")
-        sc_b, sc_r = k_scale.stride(0), k_scale.stride(1)
+    kv_b, kv_h, sc_b, sc_r = _cache_strides(k, v, k_scale, v_scale)
     if mask.stride(-1) != 1:
         mask = mask.contiguous()
     global last_plan
@@ -306,4 +343,115 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
         )
     kernels.LAUNCHES["decode_attention"] += 1
     last_plan = plan
+    return out
+
+
+# --------------------------------------------------------------- prefill
+
+
+def prefill_kernel_takes(groups: int, head_dim: int) -> bool:
+    """Whether ``prefill_attention.cu`` takes ``groups`` query heads a kv
+    head at ``head_dim``: a block holds 64 query rows (64 / G positions x
+    the G heads), and the head dim is one of its instantiations (Gemma-2B
+    G 8 x 256, Mistral-7B G 4 x 128, the tiny test model G 2 x 32).
+    ``tiny_mistral`` (head dim 16) does not: it runs the plain ops."""
+    return 1 <= groups <= PREFILL_ROWS and head_dim in PREFILL_HEAD_DIMS
+
+
+def structured_mask(qpos: torch.Tensor, kpos: torch.Tensor,
+                    valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The dense mask ``[B, 1, T, S]`` of the structured one: slot s is
+    attended from query t where ``kpos[b, s] <= qpos[b, t]`` and ``valid[b,
+    s]`` (None: every slot valid). Cache path: kpos the slot index, qpos the
+    cursor plus t; no-cache path: both the RoPE positions."""
+    mask = kpos[:, None, :] <= qpos[:, :, None]
+    if valid is not None:
+        mask = mask & valid[:, None, :]
+    return mask[:, None]
+
+
+def _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt):
+    b, t, h, hd, kv, s = _check_cache(q, k, v, k_scale, v_scale, dt)
+    if tuple(qpos.shape) != (b, t) or tuple(kpos.shape) != (b, s):
+        raise ValueError(f"need qpos [{b}, {t}] and kpos [{b}, {s}], got {tuple(qpos.shape)}, "
+                         f"{tuple(kpos.shape)}")
+    if qpos.is_floating_point() or kpos.is_floating_point() or qpos.dtype == torch.bool:
+        raise TypeError(f"qpos and kpos must be integers, got {qpos.dtype}, {kpos.dtype}")
+    if valid is not None and (tuple(valid.shape) != (b, s) or valid.dtype != torch.bool):
+        raise ValueError(f"valid must be bool [{b}, {s}], got {valid.dtype} {tuple(valid.shape)}")
+    return b, t, h, hd, kv, s
+
+
+def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            qpos: torch.Tensor, kpos: torch.Tensor,
+                            valid: Optional[torch.Tensor], *,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None,
+                            dt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of :func:`prefill_attention`: the dense mask
+    (:func:`structured_mask`), then :func:`decode_attention_plain`."""
+    _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt)
+    return decode_attention_plain(q, k, v, structured_mask(qpos, kpos, valid), k_scale=k_scale,
+                                  v_scale=v_scale, dt=dt)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: torch.Tensor,
+                      kpos: torch.Tensor, valid: Optional[torch.Tensor], *,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      dt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``_attn_core``'s output ``[B, T, H*hd]`` f32 for q ``[B, T, H, hd]``
+    over K and V ``[B, KV, S, hd]`` in any of the cache's formats (as
+    :func:`decode_attention` takes them; the no-cache forward's own K and
+    V are a bf16 "cache" of S = T slots) under the mask ``(kpos[b, s] <=
+    qpos[b, t]) & valid[b, s]`` (qpos ``[B, T]``, kpos ``[B, S]`` integers,
+    valid ``[B, S]`` bool or None). A row with no attendable slot is the
+    plain softmax's: the mean of ``bf16(1/S) v`` over all S slots. CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    takes bf16 compute and :func:`prefill_kernel_takes`, and each (batch
+    row, kv head) needs only contiguous slot rows (a kv-head slice is taken
+    as it is)."""
+    b, t, h, hd, kv, s = _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt)
+    dev = k.device
+    if dev.type == "cpu":
+        return prefill_attention_plain(q, k, v, qpos, kpos, valid, k_scale=k_scale,
+                                       v_scale=v_scale, dt=dt)
+    if dev.type != "cuda":
+        raise ValueError(f"no prefill_attention for device {dev}")
+    _on_device(dev, "prefill_attention", q=q, v=v, qpos=qpos, kpos=kpos, valid=valid,
+               k_scale=k_scale, v_scale=v_scale)
+    if dt != torch.bfloat16 or q.dtype != torch.bfloat16:
+        raise TypeError(f"prefill_attention kernel takes bf16 compute and q, got {dt}, {q.dtype}")
+    groups = h // kv
+    if not prefill_kernel_takes(groups, hd):
+        raise ValueError(f"prefill_attention kernel takes G <= {PREFILL_ROWS} and a head_dim in "
+                         f"{PREFILL_HEAD_DIMS}; got G {groups}, head_dim {hd}")
+    kv_b, kv_h, sc_b, sc_r = _cache_strides(k, v, k_scale, v_scale)
+    q = q.contiguous()
+    qpos = qpos.to(torch.int32).contiguous()
+    kpos = kpos.to(torch.int32).contiguous()
+    valid = (torch.ones((b, s), dtype=torch.bool, device=dev) if valid is None
+             else valid.contiguous())
+    ntiles = -(-s // PREFILL_TILE)
+    nchunks = -(-s // PREFILL_CHUNK)
+    keff = torch.empty((b, ntiles * PREFILL_TILE), dtype=torch.int32, device=dev)
+    tmin = torch.empty((b, ntiles), dtype=torch.int32, device=dev)
+    vpart = torch.empty((nchunks, b * kv, hd), dtype=torch.float32, device=dev)
+    vsum = torch.empty((b * kv, hd), dtype=torch.float32, device=dev)
+    out = torch.empty((b, t, h * hd), dtype=torch.float32, device=dev)
+    scale = float(np.float32(1.0) / np.float32(math.sqrt(hd)))
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        kernels.check(
+            lib.prefill_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                0 if k_scale is None else k_scale.data_ptr(),
+                0 if v_scale is None else v_scale.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+                valid.data_ptr(), keff.data_ptr(), tmin.data_ptr(), vpart.data_ptr(),
+                vsum.data_ptr(), out.data_ptr(), _KINDS[k.dtype], b, kv, groups, t, s, hd,
+                kv4_group(hd), kv_b, kv_h, sc_b, sc_r, scale, kernels.stream_ptr(dev),
+            ),
+            "prefill_attention",
+        )
+    kernels.LAUNCHES["prefill_attention"] += 1
     return out

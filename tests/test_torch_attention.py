@@ -9,9 +9,11 @@ phase 9 holds it to this plain version).
   dequantizes it: f32, bf16, int8 and int4 caches, f32 and bf16 compute,
   T 1 (a decode step) and 5 (a verify round), MQA and H = KV, on rows with
   left pads and a row whose every slot is masked (the mean over all slots).
-- The forward's routing: decode steps and verify rounds go through it,
-  prefill and ``attn_probs_layer`` do not; a tiny f32 model's generations
-  through it equal JAX's for each cache type.
+- The forward's routing: decode steps and verify rounds go through it
+  (bf16 and f32), ``attn_probs_layer`` does not, bf16 prefill and the
+  no-cache forward go through ``prefill_attention``, f32 prefill through
+  the plain ops; a tiny f32 model's generations through it equal JAX's for
+  each cache type.
 - The split plan of the kernel.
 
 Tolerances: f32 compute at 1e-5 (the same f32 math, sums in another
@@ -255,32 +257,49 @@ PROMPTS = ["the cat sat on the mat. the cat", "ab ab ab ab ab", "hello"]
 
 
 class Spy:
-    """Counts the forward's calls of ``decode_attention`` and their T."""
+    """Counts the forward's calls of ``decode_attention`` (or of another
+    wrapper of ``gemma``'s) and their T."""
 
-    def __init__(self, monkeypatch):
+    def __init__(self, monkeypatch, name: str = "decode_attention"):
         self.calls = []
-        real = tg.decode_attention
+        real = getattr(tg, name)
 
         def spy(q, *args, **kw):
             self.calls.append(q.shape[1])
             return real(q, *args, **kw)
 
-        monkeypatch.setattr(tg, "decode_attention", spy)
+        monkeypatch.setattr(tg, name, spy)
 
 
 def test_forward_routes_decode_and_not_prefill_or_probs(monkeypatch):
+    """``_block``'s four branches: the probabilities asked for -> plain ops;
+    a decode step or verify round over the cache -> ``decode_attention``
+    (bf16 and f32); every other bf16 call (prefill over the cache, the
+    no-cache forward) -> ``prefill_attention``; f32 prefill -> plain ops."""
     spy = Spy(monkeypatch)
+    pre = Spy(monkeypatch, "prefill_attention")
     tree = numpy_params(JCFG, seed=3)
-    params = lm_params_from_jax(tree, TCFG, device="cpu")
-    kv = tg.init_kv_cache(TCFG, 2, 160, torch.int8, device="cpu")
+    n = TCFG.n_layers
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, V, (2, 130))).long()
-    _, kv, _ = tg.forward(params, tokens, TCFG, kv_cache=kv)  # a prefill: 260 query rows
-    assert spy.calls == []
-    _, kv, _ = tg.forward(params, tokens[:, :1], TCFG, kv_cache=kv)  # a decode step
-    assert spy.calls == [1] * TCFG.n_layers
-    out = tg.forward(params, tokens[:, :5], TCFG, kv_cache=kv, attn_probs_layer=-1)
-    assert spy.calls[TCFG.n_layers:] == [5] * (TCFG.n_layers - 1)  # the probs layer: plain ops
-    assert out[3].shape == (2, TCFG.n_heads, 5, 160)
+    for cfg in (TCFG, dataclasses.replace(TCFG, compute_dtype=torch.bfloat16)):
+        bf16 = cfg.compute_dtype == torch.bfloat16
+        spy.calls.clear()
+        pre.calls.clear()
+        params = lm_params_from_jax(tree, cfg, device="cpu")
+        kv = tg.init_kv_cache(cfg, 2, 160, torch.int8, device="cpu")
+        _, kv, _ = tg.forward(params, tokens, cfg, kv_cache=kv)  # a prefill: 260 query rows
+        assert spy.calls == [] and pre.calls == ([130] * n if bf16 else [])
+        _, kv, _ = tg.forward(params, tokens[:, :1], cfg, kv_cache=kv)  # a decode step
+        assert spy.calls == [1] * n
+        out = tg.forward(params, tokens[:, :5], cfg, kv_cache=kv, attn_probs_layer=-1)
+        assert spy.calls[n:] == [5] * (n - 1)  # the probs layer: plain ops
+        assert out[3].shape == (2, cfg.n_heads, 5, 160)
+        pre.calls.clear()
+        tg.forward(params, tokens[:, :40], cfg)  # the no-cache forward (a capture, a trace)
+        out = tg.forward(params, tokens[:, :40], cfg, attn_probs_layer=0)
+        assert pre.calls == ([40] * n + [40] * (n - 1) if bf16 else [])
+        assert out[3].shape == (2, cfg.n_heads, 40, 40)
+    assert at.prefill_kernel_takes(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
 
 
 @pytest.mark.parametrize("kv", ["none", "int8", "int4"])

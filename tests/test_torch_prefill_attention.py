@@ -1,0 +1,366 @@
+"""The port's prefill attention (``probing_rag_tpu_torch/ops/attention.py::
+prefill_attention``) on the CPU, where the wrapper takes its plain version
+(the kernel, ``kernels/csrc/prefill_attention.cu``, runs only on the card,
+where ``chip_smoke.py`` phase 9 holds it to this plain version).
+
+- ``prefill_attention_plain`` against JAX's ``_attention``
+  (``probing_rag_tpu/models/gemma.py:787``, reaching ``_attn_core`` ``:755``)
+  over the same stored cache: f32, bf16, int8 and int4 caches, f32 and bf16
+  compute, MQA, GQA and H = KV; the cache path with left pads and an all-pad
+  row (the mean over all S), and the no-cache path with positions-style left
+  pads, whose pad rows attend the first real token.
+- The structured mask ``(kpos <= qpos) & valid`` equals the dense mask JAX's
+  forward builds, on both paths.
+- A CPU emulation of the kernel's arithmetic (query tiles of 64 rows, K
+  tiles of 32 slots skipped by their least valid position, two sweeps with
+  an online max and sum, bf16 probabilities, all-pad rows from V summed once
+  over all S) within ``rounding_tolerance`` of the plain version, visiting
+  every slot a row attends, at tile edges.
+- ``prefill_kernel_takes`` and the wrapper's checks.
+
+Tolerances: f32 compute at 1e-5 (the same f32 math, sums in another order);
+bf16 compute element by element at ``rounding_tolerance`` (a probability
+within 1e-5 of itself of a bf16 rounding midpoint may round to the
+neighbouring value; plus 1e-5 of the sum of |p v|), as in
+``tests/test_torch_attention.py``.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from probing_rag_tpu.models import gemma as jg
+from probing_rag_tpu_torch.models import gemma as tg
+from probing_rag_tpu_torch.ops import attention as at
+from probing_rag_tpu_torch.weights import lm_params_from_jax
+
+from test_torch_attention import CASES, DTS, jax_reference, stored
+from test_torch_gemma import numpy_params, to_jax
+
+torch.set_num_threads(1)
+
+INT_MAX = 2 ** 31 - 1
+HEADS = {"mqa": (8, 1), "gqa": (4, 2), "mha": (2, 2)}
+
+
+def prefill_case(t: int, h: int, kvh: int, cache: bool, seed: int = 0, b: int = 3,
+                 gen: int = 9, hd: int = 32, pad: int = 11):
+    """numpy inputs of one prefill: q [B, T, H, hd], K/V [B, KV, S, hd] f32
+    before storing, and the structured mask (qpos, kpos, valid). Row 1 is
+    left-padded by ``pad`` tokens, row 2 is all pad. ``cache``: S = T + gen
+    slots, the prompt's pad slots invalid and the generation slots valid,
+    qpos = kpos = the slot (the cursor at 0). Else S = T and qpos = kpos =
+    the positions ``cumsum(valid) - 1`` clamped at 0."""
+    rng = np.random.default_rng(seed)
+    s = t + gen if cache else t
+    q = rng.standard_normal((b, t, h, hd)).astype(np.float32)
+    kv = rng.standard_normal((2, b, kvh, s, hd)).astype(np.float32)
+    prompt = np.ones((b, t), bool)
+    prompt[1, :pad] = False
+    prompt[2] = False
+    if cache:
+        valid = np.concatenate([prompt, np.ones((b, s - t), bool)], axis=1)
+        qpos = np.broadcast_to(np.arange(t), (b, t))
+        kpos = np.broadcast_to(np.arange(s), (b, s))
+    else:
+        valid = prompt
+        qpos = kpos = np.maximum(np.cumsum(prompt, axis=1) - 1, 0)
+    return q, kv, (qpos.astype(np.int64), kpos.astype(np.int64), valid)
+
+
+def dense_mask(qpos, kpos, valid):
+    """JAX's forward's mask from the same three arrays (numpy)."""
+    return ((kpos[:, None, :] <= qpos[:, :, None]) & valid[:, None, :])[:, None]
+
+
+def torch_mask(smask):
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in smask)
+
+
+# the no-cache forward's K and V are its own bf16 or f32 projections
+PATHS = [(kind, dt, "cache") for kind, dt in CASES] + [
+    (kind, dt, "nocache") for kind, dt in CASES if kind == dt]
+
+
+@pytest.mark.parametrize("heads", list(HEADS), ids=list(HEADS))
+@pytest.mark.parametrize("kind,dt,path", PATHS)
+def test_prefill_attention_plain_matches_jax(kind, dt, path, heads):
+    """The plain version (what the wrapper takes on the CPU) against JAX's
+    ``_attention`` over the same stored cache and mask."""
+    h, kvh = HEADS[heads]
+    q, kv, smask = prefill_case(13, h, kvh, path == "cache", seed=len(kind) + h)
+    jdt, tdt = DTS[dt]
+    jstore, (k, v, ks, vs) = stored(kind, kv)
+    want, _ = jax_reference(kind, jstore, q, dense_mask(*smask), jdt)
+    qt = torch.from_numpy(q).to(tdt)
+    qpos, kpos, valid = torch_mask(smask)
+    got = at.prefill_attention(qt, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs, dt=tdt)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    if dt == "f32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        mask = at.structured_mask(qpos, kpos, valid)
+        tol = at.rounding_tolerance(qt, k, v, mask, k_scale=ks, v_scale=vs, dt=tdt).numpy()
+        assert (np.abs(got.numpy() - want) <= tol).all(), float(np.abs(got.numpy() - want).max())
+    # row 2 is all pad: on the cache path every query row masks every slot
+    # (the mean of bf16(1/S) v over all S); without a cache its queries sit
+    # at position 0 and still attend no valid slot, the same mean
+    vd = at.dequant_kv(v, vs, tdt).float().numpy()[2]  # [KV, S, hd]
+    w = torch.tensor(1.0 / vd.shape[1]).to(tdt).float().item()
+    mean = np.repeat(w * vd.sum(axis=1), h // kvh, axis=0).reshape(-1)
+    np.testing.assert_allclose(got.numpy()[2], np.broadcast_to(mean, got.shape[1:]),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_prefill_pad_rows_match_jax():
+    """The two kinds of pad row: on the cache path a left pad's query row
+    attends no slot (the mean over all S); without a cache it sits at
+    position 0 and attends the row's first real token alone (its output is
+    that token's value row), both as JAX computes them."""
+    h, kvh, pad = 4, 1, 5
+    for cache in (True, False):
+        q, kv, smask = prefill_case(12, h, kvh, cache, seed=2, pad=pad)
+        jstore, (k, v, _, _) = stored("f32", kv)
+        want, _ = jax_reference("f32", jstore, q, dense_mask(*smask), jnp.float32)
+        qpos, kpos, valid = torch_mask(smask)
+        got = at.prefill_attention(torch.from_numpy(q), k, v, qpos, kpos, valid,
+                                   dt=torch.float32).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        pad_rows = got[1, :pad].reshape(pad, h, -1)
+        if cache:
+            mean = kv[1, 1, 0].mean(axis=0)  # [hd]: all S slots at weight 1 / S
+            np.testing.assert_allclose(pad_rows, np.broadcast_to(mean, pad_rows.shape),
+                                       rtol=1e-5, atol=1e-5)
+        else:
+            first = kv[1, 1, 0, pad]  # the first real token's value row
+            np.testing.assert_allclose(pad_rows, np.broadcast_to(first, pad_rows.shape),
+                                       rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ the forward's mask
+
+V = 512
+JCFG = dataclasses.replace(jg.GemmaConfig.tiny(vocab_size=V), compute_dtype=jnp.float32)
+TCFG = dataclasses.replace(tg.GemmaConfig.tiny(vocab_size=V), compute_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("path", ["cache", "nocache"])
+def test_structured_mask_equals_forward_dense_mask(path, monkeypatch):
+    """The (qpos, kpos, valid) that ``forward`` hands ``_block`` give, element
+    for element, the dense mask JAX's forward builds from the same inputs
+    (left-padded prompts; over a cache at a cursor past 0 as well)."""
+    seen = {"jax": [], "torch": []}
+    j_block, t_block = jg._block, tg._block
+
+    def j_spy(lp, x, positions, mask, *args, **kw):
+        seen["jax"].append(np.asarray(mask))
+        return j_block(lp, x, positions, mask, *args, **kw)
+
+    def t_spy(lp, x, positions, mask, *args, smask=None, **kw):
+        seen["torch"].append((mask.numpy(), at.structured_mask(*smask).numpy()))
+        return t_block(lp, x, positions, mask, *args, smask=smask, **kw)
+
+    monkeypatch.setattr(jg, "_block", j_spy)
+    monkeypatch.setattr(tg, "_block", t_spy)
+    tree = numpy_params(JCFG, seed=4)
+    params = lm_params_from_jax(tree, TCFG, device="cpu")
+    rng = np.random.default_rng(1)
+    b, t = 3, 11
+    tokens = rng.integers(0, V, (b, t)).astype(np.int32)
+    valid = np.ones((b, t), bool)
+    valid[1, :4] = False
+    valid[2, :t - 1] = False
+    positions = np.maximum(np.cumsum(valid, axis=1) - 1, 0).astype(np.int32)
+    if path == "cache":
+        s = 20
+        slot_valid = np.concatenate([valid, np.ones((b, s - t), bool)], axis=1)
+        for pos in (0, 3):  # a prefill, then a block of t tokens at cursor 3
+            jkv = jg.init_kv_cache(JCFG, b, s, jnp.float32)
+            jkv = dict(jkv, pos=jnp.asarray(pos, jnp.int32))
+            jg.forward(to_jax(tree), jnp.asarray(tokens), JCFG, kv_cache=jkv,
+                       positions=jnp.asarray(positions), attn_valid=jnp.asarray(slot_valid))
+            tkv = tg.init_kv_cache(TCFG, b, s, torch.float32, device="cpu")
+            tkv = dict(tkv, pos=torch.tensor(pos))
+            tg.forward(params, torch.from_numpy(tokens).long(), TCFG, kv_cache=tkv,
+                       positions=torch.from_numpy(positions).long(),
+                       attn_valid=torch.from_numpy(slot_valid))
+    else:
+        jg.forward(to_jax(tree), jnp.asarray(tokens), JCFG, positions=jnp.asarray(positions),
+                   attn_valid=jnp.asarray(valid))
+        tg.forward(params, torch.from_numpy(tokens).long(), TCFG,
+                   positions=torch.from_numpy(positions).long(),
+                   attn_valid=torch.from_numpy(valid))
+    assert len(seen["jax"]) == len(seen["torch"]) > 0
+    for jm, (dense, structured) in zip(seen["jax"], seen["torch"]):
+        np.testing.assert_array_equal(dense, jm)
+        np.testing.assert_array_equal(structured, jm)
+
+
+# ------------------------------------------------------------ the kernel's arithmetic
+
+
+def emulate_kernel(q, k, v, qpos, kpos, valid, k_scale=None, v_scale=None):
+    """``prefill_attention.cu`` written out in torch on the CPU, bf16
+    compute: returns (out [B, T, H*hd] f32, the K tiles each block visited).
+
+    Prep: keff (kpos of a valid slot, else INT_MAX, INT_MAX past S), each
+    32-slot tile's least keff, V (widened to bf16) summed over all S. A
+    block: 64 / G positions x the G heads of one (batch row, kv head); it
+    visits, in order, the tiles whose least keff is at most its largest
+    qpos. Sweep 1: scores (f32 sums of bf16 products, times f32(1 /
+    sqrt(hd))), masked to -1e30 where keff > qpos, and an online max and
+    sum per row. Sweep 2: the same scores, p = bf16(exp(s - m) / l), f32
+    sums of p v. A row whose max stays at or under -1e30 attends nothing:
+    bf16(1 / S) times the V sum."""
+    dt = torch.bfloat16
+    b, t, h, hd = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    g = h // kvh
+    kd = at.dequant_kv(k, k_scale, dt).float()
+    vd = at.dequant_kv(v, v_scale, dt).float()
+    tile = at.PREFILL_TILE
+    ntiles = -(-s // tile)
+    pad = ntiles * tile - s
+    keff = torch.where(valid, kpos.long(), torch.full_like(kpos.long(), INT_MAX))
+    keff = torch.nn.functional.pad(keff, (0, pad), value=INT_MAX)  # [B, ntiles * tile]
+    tmin = keff.reshape(b, ntiles, tile).amin(dim=-1)
+    kd = torch.nn.functional.pad(kd, (0, 0, 0, pad))  # zeros past S
+    vd_tiles = torch.nn.functional.pad(vd, (0, 0, 0, pad))
+    vsum = vd.sum(dim=2)  # [B, KV, hd]
+    w = torch.tensor(1.0 / s).to(dt).float()
+    scale = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(np.sqrt(hd), dtype=torch.float32)
+    npos = at.PREFILL_ROWS // g
+    out = torch.zeros((b, t, h * hd))
+    visited = {}
+    for bi in range(b):
+        for hi in range(kvh):
+            for t0 in range(0, t, npos):
+                t1 = min(t0 + npos, t)
+                qrows = q[bi, t0:t1, hi * g:(hi + 1) * g].reshape(-1, hd).float()
+                qp = qpos[bi, t0:t1].long().repeat_interleave(g)
+                tiles = [j for j in range(ntiles) if tmin[bi, j] <= qp.max()]
+                visited[(bi, hi, t0)] = tiles
+
+                def scores(j):
+                    sl = slice(j * tile, (j + 1) * tile)
+                    sc = (qrows @ kd[bi, hi, sl].T) * scale
+                    return torch.where(keff[bi, sl][None, :] <= qp[:, None], sc,
+                                       torch.tensor(-1e30))
+
+                m = torch.full((qrows.shape[0],), -float("inf"))
+                lsum = torch.zeros(qrows.shape[0])
+                for j in tiles:
+                    sc = scores(j)
+                    new = torch.maximum(m, sc.amax(dim=1))
+                    lsum = lsum * torch.exp(m - new) + torch.exp(sc - new[:, None]).sum(dim=1)
+                    m = new
+                o = torch.zeros((qrows.shape[0], hd))
+                for j in tiles:
+                    p = (torch.exp(scores(j) - m[:, None]) / lsum[:, None]).to(dt).float()
+                    o = o + p @ vd_tiles[bi, hi, j * tile:(j + 1) * tile]
+                dead = m <= -1e30
+                o[dead] = w * vsum[bi, hi]
+                out[bi, t0:t1, hi * g * hd:(hi + 1) * g * hd] = o.reshape(t1 - t0, g * hd)
+    return out, visited
+
+
+EMULATED = [
+    # (T, H, KV, cache, pad, kind): T and S off the tiles; query tiles of 8
+    # positions straddling row 1's pad boundary; G 1 with two query tiles
+    (37, 8, 1, True, 11, "bf16"),
+    (45, 4, 2, False, 13, "bf16"),
+    (70, 2, 2, True, 29, "int8"),
+    (33, 8, 1, False, 3, "bf16"),
+    (40, 4, 2, True, 17, "int4"),
+]
+
+
+@pytest.mark.parametrize("t,h,kvh,cache,pad,kind", EMULATED)
+def test_kernel_emulation_within_rounding_tolerance(t, h, kvh, cache, pad, kind):
+    """The kernel's arithmetic (``emulate_kernel``) within ``rounding_tolerance``
+    of the plain version; every slot any row of a block attends lies in a
+    tile the block visits; rows with no attendable slot are the mean over
+    all S slots (the plain softmax over -1e30), which no tile sweep covers."""
+    q, kv, smask = prefill_case(t, h, kvh, cache, seed=t, pad=pad)
+    _, (k, v, ks, vs) = stored(kind, kv)
+    qt = torch.from_numpy(q).to(torch.bfloat16)
+    qpos, kpos, valid = torch_mask(smask)
+    got, visited = emulate_kernel(qt, k, v, qpos, kpos, valid, ks, vs)
+    ref = at.prefill_attention_plain(qt, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs)
+    mask = at.structured_mask(qpos, kpos, valid)
+    tol = at.rounding_tolerance(qt, k, v, mask, k_scale=ks, v_scale=vs)
+    assert ((got - ref).abs() <= tol).all(), float((got - ref).abs().max())
+    g = h // kvh
+    npos = at.PREFILL_ROWS // g
+    dead = ~mask[:, 0].any(dim=-1)  # [B, T]
+    assert bool(dead[2].all()) and bool(dead.any())
+    for (bi, hi, t0), tiles in visited.items():
+        attended = mask[bi, 0, t0:t0 + npos].any(dim=0).nonzero().flatten()
+        assert set((attended // at.PREFILL_TILE).tolist()) <= set(tiles), (bi, hi, t0)
+    vd = at.dequant_kv(v, vs, torch.bfloat16).float()
+    w = torch.tensor(1.0 / vd.shape[2]).to(torch.bfloat16).float()
+    mean = (w * vd.sum(dim=2)).repeat_interleave(g, dim=1).reshape(vd.shape[0], -1)  # [B, H*hd]
+    torch.testing.assert_close(got[dead], mean[:, None].expand_as(got)[dead], rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_kernel_emulation_skips_tiles_past_the_diagonal():
+    """Tile skipping does real work on the cache path: a block of the first
+    positions visits only the tiles up to its last position, and a block of
+    pad rows (row 2, all pad) visits none of the prompt's tiles."""
+    t, h, kvh = 200, 8, 1
+    q, kv, smask = prefill_case(t, h, kvh, True, seed=1)
+    _, (k, v, _, _) = stored("bf16", kv)
+    qpos, kpos, valid = torch_mask(smask)
+    _, visited = emulate_kernel(torch.from_numpy(q).to(torch.bfloat16), k, v, qpos, kpos, valid)
+    assert visited[(0, 0, 0)] == [0]  # positions 0-7 reach slot 7 at most
+    assert visited[(0, 0, 192)] == list(range(7))  # positions 192-199: tiles 0-6
+    assert visited[(2, 0, 0)] == []  # row 2's prompt slots are invalid, the rest lie ahead
+
+
+# ------------------------------------------------------------ what the kernel takes
+
+
+@pytest.mark.parametrize("groups,hd,takes", [
+    (8, 256, True),  # Gemma-2B
+    (4, 128, True),  # Mistral-7B
+    (2, 32, True),  # the tiny test model
+    (1, 64, True),  # H = KV
+    (64, 64, True),
+    (65, 64, False),  # more heads a kv head than a block's 64 rows
+    (2, 16, False),  # tiny_mistral: plain ops
+    (8, 512, False),
+    (8, 96, False),
+])
+def test_prefill_kernel_takes(groups, hd, takes):
+    assert at.prefill_kernel_takes(groups, hd) is takes
+
+
+def test_prefill_attention_rejects_what_it_does_not_take():
+    q, kv, smask = prefill_case(9, 4, 2, True)
+    _, (k, v, ks, vs) = stored("int8", kv)
+    qt = torch.from_numpy(q)
+    qpos, kpos, valid = torch_mask(smask)
+    with pytest.raises(TypeError):  # a compute type other than bf16 or f32
+        at.prefill_attention(qt, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs,
+                             dt=torch.float16)
+    with pytest.raises(ValueError):  # an int8 cache without its scales
+        at.prefill_attention(qt, k, v, qpos, kpos, valid, dt=torch.float32)
+    with pytest.raises(ValueError):  # kpos of another slot count
+        at.prefill_attention(qt, k, v, qpos, kpos[:, :-1], valid, k_scale=ks, v_scale=vs,
+                             dt=torch.float32)
+    with pytest.raises(ValueError):  # qpos of another length
+        at.prefill_attention(qt, k, v, qpos[:, :-1], kpos, valid, k_scale=ks, v_scale=vs,
+                             dt=torch.float32)
+    with pytest.raises(TypeError):  # positions as floats
+        at.prefill_attention(qt, k, v, qpos.float(), kpos, valid, k_scale=ks, v_scale=vs,
+                             dt=torch.float32)
+    with pytest.raises(ValueError):  # valid not bool
+        at.prefill_attention(qt, k, v, qpos, kpos, valid.int(), k_scale=ks, v_scale=vs,
+                             dt=torch.float32)
+    with pytest.raises(ValueError):  # neither the CPU nor a card
+        meta = [x.to("meta") for x in (qt, k, v, qpos, kpos, valid, ks, vs)]
+        at.prefill_attention(*meta[:6], k_scale=meta[6], v_scale=meta[7], dt=torch.float32)
