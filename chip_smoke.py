@@ -100,14 +100,17 @@ and the script exits non-zero:
    ``scaled_dot_product_attention`` as a yardstick; f32 compute over the
    int8 and int4 caches and at T 5; Mistral-7B's shape (32 heads over 8 kv
    heads at 128) and one tensor-parallel rank's kv-head slice of it. Then
-   the prefill attention kernel against its plain version: the retrieval
+   the prefill attention kernel against its plain version, after ptxas's
+   registers and spills of each of its instantiations beside the plan's
+   setmaxnreg budgets: the retrieval
    round's prefill (8 x 3,712 prompt tokens into 3,862 slots, the same
    pads and all-pad row) over bf16, int8 and int4 caches, the capture
    forward's no-cache shape (8 x 1,536, positions-style pads), Mistral-7B's
-   at 1,024 tokens over int8 and its kv-head slice; each with kernel /
-   plain / ``scaled_dot_product_attention`` ms and the bound from its
-   attended pairs, its rows with no attendable slot against the mean of
-   v. The bf16 limit is ``rounding_tolerance``'s, element by element, and
+   at 1,024 tokens over int8 and its kv-head slice; each with its plan,
+   kernel / plain / ``scaled_dot_product_attention`` ms and the bound from
+   its attended pairs, its rows with no attendable slot against the mean
+   of v, and a second launch bit-equal to the first. The bf16 limit is
+   ``rounding_tolerance``'s, element by element, and
    two faults (probabilities left unrounded, one tile dropped) must exceed
    it. Then the decode step
    replayed as a CUDA graph against the same step run eagerly, bf16 and
@@ -118,7 +121,8 @@ and the script exits non-zero:
    ways, the step's wall and one replay's device time, and a
    ``torch.profiler`` breakdown of a replay; the prefill's seconds and
    peak GiB with the kernel and with plain attention in the same call, and
-   a ``torch.profiler`` breakdown of one bf16 prefill each way; the same
+   a ``torch.profiler`` breakdown of one bf16 prefill each way (with the
+   kernel: ``prefill_attn``'s ms and share of the device time); the same
    graphed step with plain attention
    (rows that part must part where the logit gap is within
    ``ATTN_DRIFT``), and in f32 the graphed decode's tokens equal to the
@@ -2458,9 +2462,11 @@ def prefill_case(gen, label: str, kind: str, t: int, cache: bool, model: str = "
     """One ``prefill_attention`` case: the kernel against its plain version
     on the card (same operands; on ``kv_heads`` (first, count) of the cache
     where given), held element by element to ``rounding_tolerance`` (which
-    the two faults of ``tolerance_controls`` must exceed); rows with no
-    attendable slot (left pads of the cache path, the all-pad row) against
-    v summed at weight bf16(1 / S); kernel / plain ms,
+    the two faults of ``tolerance_controls`` must exceed); a second launch
+    on the same operands bit-equal to the first (a fixed summation order);
+    rows with no attendable slot (left pads of the cache path, the all-pad
+    row) against v summed at weight bf16(1 / S); the plan it launched
+    (``ops/attention.py::plan_prefill_attention``); kernel / plain ms,
     ``scaled_dot_product_attention`` on the same bf16 operands (the cache
     dequantized first) and bool mask as the library yardstick, and the
     bound from the attended (row, slot) pairs. Prints the case's line;
@@ -2474,10 +2480,15 @@ def prefill_case(gen, label: str, kind: str, t: int, cache: bool, model: str = "
     q, k, v, (qpos, kpos, valid), (ks, vs) = prefill_operands(gen, kind, t, cache, model)
     if kv_heads is not None:
         q, k, v, ks, vs = kv_head_slice(q, k, v, ks, vs, *kv_heads)
+    at.last_prefill_plan = None
     got = at.prefill_attention(q, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs, dt=bf16)
+    plan = at.last_prefill_plan
+    again = at.prefill_attention(q, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs, dt=bf16)
     ref = at.prefill_attention_plain(q, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs, dt=bf16)
     mask = at.structured_mask(qpos, kpos, valid)
     sync()
+    bit_equal = torch.equal(got, again)
+    del again
     err = float((got - ref).abs().max())
     tol = at.rounding_tolerance(q, k, v, mask, k_scale=ks, v_scale=vs, dt=bf16)
     ratio = float(((got - ref).abs() / tol).nan_to_num(nan=0.0).max())
@@ -2503,6 +2514,8 @@ def prefill_case(gen, label: str, kind: str, t: int, cache: bool, model: str = "
              f"{r_un:.3g}x), one tile dropped {n_drop} (worst {r_drop:.3g}x)")
     if not ok:
         raise AssertionError(f"{what}: kernel differs from plain by {err} ({limit})")
+    if not bit_equal:
+        raise AssertionError(f"{what}: two launches on the same operands differ")
     if n_un == 0 or n_drop == 0:
         raise AssertionError(f"{what}: the bf16 limit lets a fault through ({limit})")
     if dead_err > 1e-5 * float(want.abs().max()) + 1e-6:
@@ -2533,11 +2546,13 @@ def prefill_case(gen, label: str, kind: str, t: int, cache: bool, model: str = "
         line = f"scaled_dot_product_attention {lib_ms:.4f} ms"
     except (RuntimeError, TypeError) as e:
         lib_ms, line = None, f"scaled_dot_product_attention: none ({str(e).splitlines()[0][:60]})"
-    print(f"  {what}: max abs err {err:.3g} (limit {limit}); {int(dead.sum())} rows with no "
-          f"attendable slot vs v summed at weight 1 / S {dead_err:.3g}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, {line}, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
-          f"{pairs} attended pairs a head, {ops:.3g} operations, {nbytes / 1e6:.1f} MB)",
-          flush=True)
+    print(f"  {what}: max abs err {err:.3g} (limit {limit}); two launches bit-equal; "
+          f"{int(dead.sum())} rows with no attendable slot vs v summed at weight 1 / S "
+          f"{dead_err:.3g}; plan: tile {plan.tile} slots, ring {plan.stages} stages, raw ring "
+          f"{plan.raw_stages} x {plan.raw_slots} slots, {plan.positions} positions a block, "
+          f"{plan.smem} B shared; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {line}, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {pairs} attended pairs a head, "
+          f"{ops:.3g} operations, {nbytes / 1e6:.1f} MB)", flush=True)
     del q, k, v, ks, vs, qh, kd, vd, mask
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bnd}
@@ -2551,9 +2566,24 @@ def phase_prefill_kernels(results: dict) -> None:
     no-cache shape (8 x ``TRAIN_MAX_LEN``, positions-style pads); Mistral-7B's
     (32 heads / 8 kv x 128) at ``PREFILL_MISTRAL_T`` over an int8 cache,
     whole and on kv heads 2-3 (a tensor-parallel rank's slice). The kernels
-    line takes the bf16 prefill case and the others' times."""
+    line takes the bf16 prefill case and the others' times. First, ptxas's
+    report of each ``prefill_attn`` instantiation (registers and spills,
+    which ptxas gives a kernel, not a role) beside the plan's setmaxnreg
+    budgets of its consumer and producer warpgroups."""
     import torch
 
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.ops import attention as at
+
+    kinds = {0: torch.bfloat16, 1: torch.float32, 2: torch.int8, 3: torch.uint8}
+    names = {0: "bf16", 1: "f32", 2: "int8", 3: "int4"}
+    for u in sorted(kernels.ptxas_usage("prefill_attnI"), key=lambda u: u["template"]):
+        kind, hd = u["template"][:2]
+        plan = at.plan_prefill_attention(kinds[kind], hd, 1)
+        print(f"  ptxas prefill_attn<{names[kind]}, hd {hd}>: {u['registers']} registers a thread "
+              f"at launch, spills {u['spill_stores']} B stored / {u['spill_loads']} B loaded; "
+              f"setmaxnreg consumers {plan.consumer_regs}, producer {plan.producer_regs}"
+              + (f"; {'; '.join(u['warnings'])}" if u["warnings"] else ""), flush=True)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
     out = {
         "prefill bf16": prefill_case(gen, "retrieval prefill", "bf16", PREFILL_T, True),
@@ -2599,12 +2629,13 @@ class PlainAttention:
         return False
 
 
-def device_profile(fn, reps: int = 1, top: int = 8) -> str:
+def device_profile(fn, reps: int = 1, top: int = 8, focus: str = "") -> str:
     """Where ``fn()`` spends its device time: ``torch.profiler`` over one
     call of ``fn`` (``reps`` runs of what it times), the kernels' device
     milliseconds a run by name (the kernels' own events: an op that
     launches a kernel carries its time too), the largest ``top`` and the
-    total."""
+    total; with ``focus``, first the kernels whose name holds it, their ms
+    and share of the total."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2618,7 +2649,11 @@ def device_profile(fn, reps: int = 1, top: int = 8) -> str:
     if not rows:
         return "the profiler saw no device time"
     total = sum(ms for ms, _ in rows)
-    return (f"{total:.3f} ms in {len(rows)} kernels; " + "; ".join(
+    head = ""
+    if focus:
+        hit = sum(ms for ms, name in rows if focus in name)
+        head = f"{focus} {hit:.3f} ms, {100 * hit / total:.1f}% of the device time; "
+    return head + (f"{total:.3f} ms in {len(rows)} kernels; " + "; ".join(
         f"{name[:60]} {ms:.3f}" for ms, name in rows[:top]))
 
 
@@ -2756,7 +2791,8 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
         graphed[label] = res_g
         if label == "bf16":
             print(f"  bf16 prefill (8 x {tokens.shape[1]} tokens), device time by kernel "
-                  f"(torch.profiler, ms): {device_profile(lambda: run(p, cfg, 1, **kv))}",
+                  f"(torch.profiler, ms): "
+                  f"{device_profile(lambda: run(p, cfg, 1, **kv), focus='prefill_attn')}",
                   flush=True)
         with PlainAttention():
             run(p, cfg, 1, **kv)

@@ -82,8 +82,9 @@ _SIGNATURES = {
     # nsplit, scale, stream
     "decode_attention": [_P] * 11 + [_I] * 9 + [_LL] * 6 + [_I, _I, _F, _P],
     # q, k, v, k/v scales, qpos, kpos, valid, keff, tmin, vpart, vsum, out;
-    # kind, b, kvh, g, t, s, hd, grp; cache and scale strides; scale, stream
-    "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_F, _P],
+    # kind, b, kvh, g, t, s, hd, grp; cache and scale strides; the plan's
+    # tile, stages, raw_slots, raw_stages, smem; scale, stream
+    "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -159,11 +160,50 @@ def build(verbose: bool = False) -> Path:
     os.replace(tmp, so)
     for obj in objs:
         obj.unlink()
+    so.with_suffix(".ptxas.txt").write_text(
+        "".join(f"== {Path(cmd[-1]).name} {' '.join(c for c in cmd if c.startswith('-DNVCC_PART='))}"
+                f"\n{err}\n" for cmd, _, _, err in logs))
     if verbose:
         print(f"built {so.name} from {len(cu)} sources in {time.time() - t0:.1f}s")
         for _, _, _, err in logs:
             print(err.strip())
     return so
+
+
+def ptxas_usage(kernel: str) -> list:
+    """``ptxas -v``'s report of every entry function whose mangled name
+    holds ``kernel``, from the log :func:`build` keeps beside the library:
+    dicts of ``name``, ``template`` (its integer template arguments),
+    ``registers``, ``spill_stores``, ``spill_loads`` (bytes), and the
+    compile's ``warnings`` (ptxas lines naming the function or its file)."""
+    log = build().with_suffix(".ptxas.txt").read_text()
+    found, cur, warn_by_file, file = [], None, {}, ""
+    for line in log.splitlines():
+        if line.startswith("== "):
+            file = line[3:]
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = None
+            if kernel in m.group(1):
+                cur = {"name": m.group(1), "file": file,
+                       "template": [int(x) for x in re.findall(r"Li(-?\d+)E", m.group(1))],
+                       "registers": None, "spill_stores": None, "spill_loads": None}
+                found.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None and cur["spill_stores"] is None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None and cur["registers"] is None:
+            cur["registers"] = int(m.group(1))
+            continue
+        if "warning" in line.lower():
+            warn_by_file.setdefault(file, []).append(line.strip())
+    for f in found:
+        f["warnings"] = [w for w in warn_by_file.get(f["file"], []) if kernel in w or "C75" in w]
+    return found
 
 
 @functools.lru_cache(maxsize=None)

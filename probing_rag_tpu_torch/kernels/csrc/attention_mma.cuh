@@ -1,7 +1,8 @@
-// Tensor-core pieces shared by decode_attention.cu (its bf16 passes) and
-// prefill_attention.cu: _attn_core's function (probing_rag_tpu/models/
-// gemma.py::_attn_core :755) with bf16 operands and f32 sums, as the JAX
-// einsums with preferred_element_type=f32 compute it.
+// Tensor-core pieces of decode_attention.cu's bf16 passes: _attn_core's
+// function (probing_rag_tpu/models/gemma.py::_attn_core :755) with bf16
+// operands and f32 sums, as the JAX einsums with preferred_element_type=f32
+// compute it. prefill_attention.cu (wgmma, hopper.cuh) takes from here only
+// the cache kinds, the masked score, bf16 rounding and CacheRef.
 //
 // - Products: mma.sync m16n8k16 (bf16 x bf16 -> f32) fed by ldmatrix /
 //   ldmatrix.trans from shared memory.

@@ -1,8 +1,8 @@
 // Hopper building blocks of the kernels that run wgmma (dense_topk.cu,
-// ivf_topk.cu, matmul_int8.cu): mbarriers, TMA tile loads and their tensor
-// maps, named barriers, wgmma operand descriptors and products at the
-// power-of-two widths, resident operand tiles, and the exact int8 -> bf16
-// widening.
+// ivf_topk.cu, matmul_int8.cu, prefill_attention.cu): mbarriers, TMA tile
+// loads (2-D and 4-D) and their tensor maps, bulk copies, named barriers,
+// wgmma operand descriptors and products at the power-of-two widths,
+// resident operand tiles, and the exact int8 -> bf16 widening.
 #pragma once
 
 #include <cuda.h>
@@ -70,9 +70,40 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on the barrier's transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// one arrival on the barrier once every cp.async this thread issued has
+// landed (the barrier's count includes it: no pending-count increment)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+}
+
 // barrier `id` (1-15) over `count` threads, a multiple of 32
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// an arrival on barrier `id` without waiting (a bar_sync of the other
+// threads completes it)
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // the same barrier, returning whether any of the threads passed true
@@ -87,18 +118,30 @@ __device__ __forceinline__ bool bar_any(int id, int count, bool p) {
   return r != 0;
 }
 
-// wgmma operand descriptor of a K-major tile in the 128-byte swizzle: rows
-// of 128 bytes, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
+// wgmma descriptor of a tile in the swizzle of span SW (128 or 64 bytes),
+// 8-row groups 8 x SW bytes apart. K-major (rows hold the depth): lbo is
+// unused. MN-major (rows run along the depth, 16-byte chunks along M or N):
+// lbo is the byte offset between blocks of SW bytes along M or N.
+template <int SW>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo = 16) {
+  constexpr uint64_t kLayout = SW == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(8 * SW / 16) << 32) | (kLayout << 62);
 }
 
-// byte offset of 16-byte chunk c of row r in that layout (the tile based
-// at a multiple of 1024 bytes)
-__device__ __forceinline__ uint32_t sw128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
+// a K-major tile in the 128-byte swizzle: rows of 128 bytes, 8-row groups
+// 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) { return desc_sw<128>(addr); }
+
+// byte offset of 16-byte chunk c of row r in the swizzle of span SW (TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B / _64B: address bits 4.. of a chunk XOR
+// address bits 7..), the tile based at a multiple of 8 x SW bytes
+template <int SW>
+__device__ __forceinline__ uint32_t swz_row(int r, int c) {
+  return r * SW + ((c ^ ((r * SW >> 7) & (SW / 16 - 1))) << 4);
 }
+__device__ __forceinline__ uint32_t sw128(int r, int c) { return swz_row<128>(r, c); }
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -118,6 +161,8 @@ __device__ __forceinline__ void wgmma_wait() {
 // (W x 16, K-major) through descriptors; _rs takes A from registers in the
 // same fragment layout as the accumulator's rows: a[0] = (row, k 2 (lane % 4)
 // + 0, 1), a[1] = (row + 8, the same k), a[2] and a[3] the same at k + 8.
+// _rs_tb reads B MN-major (transposed: its rows run along k), as a [k, n]
+// tile stored n-contiguous.
 
 #define WG_ACC8 "%0, %1, %2, %3"
 #define WG_ACC16 "%0, %1, %2, %3, %4, %5, %6, %7"
@@ -161,6 +206,15 @@ __device__ __forceinline__ void wgmma_wait() {
                  "wgmma.mma_async.sync.aligned.m64n" WG_XSTR(W) "k16.f32.bf16.bf16 {" ACC    \
                  "}, {%" WG_XSTR(A0) ", %" WG_XSTR(A1) ", %" WG_XSTR(A2) ", %" WG_XSTR(A3)    \
                  "}, %" WG_XSTR(A4) ", p, 1, 1, 0;\n}\n"                                      \
+                 : D("+f", 0)                                                                \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));       \
+  }                                                                                          \
+  __device__ __forceinline__ void wgmma_bf16_rs_tb(Int<W>, float* d, const uint32_t (&a)[4], \
+                                                   uint64_t db, int scale_d) {               \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" WG_XSTR(A5) ", 0;\n"                    \
+                 "wgmma.mma_async.sync.aligned.m64n" WG_XSTR(W) "k16.f32.bf16.bf16 {" ACC    \
+                 "}, {%" WG_XSTR(A0) ", %" WG_XSTR(A1) ", %" WG_XSTR(A2) ", %" WG_XSTR(A3)    \
+                 "}, %" WG_XSTR(A4) ", p, 1, 1, 1;\n}\n"                                      \
                  : D("+f", 0)                                                                \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));       \
   }                                                                                          \
@@ -321,21 +375,30 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// a tensor of rank 2-5 given innermost first: dims, byte strides of dims
+// 1.. (multiples of 16), boxes; elements past a dim load as zeros
+inline bool tensor_map_nd(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                          CUtensorMapL2promotion l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // a row-major [rows, cols] tensor of elem-byte elements, boxes of
 // [box_rows, box_cols]; rows and columns past the tensor load as zeros
 inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
                        long long rows, long long cols, int box_rows, int box_cols,
                        CUtensorMapSwizzle swizzle,
                        CUtensorMapL2promotion l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_nd(map, type, 2, ptr, dims, strides, box, swizzle, l2);
 }
 
 }  // namespace hop

@@ -12,32 +12,61 @@
 // valid[b, s], never as the dense [B, 1, T, S] bool.
 //
 // Bound on this card: tensor-core operations at the main shapes (Gemma-2B
-// prefill: 8 x 8 heads x 3,712 causal rows x 256, ~4.5e11 operations a
-// layer against ~60 MB of Q, K, V and output). Design (FlashAttention-2's
-// split of the work on mma.sync):
-//   - a block takes 64 query rows of one (batch row, kv head): 64 / G
-//     positions x the G query heads that share K and V (Gemma-2B: 8 x 8),
-//     16 rows a warp, four warps; Q stays in shared memory (bf16, swizzled).
-//   - K and V tiles of 32 slots go through a two-stage cp.async ring,
-//     widened to bf16 in shared memory when the cache is not bf16.
+// prefill: 8 x 8 heads x 3,712 causal rows x 256, ~2e11 operations a layer
+// against ~300 MB of Q, K, V and f32 output). Design (FlashAttention-3's
+// warp specialisation, in two sweeps):
+//   - a block of 384 threads takes 128 query rows of one (batch row, kv
+//     head): two consumer warpgroups of 64 rows (64 / G positions x the G
+//     query heads that share K and V) and one producer warpgroup. Q is
+//     loaded once by TMA (4-D tensor map over [B, T, H, hd], 128- or 64-byte
+//     swizzle) and stays in shared memory.
+//   - S = Q K^T on wgmma m64nNk16 with both operands in shared memory, N =
+//     the tile's slots (64 at hd 256, 128 below: the score tile, its bf16
+//     fragments and the hd-wide output fit the consumers' 224 registers).
+//     O += P V on wgmma with A from registers: the f32 score accumulator,
+//     after p = bf16(exp(s - m) / l), is packed in place into the A
+//     fragments (the accumulator's rows are the fragments' rows), and V is
+//     read MN-major from its natural [slot, hd] tile (transposed B).
+//   - K and V tiles come by TMA (4-D tensor maps over the cache's [B, KV, S,
+//     row] with its batch and kv-head byte strides, so a kv-head slice is
+//     taken as it is; slots past S load as zeros) into one ring of full/empty
+//     mbarriers that holds K or V tiles in the order the consumers read them
+//     (sweep 1's K tiles, then sweep 2's K and V in turn), so sweep 1 keeps
+//     every stage in flight. No block-wide barrier in the tile loop.
+//   - f32, int8 and int4 caches: TMA lands the raw rows in a raw ring; their
+//     scales (rows of S floats, not 16-byte aligned, so not TMA's) come by
+//     cp.async into the same stage, on the same barrier. The producer
+//     warpgroup's 128 threads widen each raw stage into the bf16 ring
+//     exactly as dequant_kv does (f32 rounded to bf16; bf16(q) x
+//     bf16(scale) rounded to bf16), so the consumers never widen and every
+//     product has the plain version's bf16 operands.
 //   - the plain version rounds the normalised probabilities to bf16, which
 //     one-pass flash attention cannot, so two sweeps over the same tiles:
-//     sweep 1 forms S = QK^T on the tensor cores, masks it, and keeps an
-//     online row max and sum; sweep 2 forms S again, p = bf16(exp(s - m) /
-//     l), and accumulates P V in f32 registers (the score fragments are the
-//     value product's A operand, V by ldmatrix.trans).
+//     sweep 1 forms S and keeps an online row max and sum (V is not
+//     loaded); sweep 2 forms S again, then P, then P V. The producer starts
+//     sweep 2's K and V tiles while the consumers finish sweep 1. The two
+//     consumer warpgroups take turns to issue each product (named
+//     barriers), so one's softmax runs while the other's products do
+//     (FlashAttention-3's ping-pong, one product a turn: pairing a tile's
+//     P V with the next tile's scores in one turn, or a second score tile
+//     in flight inside a warpgroup, measured slower on the H100).
+//   - the scores stay raw (q.k): the scale is folded into the exponent's
+//     factor, and a tile that every row of a warp attends in full is not
+//     masked (a warp-uniform test of its largest keff).
 //   - a K tile is visited only if some slot of it is attendable by some row
-//     of the block: a prep pass writes, per 32-slot tile, the least kpos of
-//     its valid slots; the block compares it with its largest qpos. Nothing
-//     is decided on the host. A skipped tile is masked for every row of the
-//     block, so it would add exp(-1e30 - m) = 0.
+//     of the block: a prep pass writes, per tile, the least kpos of its
+//     valid slots; every role walks the tiles whose least kpos is at most
+//     the block's largest qpos. Nothing is decided on the host. A tile
+//     masked for a row adds exp(-1e30 - m) = 0 to it.
 //   - a row with no attendable slot (a left pad at prefill) is the mean of
 //     bf16(1/S) v over all S slots: the prep pass sums V over all slots once
-//     per (batch row, kv head), and such rows get bf16(1/S) times that sum,
-//     so they cost no sweep over all S.
+//     per (batch row, kv head), and such rows get bf16(1/S) times that sum.
 // Launches: prep (V partial sums, valid-slot positions and tile minima),
 // finish (the sums in a fixed order), attention; one call counts one
-// launch. No allocation and no host sync: the wrapper hands in the scratch.
+// launch. No allocation and no host sync: the wrapper hands in the scratch
+// and the plan (ops/attention.py::plan_prefill_attention), which the C
+// entry checks against the layout below. Tensor maps are encoded on the
+// host per call and passed as __grid_constant__ parameters.
 
 // nvcc-parts: 4
 // The build compiles this file once per part, with NVCC_PART = 0 .. 3 and
@@ -49,24 +78,24 @@
 #endif
 #define IN_PART(p) (NVCC_PARTS == 1 || NVCC_PART == (p))
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <stdint.h>
 
 #include "attention_mma.cuh"
+#include "hopper.cuh"
 
 namespace pattn {
 
-struct Args {
-  const __nv_bfloat16* q;   // [B, T, KV * G, hd]
-  const unsigned char* k;   // cache layer; slots of a (b, kv head) contiguous
-  const unsigned char* v;
+struct Args {  // the attention reads Q, K and V by TMA (Maps); the prep pass reads v
+  const unsigned char* v;   // cache layer; slots of a (b, kv head) contiguous
   const float* k_scale;
   const float* v_scale;
   const int* qpos;          // [B, T]
   const int* kpos;          // [B, S]
   const unsigned char* valid;  // [B, S]
-  int* keff;                // [B, ntiles * 32]: kpos of a valid slot, else INT_MAX
+  int* keff;                // [B, ntiles * tile]: kpos of a valid slot, else INT_MAX
   int* tmin;                // [B, ntiles]: a tile's least keff
   float* vpart;             // [nchunks, B * KV, hd]
   float* vsum;              // [B * KV, hd]
@@ -74,36 +103,135 @@ struct Args {
   long long kv_b, kv_h;     // byte strides of the cache's batch and kv-head dims
   long long sc_b, sc_r;     // element strides of the scales' batch and row dims
   int kvh, g, t, s, hd, grp;
-  int ntiles, nchunks, npos;  // 32-slot tiles, prep chunks, positions a query tile
+  int ntiles, nchunks;      // tiles, prep chunks
+  int npos, qtiles, bkv;    // positions a consumer, query tiles of 2 npos, B * KV
   float scale;              // 1 / sqrt(hd), rounded to f32
 };
 
-// the three launches for one cache kind
-cudaError_t launch_bf16(const Args& a, int bkv, cudaStream_t stream);
-cudaError_t launch_f32(const Args& a, int bkv, cudaStream_t stream);
-cudaError_t launch_int8(const Args& a, int bkv, cudaStream_t stream);
-cudaError_t launch_int4(const Args& a, int bkv, cudaStream_t stream);
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+// the three launches for one cache kind; plan: tile, stages, raw_slots,
+// raw_stages, smem (checked against the kernel's own layout)
+cudaError_t launch_bf16(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
+cudaError_t launch_f32(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
+cudaError_t launch_int8(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
+cudaError_t launch_int4(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
+
+// ---- the plan, shared by the kernels and the C entry's check. Its
+// Python mirror is ops/attention.py::plan_prefill_attention.
+constexpr int kBudget = 232448;  // shared memory a block may use
+constexpr int kSlack = 1024;     // the base aligned up to 1024 bytes
+constexpr int kRows = 64;        // query rows a consumer warpgroup
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kStagesMax = 6;    // ring stages at most
+constexpr int kRawMax = 4;       // raw stages at most
+constexpr int kRawBytes = 16384;  // raw rows a raw stage at most
+
+// registers a thread (setmaxnreg) of the consumers and of the producer: the
+// block holds 384 x 168, so 2 x consumer + producer <= 504. A producer that
+// widens keeps four 8-lane units in flight in 56.
+__host__ __device__ constexpr int consumer_regs(int kind) { return kind == attn::kBf16 ? 232 : 224; }
+__host__ __device__ constexpr int producer_regs(int kind) { return kind == attn::kBf16 ? 40 : 56; }
+static_assert(2 * consumer_regs(0) + producer_regs(0) <= 504 &&
+                  2 * consumer_regs(1) + producer_regs(1) <= 504,
+              "setmaxnreg moves registers within the block's 384 x 168");
+
+__host__ __device__ constexpr int row_bytes(int kind, int hd) {
+  return kind == attn::kBf16 ? hd * 2 : kind == attn::kF32 ? hd * 4 : kind == attn::kInt8 ? hd
+                                                                                          : hd / 2;
+}
+__host__ __device__ constexpr int tile_slots(int hd) { return hd >= 256 ? 64 : 128; }
+__host__ __device__ constexpr int raw_slots(int kind, int hd) {
+  return kind == attn::kBf16 ? 0
+         : tile_slots(hd) * row_bytes(kind, hd) <= kRawBytes ? tile_slots(hd)
+                                                             : kRawBytes / row_bytes(kind, hd);
+}
+// scales of a raw stage: int8 one a slot, int4 one a slot and 32 lanes
+__host__ __device__ constexpr int raw_scales(int kind, int hd) {
+  return kind == attn::kInt8 ? raw_slots(kind, hd)
+         : kind == attn::kInt4 ? hd / 32 * raw_slots(kind, hd) : 0;
+}
+// a raw stage: rows, scales, the slots' keff
+__host__ __device__ constexpr int raw_stage_bytes(int kind, int hd) {
+  return raw_slots(kind, hd) * (row_bytes(kind, hd) + 4) + raw_scales(kind, hd) * 4;
+}
+// Q, r ring stages (a bf16 tile and its keff), rd raw stages, the barriers
+__host__ __device__ constexpr int smem_bytes(int kind, int hd, int r, int rd) {
+  return kConsumers * kRows * hd * 2 + r * tile_slots(hd) * (hd * 2 + 4) +
+         rd * raw_stage_bytes(kind, hd) + 8 * (1 + 2 * (r + rd)) + kSlack;
+}
+__host__ __device__ constexpr bool fits(int kind, int hd, int r, int rd) {
+  return smem_bytes(kind, hd, r, rd) <= kBudget;
+}
+// bf16: the most stages that fit, up to 6; beside a raw ring: 4 where three
+// raw stages still fit, else 3
+__host__ __device__ constexpr int ring_stages(int kind, int hd) {
+  if (kind == attn::kBf16) {
+    int r = kStagesMax;
+    while (r > 2 && !fits(kind, hd, r, 0)) --r;
+    return r;
+  }
+  return fits(kind, hd, 4, 3) ? 4 : fits(kind, hd, 3, 3) ? 3 : 2;
+}
+__host__ __device__ constexpr int raw_stages(int kind, int hd) {
+  if (kind == attn::kBf16) return 0;
+  int rd = kRawMax;
+  while (rd > 1 && !fits(kind, hd, ring_stages(kind, hd), rd)) --rd;
+  return rd;
+}
 
 }  // namespace pattn
 
 namespace {
 
-using namespace attn;
+using attn::kMasked;
 using pattn::Args;
 
-constexpr int kThreads = 128;    // four warps
-constexpr int kRows = 64;        // query rows a block, 16 a warp
-constexpr int kSlots = 32;       // slots a K / V tile
 constexpr int kPrepSlots = 256;  // slots a prep block
 constexpr int kPrepThreads = 256;
+
+template <int KIND, int HD>
+struct L {  // the layout of one instantiation
+  static constexpr int kSw = HD >= 64 ? 128 : 64;  // swizzle span: bytes of a tile row's chunk
+  static constexpr int kChunks = HD * 2 / kSw;      // chunks of kSw bytes a bf16 row
+  static constexpr int kCw = kSw / 16;              // 16-byte pieces a chunk row
+  static constexpr int kN = pattn::tile_slots(HD);
+  static constexpr int kRowBytes = pattn::row_bytes(KIND, HD);
+  static constexpr int kTile = kN * HD * 2;
+  static constexpr int kR = pattn::ring_stages(KIND, HD);
+  static constexpr int kRD = pattn::raw_stages(KIND, HD);
+  static constexpr int kRS = pattn::raw_slots(KIND, HD);
+  static constexpr int kPP = KIND == attn::kBf16 ? 1 : kN / kRS;  // raw stages a tile
+  static constexpr int kScales = pattn::raw_scales(KIND, HD);
+  static constexpr int kBytes = pattn::smem_bytes(KIND, HD, kR, kRD);
+  // byte offsets from the 1024-aligned base
+  static constexpr int Q_OFF = 0;  // [consumer][chunk][64 rows][kSw]
+  static constexpr int RING_OFF = pattn::kConsumers * pattn::kRows * HD * 2;  // [stage][chunk][kN][kSw]
+  static constexpr int RAW_OFF = RING_OFF + kR * kTile;             // [stage][kRS][row]
+  static constexpr int RSC_OFF = RAW_OFF + kRD * kRS * kRowBytes;   // [stage][kRS][groups] f32
+  static constexpr int RKE_OFF = RSC_OFF + kRD * kScales * 4;       // [stage][kRS] int32
+  static constexpr int KEFF_OFF = RKE_OFF + kRD * kRS * 4;          // [stage][kN] int32
+  static constexpr int BAR_OFF = KEFF_OFF + kR * kN * 4;
+  static_assert(kN % 8 == 0 && kN <= 256 && HD <= 256, "wgmma widths");
+  static_assert(RAW_OFF % 1024 == 0 && (kRS * kRowBytes) % 128 == 0, "TMA destinations");
+  static_assert(BAR_OFF % 8 == 0, "barriers");
+  static_assert(KIND == attn::kBf16 || (kRD >= 1 && kN % (kRS > 0 ? kRS : 1) == 0), "raw ring");
+  static_assert(kBytes <= pattn::kBudget, "shared memory");
+};
 
 // Prep. Grid (nchunks, B * KV), kPrepThreads threads. Partial sums of V
 // (dequantized to bf16, summed in f32) over the chunk's slots; kv head 0's
 // blocks also write keff and tmin of the chunk's tiles.
 template <int KIND, int HD>
 __global__ void __launch_bounds__(kPrepThreads) prefill_prep(Args a) {
+  using namespace attn;
+  constexpr int kN = L<KIND, HD>::kN;
   constexpr int kC = HD / 8;                  // 8-lane chunks a row
   constexpr int kLanes = kPrepThreads / kC;   // slots summed side by side
+  static_assert(kPrepSlots % kN == 0, "whole tiles a prep chunk");
   __shared__ float red[kPrepThreads * 8];
   const int bk = blockIdx.y, b = bk / a.kvh, h = bk - b * a.kvh;
   const int s0 = blockIdx.x * kPrepSlots, s1 = min(s0 + kPrepSlots, a.s);
@@ -166,15 +294,19 @@ __global__ void __launch_bounds__(kPrepThreads) prefill_prep(Args a) {
   }
   if (h == 0) {  // a warp a tile: each slot's keff, the tile's least
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int tile0 = s0 / kSlots, tile1 = min((s0 + kPrepSlots) / kSlots, a.ntiles);
+    const int tile0 = s0 / kN, tile1 = min((s0 + kPrepSlots) / kN, a.ntiles);
     for (int tile = tile0 + warp; tile < tile1; tile += kPrepThreads / 32) {
-      const int slot = tile * kSlots + lane;
-      int ke = INT_MAX;
-      if (slot < a.s && __ldg(a.valid + (long long)b * a.s + slot))
-        ke = __ldg(a.kpos + (long long)b * a.s + slot);
-      a.keff[(long long)b * a.ntiles * kSlots + slot] = ke;
-      ke = __reduce_min_sync(0xffffffffu, ke);
-      if (lane == 0) a.tmin[(long long)b * a.ntiles + tile] = ke;
+      int least = INT_MAX;
+      for (int i = lane; i < kN; i += 32) {
+        const int slot = tile * kN + i;
+        int ke = INT_MAX;
+        if (slot < a.s && __ldg(a.valid + (long long)b * a.s + slot))
+          ke = __ldg(a.kpos + (long long)b * a.s + slot);
+        a.keff[(long long)b * a.ntiles * kN + slot] = ke;
+        least = min(least, ke);
+      }
+      least = __reduce_min_sync(0xffffffffu, least);
+      if (lane == 0) a.tmin[(long long)b * a.ntiles + tile] = least;
     }
   }
 }
@@ -188,256 +320,537 @@ __global__ void __launch_bounds__(256) prefill_vsum(Args a, int total) {
   a.vsum[i] = sum;
 }
 
-// The attention. Grid (query tiles, B * KV), kThreads threads; the tiles
-// with the most positions first.
-template <int KIND, int HD>
-__global__ void __launch_bounds__(kThreads, 2) prefill_attn(Args a) {
-  using R = Ring<KIND, HD, kSlots, kThreads>;
-  constexpr int kC = HD / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* qs = smem;                    // [kRows][HD] bf16, swizzled
-  const R kr{qs + kRows * HD * 2};
-  const R vr{kr.base + R::kBytes};
-  int* kp = reinterpret_cast<int*>(vr.base + R::kBytes);  // [2][kSlots] keff of a stage
-  int* list = kp + 2 * kSlots;                             // the visited tiles, in order
-  int* n_list = list + a.ntiles;                           // and their count
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bk = blockIdx.y, b = bk / a.kvh, h = bk - b * a.kvh;
-  const int t0 = qt * a.npos;
-  const int np = min(a.npos, a.t - t0);  // positions of this tile
-  const int nrows = np * a.g;
-  const int heads = a.kvh * a.g;
-
-  // Q rows (row r = position r / G, head h * G + r % G), zeros past nrows
-  for (int p = threadIdx.x; p < kRows * kC; p += kThreads) {
-    const int r = p / kC, c = p - r * kC;
-    const __nv_bfloat16* src = a.q;
-    if (r < nrows)
-      src = a.q + (((long long)b * a.t + t0 + r / a.g) * heads + h * a.g + r % a.g) * HD + c * 8;
-    cp_async16(smem_u32(qs) + swz<HD>(r, c), src, r < nrows ? 16 : 0);
+// The tiles a block visits, in order, walked by one warp (all lanes, the
+// same answers): those whose least keff is at most the block's largest
+// qpos. next() gives ntiles when none is left.
+struct TileScan {
+  const int* tmin;
+  int ntiles, qmax, lane, base;
+  unsigned int mask;
+  __device__ __forceinline__ void start() {
+    base = -32;
+    mask = 0;
   }
-  cp_async_commit();
-
-  const int g4 = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16 + g4, r1 = r0 + 8;  // this thread's two rows
-  const int* qp_row = a.qpos + (long long)b * a.t + t0;
-  const int qp0 = r0 < nrows ? __ldg(qp_row + r0 / a.g) : INT_MIN;
-  const int qp1 = r1 < nrows ? __ldg(qp_row + r1 / a.g) : INT_MIN;
-  int qmax = INT_MIN;
-  for (int i = lane; i < np; i += 32) qmax = max(qmax, __ldg(qp_row + i));
-  qmax = __reduce_max_sync(0xffffffffu, qmax);
-  if (warp == 0) {  // the tiles some row of the block may attend, in order
+  __device__ __forceinline__ int next() {
+    while (mask == 0) {
+      base += 32;
+      if (base >= ntiles) return ntiles;
+      const int j = base + lane;
+      mask = __ballot_sync(0xffffffffu, j < ntiles && __ldg(tmin + j) <= qmax);
+    }
+    const int bit = __ffs(mask) - 1;
+    mask &= mask - 1;
+    return base + bit;
+  }
+  __device__ __forceinline__ int count() {
     int n = 0;
-    for (int j0 = 0; j0 < a.ntiles; j0 += 32) {
-      const int j = j0 + lane;
-      const bool visit = j < a.ntiles && __ldg(a.tmin + (long long)b * a.ntiles + j) <= qmax;
-      const unsigned int m = __ballot_sync(0xffffffffu, visit);
-      if (visit) list[n + __popc(m & ((1u << lane) - 1u))] = j;
-      n += __popc(m);
-    }
-    if (lane == 0) *n_list = n;
+    for (int j0 = 0; j0 < ntiles; j0 += 32)
+      n += __popc(__ballot_sync(0xffffffffu, j0 + lane < ntiles && __ldg(tmin + j0 + lane) <= qmax));
+    return n;
   }
-  __syncthreads();
-  const int n = *n_list;
+};
 
-  const CacheRef ck = cache_ref<KIND>(a.k, a.k_scale, b, h, a.kv_b, a.kv_h, a.sc_b, a.sc_r, HD,
-                                      a.grp, a.s);
-  const CacheRef cv = cache_ref<KIND>(a.v, a.v_scale, b, h, a.kv_b, a.kv_h, a.sc_b, a.sc_r, HD,
-                                      a.grp, a.s);
-  const int* keff = a.keff + (long long)b * a.ntiles * kSlots;
-  const uint32_t q_smem = smem_u32(qs);
+// Ring step g of a block that visits n tiles: sweep 1's K tiles (g < n),
+// then sweep 2's K and V of each tile in turn.
+struct Step {
+  int sw, i, v;  // sweep, the visited tile's ordinal, V (else K)
+};
+__device__ __forceinline__ Step step_at(int g, int n) {
+  if (g < n) return Step{0, g, 0};
+  return Step{1, (g - n) >> 1, (g - n) & 1};
+}
 
-  // stage i <- tile list[j]: K (and V in sweep 2) and its slots' keff
-  auto issue = [&](int j, bool with_v) {
-    const int i = j & 1, s0 = list[j] * kSlots;
-    kr.issue(i, ck, s0);
-    if (with_v) vr.issue(i, cv, s0);
-    if (threadIdx.x < kSlots / 4)
-      cp_async16(smem_u32(kp + i * kSlots) + threadIdx.x * 16, keff + s0 + threadIdx.x * 4, 16);
-  };
-  // S = Q K^T for this warp's 16 rows and the tile's 32 slots, scaled and
-  // masked: sc[n-tile][(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)]
-  auto scores = [&](int i, float (&sc)[4][4]) {
-    const uint32_t kt = kr.tile(i);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4];
-      ldsm_x4(qa, q_smem + swz<HD>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t kb[4];
-        ldsm_x4(kb, kt + swz<HD>(p * 16 + ((lane >> 4) << 3) + (lane & 7),
-                                 kk * 2 + ((lane >> 3) & 1)));
-        mma16816(sc[2 * p], qa, kb[0], kb[1]);
-        mma16816(sc[2 * p + 1], qa, kb[2], kb[3]);
-      }
-    }
-    const int* kpt = kp + i * kSlots;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int ke = kpt[nt * 8 + 2 * t4 + e];
-        sc[nt][e] = ke <= qp0 ? sc[nt][e] * a.scale : kMasked;
-        sc[nt][2 + e] = ke <= qp1 ? sc[nt][2 + e] * a.scale : kMasked;
-      }
-  };
+// 8 lanes of a raw row widened to bf16 as dequant_kv does: f32 rounded;
+// int8 bf16(q) x bf16(scale) rounded; int4 (nibble - 8) x bf16(scale)
+// rounded. Integers become bf16 pairs exactly by bits, without conversion
+// instructions: 0x4300 | u is the bf16 128 + u for u < 128, so an int8
+// byte b gives q = bf16(0x4300 | (b & 0x7f)) - bf16(0x4300 | (b & 0x80))
+// (128 + low7 less 128, or less 256 for a negative q), and a nibble n
+// gives n - 8 = bf16(0x4300 | n) - 136; both differences are exact. One
+// bf16x2 multiply by (scale, scale) then rounds each product q x scale
+// to bf16 as the plain version's bf16 product does (the exact product of
+// two bf16 values fits an f32).
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t x, uint32_t s2) {
+  uint32_t y;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(y) : "r"(x), "r"(s2));
+  return y;
+}
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t x, uint32_t c) {
+  uint32_t y;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(y) : "r"(x), "r"(c));
+  return y;
+}
 
-  // sweep 1: the online max and sum of each row
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-  if (n > 0) issue(0, false);
-  cp_async_commit();
-  for (int j = 0; j < n; ++j) {
-    if (j + 1 < n) issue(j + 1, false);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if constexpr (KIND != kBf16) {
-      kr.widen(j & 1, a.grp);
-      __syncthreads();
-    }
-    float sc[4][4];
-    scores(j & 1, sc);
-    float x0 = -INFINITY, x1 = -INFINITY;
+// the raw bytes of 8 lanes: f32 32, int8 8, int4 4
+template <int KIND>
+struct Raw8 {
+  uint32_t w[KIND == attn::kF32 ? 8 : KIND == attn::kInt8 ? 2 : 1];
+};
+template <int KIND>
+__device__ __forceinline__ Raw8<KIND> load_raw8(const unsigned char* raw) {
+  Raw8<KIND> r;
+  if constexpr (KIND == attn::kF32) {
+    const uint4 a = *reinterpret_cast<const uint4*>(raw), b = *reinterpret_cast<const uint4*>(raw + 16);
+    r = {{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+  } else if constexpr (KIND == attn::kInt8) {
+    const uint2 a = *reinterpret_cast<const uint2*>(raw);
+    r = {{a.x, a.y}};
+  } else {
+    r = {{*reinterpret_cast<const uint32_t*>(raw)}};
+  }
+  return r;
+}
+
+template <int KIND>
+__device__ __forceinline__ uint4 widen8(const Raw8<KIND>& raw, float scale) {
+  using attn::pack_bf16;
+  if constexpr (KIND == attn::kF32) {
+    float x[8];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      x0 = fmaxf(x0, fmaxf(sc[nt][0], sc[nt][1]));
-      x1 = fmaxf(x1, fmaxf(sc[nt][2], sc[nt][3]));
-    }
+    for (int e = 0; e < 8; ++e) x[e] = __uint_as_float(raw.w[e]);
+    return make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]), pack_bf16(x[4], x[5]),
+                      pack_bf16(x[6], x[7]));
+  } else if constexpr (KIND == attn::kInt8) {
+    const uint2 u = make_uint2(raw.w[0], raw.w[1]);
+    const uint32_t s2 = pack_bf16(scale, scale);
+    uint32_t o[4];
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
-      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+    for (int e = 0; e < 4; ++e) {  // bytes 2e, 2e + 1 -> the low and high halves
+      const int lo = 2 * (e & 1);
+      const uint32_t t = __byte_perm(e < 2 ? u.x : u.y, 0u, 0x4040 | ((lo + 1) << 8) | lo);
+      o[e] = bf16x2_mul(
+          bf16x2_sub((t & 0x007f007fu) | 0x43004300u, (t & 0x00800080u) | 0x43004300u), s2);
     }
-    const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
-    float e0 = 0.0f, e1 = 0.0f;
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  } else {  // byte e holds lanes 2e (low nibble) and 2e + 1, biased by 8
+    const uint32_t u = raw.w[0], u4 = u >> 4;
+    const uint32_t s2 = pack_bf16(scale, scale);
+    uint32_t o[4];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      e0 += expf(sc[nt][0] - n0) + expf(sc[nt][1] - n0);
-      e1 += expf(sc[nt][2] - n1) + expf(sc[nt][3] - n1);
-    }
-    l0 = l0 * expf(m0 - n0) + e0;
-    l1 = l1 * expf(m1 - n1) + e1;
-    m0 = n0;
-    m1 = n1;
-    __syncthreads();  // the stage is read: the next issue may overwrite it
+    for (int e = 0; e < 4; ++e)  // byte e's nibbles -> the low and high halves
+      o[e] = bf16x2_mul(
+          bf16x2_sub((__byte_perm(u, u4, e | ((4 + e) << 8)) & 0x000f000fu) | 0x43004300u,
+                     0x43084308u),
+          s2);
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// 2^x (MUFU.EX2, relative error ~2^-22; flushes results under 2^-126 to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+
+// keeps the compiler from moving reads of a wgmma sum above its wait
+__device__ __forceinline__ void fence_acc(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+
+// S = Q K^T for a consumer's 64 rows and a tile's N slots, issued (one
+// commit group): the chunks of kSw bytes of the depth, 16 deep a product.
+template <int KIND, int HD>
+__device__ __forceinline__ void issue_scores(float (&s)[L<KIND, HD>::kN / 2], uint32_t q_tile,
+                                             uint32_t k_tile) {
+  using T = L<KIND, HD>;
+  hop::wgmma_fence();
+#pragma unroll
+  for (int ch = 0; ch < T::kChunks; ++ch)
+#pragma unroll
+    for (int kk = 0; kk < T::kSw / 32; ++kk)
+      hop::wgmma_bf16_ss(hop::Int<T::kN>{}, s,
+                         hop::desc_sw<T::kSw>(q_tile + ch * pattn::kRows * T::kSw + kk * 32),
+                         hop::desc_sw<T::kSw>(k_tile + ch * T::kN * T::kSw + kk * 32),
+                         ch > 0 || kk > 0);
+  hop::wgmma_commit();
+}
+
+// Once its group has completed: slot col of row r keeps its raw score
+// where keff[col] <= qpos[r], else -1e30. A tile whose every slot this
+// warp's rows attend (its largest keff at most their least qpos, the usual
+// case away from the diagonal and the pads) is left as it is.
+template <int N>
+__device__ __forceinline__ void mask_scores(float (&s)[N / 2], const int* kf, int t4, int lane,
+                                            int qp0, int qp1, int wqmin) {
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) fence_acc(s[e]);
+  int kmax = INT_MIN;
+#pragma unroll
+  for (int i = 0; i < N / 32; ++i) kmax = max(kmax, kf[32 * i + lane]);
+  if (__reduce_max_sync(0xffffffffu, kmax) <= wqmin) return;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int2 ke = *reinterpret_cast<const int2*>(kf + 8 * j + 2 * t4);
+    if (ke.x > qp0) s[4 * j] = kMasked;
+    if (ke.y > qp0) s[4 * j + 1] = kMasked;
+    if (ke.x > qp1) s[4 * j + 2] = kMasked;
+    if (ke.y > qp1) s[4 * j + 3] = kMasked;
+  }
+}
+
+// The online max and sum of rows r0 and r1 (this lane's columns; the max
+// shared by the row's four lanes) after one more masked raw score tile: m
+// the raw max, l the sum of 2^(x c2 - m c2), c2 = scale x log2(e).
+template <int N>
+__device__ __forceinline__ void online_stats(const float (&s)[N / 2], float c2, float& m0,
+                                             float& m1, float& l0, float& l1) {
+  float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
+    x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
+    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
   }
+  const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
+  const float nc0 = n0 * c2, nc1 = n1 * c2;
+  float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    e0 += ex2(fmaf(s[4 * j], c2, -nc0)) + ex2(fmaf(s[4 * j + 1], c2, -nc0));
+    e1 += ex2(fmaf(s[4 * j + 2], c2, -nc1)) + ex2(fmaf(s[4 * j + 3], c2, -nc1));
+  }
+  l0 = l0 * ex2((m0 - n0) * c2) + e0;
+  l1 = l1 * ex2((m1 - n1) * c2) + e1;
+  m0 = n0;
+  m1 = n1;
+}
 
-  // sweep 2: p = bf16(exp(s - m) / l), O += P V
-  float o[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.0f;
-  if (n > 0) issue(0, true);
-  cp_async_commit();
-  for (int j = 0; j < n; ++j) {
-    if (j + 1 < n) issue(j + 1, true);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if constexpr (KIND != kBf16) {
-      kr.widen(j & 1, a.grp);
-      vr.widen(j & 1, a.grp);
-      __syncthreads();
+// The attention. One-dimensional grid of query tiles x (batch row, kv head),
+// the tiles with the most positions first; kThreads threads: consumer
+// warpgroups 0 and 1 (warps 0-7), the producer warpgroup (warps 8-11).
+template <int KIND, int HD>
+__global__ void __launch_bounds__(pattn::kThreads, 1)
+prefill_attn(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, Args a) {
+  using T = L<KIND, HD>;
+  constexpr int kN = T::kN, kSw = T::kSw, kR = T::kR;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = hop::smem_u32(smem);
+  const uint32_t qbar = base + T::BAR_OFF;
+  const uint32_t full = qbar + 8, empty = full + 8 * kR;
+  const uint32_t rfull = empty + 8 * kR, rempty = rfull + 8 * T::kRD;
+  const int* keff_st = reinterpret_cast<const int*>(smem + T::KEFF_OFF);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qt = a.qtiles - 1 - static_cast<int>(blockIdx.x) / a.bkv;
+  const int bk = static_cast<int>(blockIdx.x) % a.bkv, b = bk / a.kvh, h = bk - b * a.kvh;
+  const int t0 = qt * pattn::kConsumers * a.npos;
+  const int np = min(pattn::kConsumers * a.npos, a.t - t0);  // positions of this block
+  const int* qp_row = a.qpos + (long long)b * a.t + t0;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(qbar, 1);
+    // bf16: the TMA's arrival; else the producer's 128 threads after widening
+    const uint32_t fill = KIND == attn::kBf16 ? 1 : 128;
+    for (int i = 0; i < kR; ++i) {
+      hop::mbar_init(full + 8 * i, fill);
+      hop::mbar_init(empty + 8 * i, 8);  // the consumers' 8 warps
     }
-    float sc[4][4];
-    scores(j & 1, sc);
-    uint32_t pa[2][4];  // the A fragments of P, slots [16 ks, 16 ks + 16)
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      float p[2][4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          p[u][e] = expf(sc[2 * ks + u][e] - m0) / l0;
-          p[u][2 + e] = expf(sc[2 * ks + u][2 + e] - m1) / l1;
+    for (int i = 0; i < T::kRD; ++i) {
+      hop::mbar_init(rfull + 8 * i, T::kScales > 0 ? 129 : 1);  // TMA + each thread's cp.async
+      hop::mbar_init(rempty + 8 * i, 4);                        // the producer's 4 warps
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  int qmax = INT_MIN;
+  for (int i = lane; i < np; i += 32) qmax = max(qmax, __ldg(qp_row + i));
+  qmax = __reduce_max_sync(0xffffffffu, qmax);
+  TileScan scan{a.tmin + (long long)b * a.ntiles, a.ntiles, qmax, lane, -32, 0u};
+  const int n = scan.count();  // tiles visited, each sweep
+  const int* keff_row = a.keff + (long long)b * a.ntiles * kN;
+
+  if (warp >= 4 * pattn::kConsumers) {  // ---- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(pattn::producer_regs(KIND)));
+    const int ptid = threadIdx.x - 128 * pattn::kConsumers;
+    if (ptid == 0) {  // Q: each consumer's 64 / G positions x G heads, zeros past T
+      hop::mbar_expect_tx(qbar, pattn::kConsumers * T::kChunks * kSw * a.g * a.npos);
+      for (int c = 0; c < pattn::kConsumers; ++c)
+        for (int ch = 0; ch < T::kChunks; ++ch)
+          hop::tma_load_4d(base + T::Q_OFF + (c * T::kChunks + ch) * pattn::kRows * kSw, &qmap,
+                           qbar, ch * (kSw / 2), h * a.g, t0 + c * a.npos, b);
+    }
+    if constexpr (KIND == attn::kBf16) {  // one warp: its first lane issues the loads
+      if (ptid < 32) {
+        // ring step g: tile j of K (with its keff) or V
+        auto load = [&](const CUtensorMap* map, int g, int j, bool with_keff) {
+          const int st = g % kR;
+          hop::mbar_wait(empty + 8 * st, ((g / kR) & 1) ^ 1);
+          if (lane == 0) {
+            hop::mbar_expect_tx(full + 8 * st, T::kTile + (with_keff ? kN * 4 : 0));
+            for (int ch = 0; ch < T::kChunks; ++ch)
+              hop::tma_load_4d(base + T::RING_OFF + st * T::kTile + ch * kN * kSw, map,
+                               full + 8 * st, ch * (kSw / 2), j * kN, h, b);
+            if (with_keff)
+              hop::bulk_load(base + T::KEFF_OFF + st * kN * 4, keff_row + j * kN, kN * 4,
+                             full + 8 * st);
+          }
+        };
+        int g = 0;
+        for (int sw = 0; sw < 2; ++sw) {
+          scan.start();
+          for (int j = scan.next(); j < a.ntiles; j = scan.next()) {
+            load(&kmap, g++, j, true);
+            if (sw) load(&vmap, g++, j, false);
+          }
         }
-      pa[ks][0] = pack_bf16(p[0][0], p[0][1]);
-      pa[ks][1] = pack_bf16(p[0][2], p[0][3]);
-      pa[ks][2] = pack_bf16(p[1][0], p[1][1]);
-      pa[ks][3] = pack_bf16(p[1][2], p[1][3]);
-    }
-    const uint32_t vt = vr.tile(j & 1);
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t vb[4];
-        ldsm_x4_t(vb, vt + swz<HD>(ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                   dp * 2 + (lane >> 4)));
-        mma16816(o[2 * dp], pa[ks], vb[0], vb[1]);
-        mma16816(o[2 * dp + 1], pa[ks], vb[2], vb[3]);
       }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+    } else {  // all 128 threads: raw stages in by TMA and cp.async, widened to bf16
+      constexpr int kRD = T::kRD, kRS = T::kRS, kPP = T::kPP;
+      const int total = 3 * n * kPP;
+      const float* ksc = nullptr;  // the (b, kv head)'s first scale row
+      const float* vsc = nullptr;
+      if constexpr (KIND == attn::kInt8) {
+        ksc = a.k_scale + b * a.sc_b + h * a.sc_r;
+        vsc = a.v_scale + b * a.sc_b + h * a.sc_r;
+      } else if constexpr (KIND == attn::kInt4) {
+        ksc = a.k_scale + b * a.sc_b + (long long)h * (HD / 32) * a.sc_r;
+        vsc = a.v_scale + b * a.sc_b + (long long)h * (HD / 32) * a.sc_r;
+      }
+      int iss_sw = -1, iss_i = -1, iss_j = 0;
+      auto issue = [&](int p) {  // raw stage p into slot p % kRD
+        const Step id = step_at(p / kPP, n);
+        const int sub = p % kPP;
+        if (id.sw != iss_sw) {
+          scan.start();
+          iss_sw = id.sw;
+          iss_i = -1;
+        }
+        if (id.i != iss_i) {
+          iss_j = scan.next();
+          iss_i = id.i;
+        }
+        const int slot = p % kRD, s0 = iss_j * kN + sub * kRS;
+        const uint32_t full = rfull + 8 * slot;
+        hop::mbar_wait(rempty + 8 * slot, ((p / kRD) & 1) ^ 1);
+        if (ptid == 0) {
+          hop::mbar_expect_tx(full, kRS * T::kRowBytes + (id.v ? 0 : kRS * 4));
+          hop::tma_load_4d(base + T::RAW_OFF + slot * kRS * T::kRowBytes, id.v ? &vmap : &kmap,
+                           full, 0, s0, h, b);
+          if (!id.v)
+            hop::bulk_load(base + T::RKE_OFF + slot * kRS * 4, keff_row + s0, kRS * 4, full);
+        }
+        if constexpr (T::kScales > 0) {  // [slot][group] in shared memory
+          constexpr int kG = T::kScales / kRS;
+          const float* sc = id.v ? vsc : ksc;
+          for (int e = ptid; e < T::kScales; e += 128) {
+            const int gr = e / kRS, r = e - gr * kRS, at = s0 + r;
+            attn::cp_async4(base + T::RSC_OFF + (slot * T::kScales + r * kG + gr) * 4,
+                            sc + gr * a.sc_r + min(at, a.s - 1), at < a.s ? 4 : 0);
+          }
+          hop::cp_async_mbar_arrive(full);
+        }
+      };
+      auto widen = [&](int p) {  // raw stage p into its ring step's bf16 tile
+        const int g = p / kPP, sub = p % kPP, st = g % kR;
+        const bool v = step_at(g, n).v;
+        if (sub == 0) hop::mbar_wait(empty + 8 * st, ((g / kR) & 1) ^ 1);
+        const int slot = p % kRD;
+        hop::mbar_wait(rfull + 8 * slot, (p / kRD) & 1);
+        uint8_t* tile = smem + T::RING_OFF + st * T::kTile;
+        const uint8_t* raw = smem + T::RAW_OFF + slot * kRS * T::kRowBytes;
+        const float* scl = reinterpret_cast<const float*>(smem + T::RSC_OFF) + slot * T::kScales;
+        // units of 8 lanes: a row holds kU, a thread takes kPer, a batch of
+        // kB loaded before any is widened and stored (the compiler cannot
+        // move a load above a store to shared memory it cannot tell apart)
+        constexpr int kU = HD / 8, kPer = kRS * kU / 128;
+        constexpr int kB = KIND == attn::kF32 ? 2 : 4;  // 8 measured 2% slower, 16 spilled
+        static_assert(kRS * kU % 128 == 0 && kPer % kB == 0, "whole batches a thread");
+#pragma unroll 1
+        for (int i0 = 0; i0 < kPer; i0 += kB) {
+          Raw8<KIND> x[kB];
+          float sc[kB];
+#pragma unroll
+          for (int k = 0; k < kB; ++k) {
+            const int u = ptid + 128 * (i0 + k), r = u / kU, c = u - r * kU;
+            x[k] = load_raw8<KIND>(raw + r * T::kRowBytes + c * (T::kRowBytes / kU));
+            sc[k] = KIND == attn::kInt8 ? scl[r] : KIND == attn::kInt4 ? scl[r * (HD / 32) + c / 4]
+                                                                       : 0.0f;
+          }
+#pragma unroll
+          for (int k = 0; k < kB; ++k) {
+            const int u = ptid + 128 * (i0 + k), r = u / kU, c = u - r * kU;
+            *reinterpret_cast<uint4*>(tile + (c / T::kCw) * kN * kSw +
+                                      hop::swz_row<kSw>(sub * kRS + r, c % T::kCw)) =
+                widen8<KIND>(x[k], sc[k]);
+          }
+        }
+        if (!v) {
+          int* kf = reinterpret_cast<int*>(smem + T::KEFF_OFF) + st * kN + sub * kRS;
+          const int* rk = reinterpret_cast<const int*>(smem + T::RKE_OFF) + slot * kRS;
+          for (int r = ptid; r < kRS; r += 128) kf[r] = rk[r];
+        }
+        hop::fence_proxy_async();  // the tile's generic writes, visible to wgmma
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(rempty + 8 * slot);
+        if (sub == kPP - 1) hop::mbar_arrive(full + 8 * st);
+      };
+      for (int p = 0; p < kRD - 1 && p < total; ++p) issue(p);
+      for (int p = 0; p < total; ++p) {
+        if (p + kRD - 1 < total) issue(p + kRD - 1);
+        widen(p);
+      }
+    }
+  } else {  // ---- consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(pattn::consumer_regs(KIND)));
+    const int c = warp >> 2, wq = warp & 3, ctid = threadIdx.x & 127, t4 = lane & 3;
+    const int nrows = a.g * a.npos;  // rows of this consumer's tile (64 when G divides 64)
+    const int tc = t0 + c * a.npos;
+    const int r0 = 16 * wq + (lane >> 2), r1 = r0 + 8;
+    const bool ok0 = r0 < nrows && tc + r0 / a.g < a.t;
+    const bool ok1 = r1 < nrows && tc + r1 / a.g < a.t;
+    const int qp0 = ok0 ? __ldg(a.qpos + (long long)b * a.t + tc + r0 / a.g) : INT_MIN;
+    const int qp1 = ok1 ? __ldg(a.qpos + (long long)b * a.t + tc + r1 / a.g) : INT_MIN;
+    const uint32_t q_tile = base + T::Q_OFF + c * T::kChunks * pattn::kRows * kSw;
+    if (nrows < pattn::kRows) {  // rows past the tile's: zeros (the TMA box writes nrows)
+      for (int e = ctid; e < (pattn::kRows - nrows) * (HD / 8); e += 128) {
+        const int r = nrows + e / (HD / 8), cc = e % (HD / 8);
+        *reinterpret_cast<uint4*>(smem + (q_tile - base) + (cc / T::kCw) * pattn::kRows * kSw +
+                                  hop::swz_row<kSw>(r, cc % T::kCw)) = make_uint4(0, 0, 0, 0);
+      }
+      hop::fence_proxy_async();
+      hop::bar_sync(1 + c, 128);
+    }
+    hop::mbar_wait(qbar, 0);
+    auto release = [&](uint32_t empty) {  // this warp has read the stage
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(empty);
+    };
 
-  // rows with no attendable slot: bf16(1/S) times V summed over all slots
-  const float w = round_bf16(1.0f / static_cast<float>(a.s));
-  const float* vs = a.vsum + (long long)bk * HD;
-  const bool all0 = m0 <= kMasked, all1 = m1 <= kMasked;
+    // the least qpos of this warp's rows (a row past the tile's masks
+    // nothing: its output is not stored)
+    int wqmin = min(ok0 ? qp0 : INT_MAX, ok1 ? qp1 : INT_MAX);
+    wqmin = __reduce_min_sync(0xffffffffu, wqmin);
+    // scores are kept raw (q.k); the scale goes into c2 = scale x log2(e),
+    // and the row max of the raw scores times scale is the max of the
+    // scaled ones (a positive factor, rounding monotone)
+    const float c2 = a.scale * kLog2e;
+    // turns: a warpgroup issues each of its products between turn_begin and
+    // turn_end, the two warpgroups in alternation (named barriers 3 and 4),
+    // so one's softmax runs while the other's products do
+    auto turn_begin = [&]() { hop::bar_sync(3 + c, 256); };
+    auto turn_end = [&]() { hop::bar_arrive(4 - c, 256); };
+    if (c == 1) hop::bar_arrive(3, 256);  // warpgroup 0 goes first
+    auto wait_full = [&](int g) { hop::mbar_wait(full + 8 * (g % kR), (g / kR) & 1); };
+    auto tile_at = [&](int g) { return base + T::RING_OFF + (g % kR) * T::kTile; };
+    // ring step g's raw scores into s, masked; the stage released
+    auto scores = [&](float (&s)[kN / 2], int g) {
+      wait_full(g);
+      turn_begin();
+      issue_scores<KIND, HD>(s, q_tile, tile_at(g));
+      turn_end();
+      hop::wgmma_wait<0>();
+      mask_scores<kN>(s, keff_st + (g % kR) * kN, t4, lane, qp0, qp1, wqmin);
+      release(empty + 8 * (g % kR));
+    };
+
+    // sweep 1: the online max and sum of each row
+    float sc[kN / 2];
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+    for (int g = 0; g < n; ++g) {
+      scores(sc, g);
+      online_stats<kN>(sc, c2, m0, m1, l0, l1);
+    }
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (r >= nrows) continue;
-    const bool all = half ? all1 : all0;
-    float* dst = a.out + (((long long)b * a.t + t0 + r / a.g) * heads + h * a.g + r % a.g) * HD;
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    // sweep 2's p = 2^(x c2 - m c2) x (1 / l), x the raw score: within
+    // ~1e-6 of itself of exp(x scale - m scale) / l, inside
+    // rounding_tolerance's 1e-5
+    const float mc0 = m0 * c2, mc1 = m1 * c2, rl0 = 1.0f / l0, rl1 = 1.0f / l1;
+
+    // sweep 2: p = bf16(exp(s - m) / l), O += P V; tile i's K at ring step
+    // n + 2 i, its V at n + 2 i + 1
+    float o[HD / 2];
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
-      const int col = nt * 8 + 2 * t4;
-      float2 y = make_float2(o[nt][2 * half], o[nt][2 * half + 1]);
-      if (all) y = make_float2(w * vs[col], w * vs[col + 1]);
-      *reinterpret_cast<float2*>(dst + col) = y;
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const int gv = n + 2 * i + 1;
+      scores(sc, gv - 1);
+      // the A fragments of P, slots [16 ks, 16 ks + 16): pa[ks][e] holds the
+      // pair of accumulator entries 8 ks + 2 e, + 1 (row r0 for even e, r1 odd)
+      uint32_t pa[kN / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kN / 16; ++ks)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mc = e & 1 ? mc1 : mc0, rl = e & 1 ? rl1 : rl0;
+          pa[ks][e] = attn::pack_bf16(ex2(fmaf(sc[8 * ks + 2 * e], c2, -mc)) * rl,
+                                      ex2(fmaf(sc[8 * ks + 2 * e + 1], c2, -mc)) * rl);
+        }
+      wait_full(gv);
+      turn_begin();
+      hop::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kN / 16; ++ks)  // V MN-major: 16 slot rows a k-step
+        hop::wgmma_bf16_rs_tb(hop::Int<HD>{}, o, pa[ks],
+                              hop::desc_sw<kSw>(tile_at(gv) + ks * 16 * kSw, kN * kSw), 1);
+      hop::wgmma_commit();
+      turn_end();
+      hop::wgmma_wait<0>();
+      release(empty + 8 * (gv % kR));
+    }
+    if (c == 0) hop::bar_sync(3, 256);  // warpgroup 1's last arrival
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) fence_acc(o[i]);
+
+    // rows with no attendable slot: bf16(1/S) times V summed over all slots
+    const float w = attn::round_bf16(1.0f / static_cast<float>(a.s));
+    const float* vs = a.vsum + (long long)bk * HD;
+    const int heads = a.kvh * a.g;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0;
+      if (!(half ? ok1 : ok0)) continue;
+      const bool dead = (half ? m1 : m0) <= kMasked;
+      float* dst = a.out + (((long long)b * a.t + tc + r / a.g) * heads + h * a.g + r % a.g) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        float2 y = make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+        if (dead) y = make_float2(w * vs[col], w * vs[col + 1]);
+        *reinterpret_cast<float2*>(dst + col) = y;
+      }
     }
   }
 }
 
 template <int KIND, int HD>
-size_t attn_smem(int ntiles) {
-  using R = Ring<KIND, HD, kSlots, kThreads>;
-  return (size_t)kRows * HD * 2 + 2 * (size_t)R::kBytes + 2 * kSlots * sizeof(int) +
-         ((size_t)ntiles + 1) * sizeof(int);
-}
-
-template <int KIND, int HD>
-cudaError_t launch(const Args& a, int bkv, cudaStream_t stream) {
-  prefill_prep<KIND, HD><<<dim3(a.nchunks, bkv), kPrepThreads, 0, stream>>>(a);
+cudaError_t launch(const Args& a, const pattn::Maps& m, const int* plan, cudaStream_t stream) {
+  using T = L<KIND, HD>;
+  if (plan[0] != T::kN || plan[1] != T::kR || plan[2] != T::kRS || plan[3] != T::kRD ||
+      plan[4] != T::kBytes)
+    return cudaErrorInvalidValue;  // the Python plan disagrees with this layout
+  prefill_prep<KIND, HD><<<dim3(a.nchunks, a.bkv), kPrepThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int total = bkv * HD;
+  const int total = a.bkv * HD;
   prefill_vsum<<<(total + 255) / 256, 256, 0, stream>>>(a, total);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem = attn_smem<KIND, HD>(a.ntiles);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
   if ((err = cudaFuncSetAttribute(prefill_attn<KIND, HD>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(smem))) != cudaSuccess)
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes)) !=
+      cudaSuccess)
     return err;
-  const int qtiles = (a.t + a.npos - 1) / a.npos;
-  prefill_attn<KIND, HD><<<dim3(qtiles, bkv), kThreads, smem, stream>>>(a);
+  prefill_attn<KIND, HD><<<a.qtiles * a.bkv, pattn::kThreads, T::kBytes, stream>>>(m.q, m.k,
+                                                                                   m.v, a);
   return cudaGetLastError();
 }
 
 template <int KIND>
-cudaError_t dispatch(const Args& a, int bkv, cudaStream_t stream) {
+cudaError_t dispatch(const Args& a, const pattn::Maps& m, const int* plan, cudaStream_t stream) {
   switch (a.hd) {
-    case 32: return launch<KIND, 32>(a, bkv, stream);
-    case 64: return launch<KIND, 64>(a, bkv, stream);
-    case 128: return launch<KIND, 128>(a, bkv, stream);
-    case 256: return launch<KIND, 256>(a, bkv, stream);
+    case 32: return launch<KIND, 32>(a, m, plan, stream);
+    case 64: return launch<KIND, 64>(a, m, plan, stream);
+    case 128: return launch<KIND, 128>(a, m, plan, stream);
+    case 256: return launch<KIND, 256>(a, m, plan, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -447,49 +860,77 @@ cudaError_t dispatch(const Args& a, int bkv, cudaStream_t stream) {
 namespace pattn {
 
 #if IN_PART(0)
-cudaError_t launch_bf16(const Args& a, int bkv, cudaStream_t stream) {
-  return dispatch<kBf16>(a, bkv, stream);
+cudaError_t launch_bf16(const Args& a, const Maps& m, const int* plan, cudaStream_t stream) {
+  return dispatch<attn::kBf16>(a, m, plan, stream);
 }
 #endif
 #if IN_PART(1)
-cudaError_t launch_f32(const Args& a, int bkv, cudaStream_t stream) {
-  return dispatch<kF32>(a, bkv, stream);
+cudaError_t launch_f32(const Args& a, const Maps& m, const int* plan, cudaStream_t stream) {
+  return dispatch<attn::kF32>(a, m, plan, stream);
 }
 #endif
 #if IN_PART(2)
-cudaError_t launch_int8(const Args& a, int bkv, cudaStream_t stream) {
-  return dispatch<kInt8>(a, bkv, stream);
+cudaError_t launch_int8(const Args& a, const Maps& m, const int* plan, cudaStream_t stream) {
+  return dispatch<attn::kInt8>(a, m, plan, stream);
 }
 #endif
 #if IN_PART(3)
-cudaError_t launch_int4(const Args& a, int bkv, cudaStream_t stream) {
-  return dispatch<kInt4>(a, bkv, stream);
+cudaError_t launch_int4(const Args& a, const Maps& m, const int* plan, cudaStream_t stream) {
+  return dispatch<attn::kInt4>(a, m, plan, stream);
 }
 #endif
 
 }  // namespace pattn
 
 #if IN_PART(0)
+namespace {
+
+// The cache layer [B, KV, S, row] for TMA: bf16 in swizzled boxes of
+// [kSw / 2 lanes, tile slots]; any other kind raw, boxes of [row, raw slots]
+bool cache_map(CUtensorMap* map, const void* ptr, int kind, int b, int kvh, int s, int hd,
+               long long kv_b, long long kv_h, int sw, int tile, int raw) {
+  const int rb = pattn::row_bytes(kind, hd);
+  const bool f32 = kind == attn::kF32, bf16 = kind == attn::kBf16;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(bf16 || f32 ? hd : rb),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(kvh),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(rb), static_cast<cuuint64_t>(kv_h),
+                                 static_cast<cuuint64_t>(kv_b)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(bf16 ? sw / 2 : f32 ? hd : rb),
+                             static_cast<cuuint32_t>(bf16 ? tile : raw), 1, 1};
+  const CUtensorMapDataType type = bf16  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUtensorMapSwizzle swz = !bf16       ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                 : sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B;
+  return hop::tensor_map_nd(map, type, 4, ptr, dims, strides, box, swz);
+}
+
+}  // namespace
+
 // q: [B, T, KV*G, hd] bf16. k, v: one layer's K and V over S slots (kind 0
 // bf16, 1 f32, 2 int8 with k_scale / v_scale a row of S floats per (b, kv
-// head), 3 nibble-packed int4 with a row per (b, kv head, group of grp
-// lanes)); kv_b / kv_h byte strides, slot rows contiguous; sc_b / sc_r
-// scale strides in floats. qpos [B, T], kpos [B, S] int32, valid [B, S]
-// bool, all contiguous. Scratch: keff int32 [B, ntiles * 32], tmin int32
-// [B, ntiles], vpart f32 [nchunks, B*KV, hd], vsum f32 [B*KV, hd], with
-// ntiles = ceil(S / 32), nchunks = ceil(S / 256). out: [B, T, KV*G*hd] f32.
+// head), 3 nibble-packed int4 with a row per (b, kv head, group of grp = 32
+// lanes)); kv_b / kv_h byte strides (multiples of 16), slot rows
+// contiguous; sc_b / sc_r scale strides in floats. qpos [B, T], kpos [B,
+// S] int32, valid [B, S] bool, all contiguous. Scratch: keff int32 [B,
+// ntiles * tile], tmin int32 [B, ntiles], vpart f32 [nchunks, B*KV, hd],
+// vsum f32 [B*KV, hd], with ntiles = ceil(S / tile), nchunks = ceil(S /
+// 256). out: [B, T, KV*G*hd] f32. tile .. smem: the plan
+// (ops/attention.py::plan_prefill_attention), checked against the kernel's.
 extern "C" int prefill_attention(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale, const void* qpos,
                                  const void* kpos, const void* valid, void* keff, void* tmin,
                                  void* vpart, void* vsum, void* out, int kind, int b, int kvh,
                                  int g, int t, int s, int hd, int grp, long long kv_b,
-                                 long long kv_h, long long sc_b, long long sc_r, float scale,
-                                 void* stream) {
-  if (g < 1 || g > kRows || t < 1 || s < 1 || b * kvh > 65535 || b < 1 || kvh < 1)
+                                 long long kv_h, long long sc_b, long long sc_r, int tile,
+                                 int stages, int raw_slots, int raw_stages, int smem,
+                                 float scale, void* stream) {
+  if (g < 1 || g > pattn::kRows || t < 1 || s < 1 || b < 1 || kvh < 1 || tile < 8 ||
+      (kind == attn::kInt4 && grp != 32) || kv_b % 16 || kv_h % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const unsigned char*>(k);
+  pattn::Args a;
   a.v = static_cast<const unsigned char*>(v);
   a.k_scale = static_cast<const float*>(k_scale);
   a.v_scale = static_cast<const float*>(v_scale);
@@ -511,17 +952,37 @@ extern "C" int prefill_attention(const void* q, const void* k, const void* v,
   a.s = s;
   a.hd = hd;
   a.grp = grp;
-  a.ntiles = (s + kSlots - 1) / kSlots;
+  a.ntiles = (s + tile - 1) / tile;
   a.nchunks = (s + kPrepSlots - 1) / kPrepSlots;
-  a.npos = kRows / g;
+  a.npos = pattn::kRows / g;
+  a.qtiles = (t + pattn::kConsumers * a.npos - 1) / (pattn::kConsumers * a.npos);
+  a.bkv = b * kvh;
   a.scale = scale;
+  if (static_cast<long long>(a.qtiles) * a.bkv > INT_MAX || a.bkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sw = hd >= 64 ? 128 : 64;
+  pattn::Maps m;
+  const int h = kvh * g;
+  const cuuint64_t qdims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(h),
+                               static_cast<cuuint64_t>(t), static_cast<cuuint64_t>(b)};
+  const cuuint64_t qstrides[3] = {static_cast<cuuint64_t>(hd) * 2,
+                                  static_cast<cuuint64_t>(h) * hd * 2,
+                                  static_cast<cuuint64_t>(t) * h * hd * 2};
+  const cuuint32_t qbox[4] = {static_cast<cuuint32_t>(sw / 2), static_cast<cuuint32_t>(g),
+                              static_cast<cuuint32_t>(a.npos), 1};
+  if (!hop::tensor_map_nd(&m.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, q, qdims, qstrides, qbox,
+                          sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !cache_map(&m.k, k, kind, b, kvh, s, hd, kv_b, kv_h, sw, tile, raw_slots) ||
+      !cache_map(&m.v, v, kind, b, kvh, s, hd, kv_b, kv_h, sw, tile, raw_slots))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int plan[5] = {tile, stages, raw_slots, raw_stages, smem};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (kind) {
-    case kBf16: err = pattn::launch_bf16(a, b * kvh, st); break;
-    case kF32: err = pattn::launch_f32(a, b * kvh, st); break;
-    case kInt8: err = pattn::launch_int8(a, b * kvh, st); break;
-    case kInt4: err = pattn::launch_int4(a, b * kvh, st); break;
+    case attn::kBf16: err = pattn::launch_bf16(a, m, plan, st); break;
+    case attn::kF32: err = pattn::launch_f32(a, m, plan, st); break;
+    case attn::kInt8: err = pattn::launch_int8(a, m, plan, st); break;
+    case attn::kInt4: err = pattn::launch_int4(a, m, plan, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -17,7 +17,8 @@ softmax, and run f32 products over them. Two kernels compute
 - :func:`prefill_attention`: any number of query positions (prefill over
   the cache, the no-cache forward of the capture and the traces) with bf16
   compute, the mask in structured form ``(kpos <= qpos) & valid``;
-  ``kernels/csrc/prefill_attention.cu`` (three launches counted as one).
+  ``kernels/csrc/prefill_attention.cu`` (three launches counted as one;
+  wgmma behind a TMA ring, planned by :func:`plan_prefill_attention`).
 
 CUDA tensors launch the kernel (or raise); CPU tensors take the plain
 version (:func:`decode_attention_plain`, :func:`prefill_attention_plain`);
@@ -49,11 +50,9 @@ from probing_rag_tpu_torch import kernels
 TILE = 128
 MAX_ROWS = 64
 MAX_HEAD_DIM = 256
-# prefill_attention.cu: query rows a block (positions x G), the head dims it
-# takes, slots a K tile and a prep chunk
-PREFILL_ROWS = 64
+# prefill_attention.cu: the head dims it takes, slots a prep chunk (the rest
+# of its geometry is plan_prefill_attention's)
 PREFILL_HEAD_DIMS = (32, 64, 128, 256)
-PREFILL_TILE = 32
 PREFILL_CHUNK = 256
 # splits: about this many blocks an SM over all (batch row, kv head) pairs
 _BLOCKS_PER_SM = 2
@@ -348,14 +347,102 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
 
 # --------------------------------------------------------------- prefill
 
+# prefill_attention.cu's layout constants (its namespace pattn)
+_SMEM_BUDGET = 232_448  # shared memory a block may use (227 KB)
+_SMEM_SLACK = 1024  # the dynamic base aligned up to 1024 bytes
+_CONSUMER_ROWS = 64  # query rows a consumer warpgroup: wgmma's M
+_CONSUMERS = 2
+# setmaxnreg, consumer and producer: 2 x consumer + producer <= 3 x 168; a
+# producer that widens a raw ring gets 56
+_REGS = {0: (232, 40), 1: (224, 56), 2: (224, 56), 3: (224, 56)}
+_MAX_STAGES = 6
+_RAW_MAX_STAGES = 4
+_RAW_MAX_BYTES = 16_384  # raw rows a raw stage at most
+_ROW_BYTES = {0: lambda hd: hd * 2, 1: lambda hd: hd * 4, 2: lambda hd: hd, 3: lambda hd: hd // 2}
+
+
+@dataclass(frozen=True)
+class PrefillPlan:
+    """How ``prefill_attention.cu`` runs one (cache kind, head dim): a block
+    of ``threads`` = ``consumers`` warpgroups of ``rows`` query rows (``rows
+    // groups`` positions x the G heads of one kv head) and one producer
+    warpgroup, at ``consumer_regs`` / ``producer_regs`` registers a thread
+    (setmaxnreg); K and V tiles of ``tile`` slots (the wgmma N of S = Q
+    K^T) in one ring of ``stages`` stages, in the order the consumers read
+    them; for a cache that is not bf16, a raw ring of ``raw_stages`` stages
+    of ``raw_slots`` slots that the producer widens into the ring;
+    ``smem`` bytes of dynamic shared memory a block, with 1024 of alignment
+    slack. ``positions`` a block: ``consumers x (rows // groups)``."""
+
+    tile: int
+    rows: int
+    consumers: int
+    positions: int
+    threads: int
+    consumer_regs: int
+    producer_regs: int
+    stages: int
+    raw_slots: int
+    raw_stages: int
+    smem: int
+
+
+def _prefill_smem(kind: int, hd: int, tile: int, raw: int, r: int, rd: int) -> int:
+    """Bytes of the block's layout: Q, ``r`` ring stages (a bf16 tile and
+    its keff), ``rd`` raw stages (rows, scales, keff), the mbarriers, the
+    slack."""
+    rb = _ROW_BYTES[kind](hd)
+    scales = raw if kind == 2 else hd // 32 * raw if kind == 3 else 0
+    raw_stage = raw * (rb + 4) + scales * 4
+    return (_CONSUMERS * _CONSUMER_ROWS * hd * 2 + r * tile * (hd * 2 + 4) + rd * raw_stage
+            + 8 * (1 + 2 * (r + rd)) + _SMEM_SLACK)
+
+
+def plan_prefill_attention(kind: torch.dtype, head_dim: int, groups: int) -> PrefillPlan:
+    """The geometry of ``prefill_attention.cu`` for a cache of dtype ``kind``
+    (bf16, f32, int8, or uint8 for int4) at ``head_dim`` with ``groups``
+    query heads a kv head; the C entry checks it against the kernel's own.
+    Tiles of 64 slots at head dim 256 (the score tile's 32 registers, its
+    bf16 fragments' 16 and the output's 128 fit the consumers' 224), 128
+    below. A bf16 cache: the most ring stages that fit, up to 6. Beside a
+    raw ring (at most 16 KB of raw rows a raw stage): 4 ring stages where
+    three raw stages still fit, else 3; then as many raw stages as fit, up
+    to 4."""
+    if kind not in _KINDS or head_dim not in PREFILL_HEAD_DIMS:
+        raise ValueError(f"no prefill plan for a {kind} cache at head_dim {head_dim}")
+    if not 1 <= groups <= _CONSUMER_ROWS:
+        raise ValueError(f"no prefill plan for {groups} query heads a kv head")
+    k = _KINDS[kind]
+    tile = 64 if head_dim >= 256 else 128
+    rb = _ROW_BYTES[k](head_dim)
+    raw = 0 if k == 0 else tile if tile * rb <= _RAW_MAX_BYTES else _RAW_MAX_BYTES // rb
+
+    def fits(r, rd):
+        return _prefill_smem(k, head_dim, tile, raw, r, rd) <= _SMEM_BUDGET
+
+    if k == 0:
+        r, rd = next((r for r in range(_MAX_STAGES, 2, -1) if fits(r, 0)), 2), 0
+    else:
+        r = 4 if fits(4, 3) else 3 if fits(3, 3) else 2
+        rd = next((rd for rd in range(_RAW_MAX_STAGES, 1, -1) if fits(r, rd)), 1)
+    return PrefillPlan(tile=tile, rows=_CONSUMER_ROWS, consumers=_CONSUMERS,
+                       positions=_CONSUMERS * (_CONSUMER_ROWS // groups),
+                       threads=128 * (_CONSUMERS + 1), consumer_regs=_REGS[k][0],
+                       producer_regs=_REGS[k][1], stages=r, raw_slots=raw, raw_stages=rd,
+                       smem=_prefill_smem(k, head_dim, tile, raw, r, rd))
+
+
+# the plan of the last prefill launched on the card (read by chip_smoke.py)
+last_prefill_plan: PrefillPlan | None = None
+
 
 def prefill_kernel_takes(groups: int, head_dim: int) -> bool:
     """Whether ``prefill_attention.cu`` takes ``groups`` query heads a kv
-    head at ``head_dim``: a block holds 64 query rows (64 / G positions x
-    the G heads), and the head dim is one of its instantiations (Gemma-2B
-    G 8 x 256, Mistral-7B G 4 x 128, the tiny test model G 2 x 32).
-    ``tiny_mistral`` (head dim 16) does not: it runs the plain ops."""
-    return 1 <= groups <= PREFILL_ROWS and head_dim in PREFILL_HEAD_DIMS
+    head at ``head_dim``: a consumer warpgroup holds 64 query rows (64 / G
+    positions x the G heads), and the head dim is one of its instantiations
+    (Gemma-2B G 8 x 256, Mistral-7B G 4 x 128, the tiny test model G 2 x
+    32). ``tiny_mistral`` (head dim 16) does not: it runs the plain ops."""
+    return 1 <= groups <= _CONSUMER_ROWS and head_dim in PREFILL_HEAD_DIMS
 
 
 def structured_mask(qpos: torch.Tensor, kpos: torch.Tensor,
@@ -424,17 +511,19 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: t
         raise TypeError(f"prefill_attention kernel takes bf16 compute and q, got {dt}, {q.dtype}")
     groups = h // kv
     if not prefill_kernel_takes(groups, hd):
-        raise ValueError(f"prefill_attention kernel takes G <= {PREFILL_ROWS} and a head_dim in "
-                         f"{PREFILL_HEAD_DIMS}; got G {groups}, head_dim {hd}")
+        raise ValueError(f"prefill_attention kernel takes G <= {_CONSUMER_ROWS} and a head_dim "
+                         f"in {PREFILL_HEAD_DIMS}; got G {groups}, head_dim {hd}")
     kv_b, kv_h, sc_b, sc_r = _cache_strides(k, v, k_scale, v_scale)
     q = q.contiguous()
     qpos = qpos.to(torch.int32).contiguous()
     kpos = kpos.to(torch.int32).contiguous()
     valid = (torch.ones((b, s), dtype=torch.bool, device=dev) if valid is None
              else valid.contiguous())
-    ntiles = -(-s // PREFILL_TILE)
+    global last_prefill_plan
+    plan = plan_prefill_attention(k.dtype, hd, groups)
+    ntiles = -(-s // plan.tile)
     nchunks = -(-s // PREFILL_CHUNK)
-    keff = torch.empty((b, ntiles * PREFILL_TILE), dtype=torch.int32, device=dev)
+    keff = torch.empty((b, ntiles * plan.tile), dtype=torch.int32, device=dev)
     tmin = torch.empty((b, ntiles), dtype=torch.int32, device=dev)
     vpart = torch.empty((nchunks, b * kv, hd), dtype=torch.float32, device=dev)
     vsum = torch.empty((b * kv, hd), dtype=torch.float32, device=dev)
@@ -449,9 +538,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: t
                 0 if v_scale is None else v_scale.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
                 valid.data_ptr(), keff.data_ptr(), tmin.data_ptr(), vpart.data_ptr(),
                 vsum.data_ptr(), out.data_ptr(), _KINDS[k.dtype], b, kv, groups, t, s, hd,
-                kv4_group(hd), kv_b, kv_h, sc_b, sc_r, scale, kernels.stream_ptr(dev),
+                kv4_group(hd), kv_b, kv_h, sc_b, sc_r, plan.tile, plan.stages, plan.raw_slots,
+                plan.raw_stages, plan.smem, scale, kernels.stream_ptr(dev),
             ),
             "prefill_attention",
         )
     kernels.LAUNCHES["prefill_attention"] += 1
+    last_prefill_plan = plan
     return out

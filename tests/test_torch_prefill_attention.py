@@ -11,11 +11,15 @@ where ``chip_smoke.py`` phase 9 holds it to this plain version).
   pads, whose pad rows attend the first real token.
 - The structured mask ``(kpos <= qpos) & valid`` equals the dense mask JAX's
   forward builds, on both paths.
-- A CPU emulation of the kernel's arithmetic (query tiles of 64 rows, K
-  tiles of 32 slots skipped by their least valid position, two sweeps with
-  an online max and sum, bf16 probabilities, all-pad rows from V summed once
-  over all S) within ``rounding_tolerance`` of the plain version, visiting
-  every slot a row attends, at tile edges.
+- A CPU emulation of the kernel's arithmetic (blocks of two 64-row query
+  tiles, K tiles of ``plan_prefill_attention``'s slots skipped by their
+  least valid position, two sweeps with an online max and sum of raw scores
+  in base 2, bf16 probabilities, all-pad rows from V summed once over all S)
+  within ``rounding_tolerance`` of the plain version, visiting every slot a
+  row attends, at tile edges.
+- ``plan_prefill_attention`` for every cache kind and head dim the kernel
+  instantiates: its shared memory fits a block, its tile is whole wgmma N
+  steps, its registers fit the block.
 - ``prefill_kernel_takes`` and the wrapper's checks.
 
 Tolerances: f32 compute at 1e-5 (the same f32 math, sums in another order);
@@ -204,24 +208,27 @@ def test_structured_mask_equals_forward_dense_mask(path, monkeypatch):
 
 def emulate_kernel(q, k, v, qpos, kpos, valid, k_scale=None, v_scale=None):
     """``prefill_attention.cu`` written out in torch on the CPU, bf16
-    compute: returns (out [B, T, H*hd] f32, the K tiles each block visited).
+    compute: returns (out [B, T, H*hd] f32, the K tiles each block visited,
+    keyed by (batch row, kv head, the block's first position)).
 
     Prep: keff (kpos of a valid slot, else INT_MAX, INT_MAX past S), each
-    32-slot tile's least keff, V (widened to bf16) summed over all S. A
-    block: 64 / G positions x the G heads of one (batch row, kv head); it
-    visits, in order, the tiles whose least keff is at most its largest
-    qpos. Sweep 1: scores (f32 sums of bf16 products, times f32(1 /
-    sqrt(hd))), masked to -1e30 where keff > qpos, and an online max and
-    sum per row. Sweep 2: the same scores, p = bf16(exp(s - m) / l), f32
-    sums of p v. A row whose max stays at or under -1e30 attends nothing:
-    bf16(1 / S) times the V sum."""
+    tile's least keff (tiles of ``plan_prefill_attention``'s slots), V
+    (widened to bf16) summed over all S. A block: two consumer tiles of 64
+    rows, each 64 / G positions x the G heads of one (batch row, kv head);
+    it visits, in order, the tiles whose least keff is at most its largest
+    qpos. Sweep 1: raw scores (f32 sums of bf16 products), -1e30 where keff
+    > qpos, an online max m and sum l of 2^(x c2 - m c2), c2 = f32(1 /
+    sqrt(hd)) x log2(e). Sweep 2: the same scores, p = bf16(2^(x c2 - m c2)
+    x (1 / l)), f32 sums of p v. A row whose max stays at or under -1e30
+    attends nothing: bf16(1 / S) times the V sum."""
     dt = torch.bfloat16
     b, t, h, hd = q.shape
     kvh, s = k.shape[1], k.shape[2]
     g = h // kvh
+    plan = at.plan_prefill_attention(k.dtype, hd, g)
     kd = at.dequant_kv(k, k_scale, dt).float()
     vd = at.dequant_kv(v, v_scale, dt).float()
-    tile = at.PREFILL_TILE
+    tile = plan.tile
     ntiles = -(-s // tile)
     pad = ntiles * tile - s
     keff = torch.where(valid, kpos.long(), torch.full_like(kpos.long(), INT_MAX))
@@ -232,7 +239,8 @@ def emulate_kernel(q, k, v, qpos, kpos, valid, k_scale=None, v_scale=None):
     vsum = vd.sum(dim=2)  # [B, KV, hd]
     w = torch.tensor(1.0 / s).to(dt).float()
     scale = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(np.sqrt(hd), dtype=torch.float32)
-    npos = at.PREFILL_ROWS // g
+    c2 = scale * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    npos = plan.positions  # a block's: two consumer tiles of rows // G
     out = torch.zeros((b, t, h * hd))
     visited = {}
     for bi in range(b):
@@ -246,7 +254,7 @@ def emulate_kernel(q, k, v, qpos, kpos, valid, k_scale=None, v_scale=None):
 
                 def scores(j):
                     sl = slice(j * tile, (j + 1) * tile)
-                    sc = (qrows @ kd[bi, hi, sl].T) * scale
+                    sc = qrows @ kd[bi, hi, sl].T
                     return torch.where(keff[bi, sl][None, :] <= qp[:, None], sc,
                                        torch.tensor(-1e30))
 
@@ -255,12 +263,13 @@ def emulate_kernel(q, k, v, qpos, kpos, valid, k_scale=None, v_scale=None):
                 for j in tiles:
                     sc = scores(j)
                     new = torch.maximum(m, sc.amax(dim=1))
-                    lsum = lsum * torch.exp(m - new) + torch.exp(sc - new[:, None]).sum(dim=1)
+                    lsum = (lsum * torch.exp2((m - new) * c2)
+                            + torch.exp2(sc * c2 - (new * c2)[:, None]).sum(dim=1))
                     m = new
                 o = torch.zeros((qrows.shape[0], hd))
                 for j in tiles:
-                    p = (torch.exp(scores(j) - m[:, None]) / lsum[:, None]).to(dt).float()
-                    o = o + p @ vd_tiles[bi, hi, j * tile:(j + 1) * tile]
+                    p = torch.exp2(scores(j) * c2 - (m * c2)[:, None]) * (1.0 / lsum)[:, None]
+                    o = o + p.to(dt).float() @ vd_tiles[bi, hi, j * tile:(j + 1) * tile]
                 dead = m <= -1e30
                 o[dead] = w * vsum[bi, hi]
                 out[bi, t0:t1, hi * g * hd:(hi + 1) * g * hd] = o.reshape(t1 - t0, g * hd)
@@ -268,13 +277,14 @@ def emulate_kernel(q, k, v, qpos, kpos, valid, k_scale=None, v_scale=None):
 
 
 EMULATED = [
-    # (T, H, KV, cache, pad, kind): T and S off the tiles; query tiles of 8
-    # positions straddling row 1's pad boundary; G 1 with two query tiles
-    (37, 8, 1, True, 11, "bf16"),
-    (45, 4, 2, False, 13, "bf16"),
-    (70, 2, 2, True, 29, "int8"),
-    (33, 8, 1, False, 3, "bf16"),
-    (40, 4, 2, True, 17, "int4"),
+    # (T, H, KV, cache, pad, kind) at head dim 32, tiles of 128 slots: T and S
+    # off the tiles (S over one tile); blocks of 16 positions straddling row
+    # 1's pad boundary; G 1 with two blocks of 128 positions
+    (137, 8, 1, True, 11, "bf16"),
+    (145, 4, 2, False, 13, "bf16"),
+    (170, 2, 2, True, 29, "int8"),
+    (133, 8, 1, False, 3, "bf16"),
+    (140, 4, 2, True, 17, "int4"),
 ]
 
 
@@ -294,12 +304,12 @@ def test_kernel_emulation_within_rounding_tolerance(t, h, kvh, cache, pad, kind)
     tol = at.rounding_tolerance(qt, k, v, mask, k_scale=ks, v_scale=vs)
     assert ((got - ref).abs() <= tol).all(), float((got - ref).abs().max())
     g = h // kvh
-    npos = at.PREFILL_ROWS // g
+    plan = at.plan_prefill_attention(k.dtype, q.shape[-1], g)
     dead = ~mask[:, 0].any(dim=-1)  # [B, T]
     assert bool(dead[2].all()) and bool(dead.any())
     for (bi, hi, t0), tiles in visited.items():
-        attended = mask[bi, 0, t0:t0 + npos].any(dim=0).nonzero().flatten()
-        assert set((attended // at.PREFILL_TILE).tolist()) <= set(tiles), (bi, hi, t0)
+        attended = mask[bi, 0, t0:t0 + plan.positions].any(dim=0).nonzero().flatten()
+        assert set((attended // plan.tile).tolist()) <= set(tiles), (bi, hi, t0)
     vd = at.dequant_kv(v, vs, torch.bfloat16).float()
     w = torch.tensor(1.0 / vd.shape[2]).to(torch.bfloat16).float()
     mean = (w * vd.sum(dim=2)).repeat_interleave(g, dim=1).reshape(vd.shape[0], -1)  # [B, H*hd]
@@ -316,9 +326,50 @@ def test_kernel_emulation_skips_tiles_past_the_diagonal():
     _, (k, v, _, _) = stored("bf16", kv)
     qpos, kpos, valid = torch_mask(smask)
     _, visited = emulate_kernel(torch.from_numpy(q).to(torch.bfloat16), k, v, qpos, kpos, valid)
-    assert visited[(0, 0, 0)] == [0]  # positions 0-7 reach slot 7 at most
-    assert visited[(0, 0, 192)] == list(range(7))  # positions 192-199: tiles 0-6
+    # head dim 32: tiles of 128 slots, blocks of 2 x 64 / 8 = 16 positions
+    assert visited[(0, 0, 0)] == [0]  # positions 0-15 reach slot 15 at most
+    assert visited[(0, 0, 112)] == [0]  # positions 112-127: tile 0 alone
+    assert visited[(0, 0, 192)] == [0, 1]  # positions 192-199: tiles 0 and 1
     assert visited[(2, 0, 0)] == []  # row 2's prompt slots are invalid, the rest lie ahead
+
+
+# ------------------------------------------------------------ the kernel's plan
+
+SMEM_PER_BLOCK = 232_448  # 227 KB, the H100's shared memory a block may use
+WGMMA_N_STEP = 8
+
+
+@pytest.mark.parametrize("hd", at.PREFILL_HEAD_DIMS)
+@pytest.mark.parametrize("kind", [torch.bfloat16, torch.float32, torch.int8, torch.uint8],
+                         ids=["bf16", "f32", "int8", "int4"])
+def test_prefill_plan_fits_the_card(kind, hd):
+    """Every instantiation's plan: its shared memory (Q, the ring, the raw
+    ring, the barriers, the alignment slack) fits a block; its tile is whole
+    wgmma N steps and at most 256; its registers a role fit the block's 384
+    x 168 that setmaxnreg redistributes; a raw ring exists exactly for the
+    caches that are not bf16, in whole raw stages a tile."""
+    plan = at.plan_prefill_attention(kind, hd, 8)
+    assert plan.smem <= SMEM_PER_BLOCK
+    assert plan.tile % WGMMA_N_STEP == 0 and plan.tile <= 256
+    assert plan.threads == 128 * (plan.consumers + 1) == 384
+    assert plan.consumers * plan.consumer_regs + plan.producer_regs <= 3 * 168
+    assert plan.rows == 64 and plan.positions == plan.consumers * (64 // 8)
+    assert plan.stages >= 2
+    if kind == torch.bfloat16:
+        assert plan.raw_stages == plan.raw_slots == 0
+    else:
+        assert plan.raw_stages >= 2 and plan.raw_slots > 0 and plan.tile % plan.raw_slots == 0
+    # one more ring stage would not fit, or the ring is at its cap
+    bigger = at._prefill_smem(at._KINDS[kind], hd, plan.tile, plan.raw_slots, plan.stages + 1,
+                              plan.raw_stages)
+    assert bigger > SMEM_PER_BLOCK or plan.stages == (6 if kind == torch.bfloat16 else 4)
+
+
+def test_prefill_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        at.plan_prefill_attention(torch.bfloat16, 96, 8)
+    with pytest.raises(ValueError):
+        at.plan_prefill_attention(torch.bfloat16, 128, 65)
 
 
 # ------------------------------------------------------------ what the kernel takes
