@@ -90,6 +90,22 @@ and the script exits non-zero:
    prefill seconds, decode tokens/s at batch 8 (the graphed step and the
    eager one) and peak memory for bf16, int8 + int8 KV, int8 +
    act_int8_rows 512 + int8 KV and rank-1 int4 + int4 KV.
+9a. the block's elementwise kernels against their plain versions
+   (``phase_block_kernels``), bf16 and f32: ``rms_norm`` (the residual add
+   folded into RMSNorm; the add bit-equal, the norm within
+   ``ops/block.py::norm_tolerance``), ``rope_kv`` (RoPE of q and k with k
+   and v written into bf16, f32, int8 and int4 caches or the no-cache
+   layout; q within ``rope_tolerance``, the cache's v bit-equal, its k
+   bit-equal where q is) and ``gated_act`` (gelu / silu times up, within
+   ``gated_tolerance``), at Gemma-2B's decode step (8 rows, cursor 3,800
+   of 3,862 slots), verify round (8 x 5), prefill (8 x 3,712) and capture
+   (8 x 1,536) rows, Mistral-7B's widths (D 4096 without ``1 + w``, 32 / 8
+   heads x 128, silu at 14,336) and the tiny configs'; each bound checked
+   against faults that must exceed it (a flipped ``1 + w``, a skipped add,
+   a position off by one, an unrounded activation, gate and up swapped);
+   the prefill, capture and decode shapes timed beside the plain version,
+   the byte bound and, for the norm, ``F.rms_norm`` on the summed f32
+   input (a yardstick only).
 9. generation: at Gemma-2B width on phase 5's weights, batch 8, the
    retrieval-round prompts, 150 tokens with stops off. First the decode
    attention kernel against its plain version at [8 x 8 heads x 3,862
@@ -126,7 +142,11 @@ and the script exits non-zero:
    graphed step with plain attention
    (rows that part must part where the logit gap is within
    ``ATTN_DRIFT``), and in f32 the graphed decode's tokens equal to the
-   plain-attention step's; speculative decode (k 4) on the weights upcast to f32
+   plain-attention step's; the same with the block's plain ops
+   (``PlainBlock``): the prefill's seconds and peak, one replay's device
+   ms and its ``torch.profiler`` launches and top kernels, tokens/s, rows
+   within ``ATTN_DRIFT`` (bf16) or equal (f32), and the block's kernels
+   launched once a layer a forward (the norm twice, plus the final norm); speculative decode (k 4) on the weights upcast to f32
    equal to graphed greedy with the prompt drafter and with the oracle
    drafter at acceptance 1 (greedy's tokens), and in bf16 with both
    drafters (rows equal, rounds, tokens per forward, tokens/s); a sampled
@@ -142,7 +162,9 @@ and the script exits non-zero:
    one train step on the card against the CPU, the trained stack saved and
    read by the CLI's ``_load_probers`` to gate a loop batch,
    ``prober_offline_eval`` against the CPU, the capture forward's seconds
-   through prefill_attention (18 launches) and with plain attention, and
+   through prefill_attention (18 launches) and the block's kernels (37
+   norms, 18 rope_kv, 18 gated_act), with plain attention and with the
+   block's plain ops, and
    the capture forward with int8 weights (matmul_int8 at [12288 x 2048 -> 16384] with its bound
    and ``torch._weight_int8pack_mm``).
 11. baselines and the CLI chain (``phase_baselines``): on phase 5's
@@ -191,12 +213,12 @@ The probing loops of phases 5, 7, 8, 9 and 10 run the decode step graphed
 Kernel times are CUDA-event means after a warm-up, with the card given a
 head start (``cuda_ms``). The kernels line lists, for each kernel, its
 launches on its path, its max abs error, kernel / plain / library ms and
-its bound (``bound``): eleven kernels. The line before the last is the card's name and
+its bound (``bound``): fourteen kernels. The line before the last is the card's name and
 power limit; the last line is the result as one JSON object.
 
 ``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
 matmul_int8 cases alone; ``--attention`` phases 1, 2 and phase 9's
-decode and prefill attention cases; ``--train`` runs phases 1, 2 and phase 10, and
+decode and prefill attention cases; ``--block`` phases 1, 2 and 9a; ``--train`` runs phases 1, 2 and phase 10, and
 ``--baselines`` phases 1, 2 and 11, ``--parallel`` phases 1, 2 and 12
 (each with the phase-4 index and phase 5's model).
 """
@@ -305,6 +327,10 @@ REPLACES = {
     # not a Pallas kernel: XLA's fused attention over the cache
     "decode_attention": "probing_rag_tpu/models/gemma.py:755",
     "prefill_attention": "probing_rag_tpu/models/gemma.py:755",
+    # not Pallas kernels: XLA's fusions of the block's elementwise work
+    "rms_norm": "probing_rag_tpu/models/gemma.py:338",
+    "rope_kv": "probing_rag_tpu/models/gemma.py:743",
+    "gated_act": "probing_rag_tpu/models/gemma.py:915",
 }
 SOURCES = {
     "bm25_gather": f"{REPO_KERNELS}/bm25_gather.cu",
@@ -318,11 +344,15 @@ SOURCES = {
     "postings_assemble": f"{REPO_KERNELS}/postings_assemble.cu",
     "decode_attention": f"{REPO_KERNELS}/decode_attention.cu",
     "prefill_attention": f"{REPO_KERNELS}/prefill_attention.cu",
+    "rms_norm": f"{REPO_KERNELS}/rms_norm.cu",
+    "rope_kv": f"{REPO_KERNELS}/rope_kv.cu",
+    "gated_act": f"{REPO_KERNELS}/gated_act.cu",
 }
 # the kernels each path must launch
 BM25_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_topk",
                 "postings_gather", "postings_assemble")
 DENSE_KERNELS = ("dense_topk", "ivf_topk")
+BLOCK_KERNELS = ("rms_norm", "rope_kv", "gated_act")
 QUANT_KERNELS = ("matmul_int8",) + BM25_KERNELS
 
 
@@ -1220,10 +1250,16 @@ def phase_main_path(index, docs_tokens, cpu_engine):
     print(f"  each search's stats: {retriever.stats}")
     if not any(st["n_fallback"] > 0 for st in retriever.stats[1:]):
         raise AssertionError("no later search of the loop routed a row to the over-cap hybrid")
-    missing = [n for n in BM25_KERNELS + ("decode_attention", "prefill_attention")
+    missing = [n for n in BM25_KERNELS + ("decode_attention", "prefill_attention") + BLOCK_KERNELS
                if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the BM25 path: {missing}")
+    forwards = launches["rope_kv"] // cfg.n_layers
+    if (launches["rope_kv"], launches["gated_act"], launches["rms_norm"]) != (
+            forwards * cfg.n_layers, forwards * cfg.n_layers, forwards * (2 * cfg.n_layers + 1)):
+        raise AssertionError(f"the block's kernels launched {[launches[n] for n in BLOCK_KERNELS]} "
+                             f"times: not one rope_kv and gated_act a layer a forward and "
+                             f"2 x {cfg.n_layers} + 1 norms a forward")
     if launches["prefill_attention"] % cfg.n_layers:
         raise AssertionError(f"prefill_attention launched {launches['prefill_attention']} times, "
                              f"not {cfg.n_layers} a prefill")
@@ -2302,8 +2338,9 @@ def attention_case(gen, kind: str, t: int, dt, slots=None, model: str = "gemma_2
     """One ``decode_attention`` case: the kernel against its plain version
     on the card (same operands), on ``kv_heads`` (first, count) of the
     cache where given; timed: its plan, kernel / plain ms, the bound and,
-    for a bf16 cache, ``scaled_dot_product_attention`` on the same inputs
-    as the library yardstick. Tolerance: f32 compute 1e-5 + 1e-5 |ref|
+    at bf16 compute, ``scaled_dot_product_attention`` on the same inputs
+    (an int8 or int4 cache dequantized to bf16 before the timed call) as
+    the library yardstick. Tolerance: f32 compute 1e-5 + 1e-5 |ref|
     (sums in another order); bf16 compute ``rounding_tolerance`` element by
     element (a probability may round to the neighbouring bf16 value only
     within 1e-5 of itself of a rounding midpoint, plus 1e-5 of the sum of
@@ -2365,11 +2402,14 @@ def attention_case(gen, kind: str, t: int, dt, slots=None, model: str = "gemma_2
     bnd = bound(nbytes, 4 * b * h * t * s * hd, "f32" if dt == torch.float32 else "bf16")
     lib_ms = None
     line = ""
-    if kind == "bf16":  # one PyTorch call of the same function on a bf16 cache
+    if kind in ("bf16", "int8", "int4") and dt == torch.bfloat16:
+        # one PyTorch call of the same function on a bf16 cache; an int8 or
+        # int4 cache dequantized to bf16 first, outside the timed call
         qh = q.transpose(1, 2)
+        kd, vd = (k, v) if kind == "bf16" else (at.dequant_kv(k, ks, dt), at.dequant_kv(v, vs, dt))
 
         def sdpa():
-            return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
+            return F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask, enable_gqa=True)
 
         try:
             sdpa()
@@ -2418,8 +2458,7 @@ def phase_attention_kernels(results: dict) -> None:
         **{f"long_cache_{key}": long[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "shape": f"[8 x 8 x {ATTN_SLOTS} x 256] bf16 cache, T 1",
         **{f"{kind}_t{t}_{key}": r[key] for (kind, t), r in out.items() if (kind, t) != ("bf16", 1)
-           for key in ("ms", "plain_ms", "bound_ms")},
-        "verify_library_ms": out[("bf16", verify)]["library_ms"],
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
     }
 
 
@@ -2629,12 +2668,340 @@ class PlainAttention:
         return False
 
 
+class PlainBlock:
+    """Routes the LM block's norm, RoPE / cache write and gated activation
+    to their plain versions (``ops/block.py``'s ``*_plain``) while open (a
+    step captured inside captures the plain ops); the graph cache is
+    cleared on the way in and out, as ``PlainAttention`` clears it."""
+
+    def __enter__(self):
+        from probing_rag_tpu_torch.models import gemma
+        from probing_rag_tpu_torch.models.graphs import GRAPHS
+        from probing_rag_tpu_torch.ops import block as bk
+
+        GRAPHS.clear()
+        self.saved = gemma.add_rms_norm, gemma.rope_qk_cache, gemma.gated_act
+        gemma.add_rms_norm = bk.add_rms_norm_plain
+        gemma.rope_qk_cache = bk.rope_qk_cache_plain
+        gemma.gated_act = bk.gated_act_plain
+        return self
+
+    def __exit__(self, *exc):
+        from probing_rag_tpu_torch.models import gemma
+        from probing_rag_tpu_torch.models.graphs import GRAPHS
+
+        gemma.add_rms_norm, gemma.rope_qk_cache, gemma.gated_act = self.saved
+        GRAPHS.clear()
+        return False
+
+
+# phase 9a: the block's elementwise kernels at the main path's shapes: rows
+# of a decode step (batch 8), a verify round (8 x 5), the retrieval round's
+# prefill (8 x PREFILL_T) and the capture forward (8 x TRAIN_MAX_LEN); the
+# decode cursor near the end of the retrieval round's cache
+BLOCK_ROWS = {"decode": 8, "verify": 8 * (SPEC_K + 1), "prefill": 8 * PREFILL_T,
+              "capture": 8 * 1536}
+BLOCK_DECODE_POS = 3800
+BLOCK_MODELS = {  # d_model, heads, kv heads, head dim, d_ff, activation, plus_one
+    "gemma_2b": (2048, 8, 1, 256, 16_384, "gelu", True),
+    "mistral_7b": (4096, 32, 8, 128, 14_336, "silu", False),
+    "tiny": (64, 2, 1, 32, 128, "gelu", True),
+    "tiny_mistral": (64, 4, 2, 16, 128, "silu", False),
+}
+
+
+def held(what: str, got, ref, tol, controls: dict) -> tuple:
+    """``got`` against ``ref`` element by element within ``tol``, and each
+    fault of ``controls`` (name -> tensor) over it somewhere. Returns (max
+    abs err, elements not bit-equal, the line's text)."""
+    import torch
+
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    unequal = int((got.float() != ref.float()).sum())
+    if not bool(torch.isfinite(got.float()).all()) or bool((diff > tol).any()):
+        raise AssertionError(f"{what}: kernel differs from plain by {err} "
+                             f"({int((diff > tol).sum())} elements over the bound)")
+    over = {name: int(((c.float() - ref.float()).abs() > tol).sum())
+            for name, c in controls.items()}
+    if any(n == 0 for n in over.values()):
+        raise AssertionError(f"{what}: the bound lets a fault through ({over})")
+    text = (f"max abs err {err:.3g}, {unequal} of {diff.numel()} not bit-equal (bound per "
+            f"element, max {float(tol.max()):.3g}, {100 * float((tol == 0).float().mean()):.1f}% "
+            f"zero); controls over it: " + ", ".join(f"{k} {v}" for k, v in over.items()))
+    return err, unequal, text
+
+
+def norm_case(gen, label: str, rows: int, model: str, dt, delta=True, timed=False) -> dict:
+    """``add_rms_norm`` against its plain version on [rows, D] of
+    ``model``: the residual bit-equal, ``normed`` within
+    ``ops/block.py::norm_tolerance``, which a dropped (or added) ``1 + w``
+    and a skipped residual add exceed. ``delta`` False: the first layer's
+    norm (no add)."""
+    import torch
+    import torch.nn.functional as F
+
+    from probing_rag_tpu_torch.ops import block as bk
+
+    d, plus_one = BLOCK_MODELS[model][0], BLOCK_MODELS[model][6]
+    x = 3 * torch.randn((rows, d), generator=gen, device=DEVICE)
+    dl = torch.randn((rows, d), generator=gen, device=DEVICE).to(dt) if delta else None
+    w = (0.1 * torch.randn(d, generator=gen, device=DEVICE)).to(dt)
+    resid, normed = bk.add_rms_norm(x, w, 1e-6, plus_one, delta=dl, dt=dt)
+    ref_resid, ref = bk.add_rms_norm_plain(x, w, 1e-6, plus_one, delta=dl, dt=dt)
+    sync()
+    if not torch.equal(resid, ref_resid):
+        raise AssertionError(f"rms_norm {label}: the residual add is not bit-equal")
+    tol = bk.norm_tolerance(ref_resid, w, 1e-6, plus_one, dt)
+    controls = {"1 + w flipped": bk.rms_norm(ref_resid, w, 1e-6, not plus_one).to(dt)}
+    if delta:
+        controls["add skipped"] = bk.rms_norm(x, w, 1e-6, plus_one).to(dt)
+    what = (f"rms_norm {label} {model} [{rows} x {d}] {str(dt)[6:]}"
+            f"{' + ' + str(dl.dtype)[6:] + ' delta' if delta else ', no delta'}")
+    err, _, text = held(what, normed, ref, tol, controls)
+    out = {"max_abs_err": err}
+    if timed:
+        ms = cuda_ms(lambda: bk.add_rms_norm(x, w, 1e-6, plus_one, delta=dl, dt=dt))
+        plain_ms = cuda_ms(lambda: bk.add_rms_norm_plain(x, w, 1e-6, plus_one, delta=dl, dt=dt))
+        es = torch.empty((), dtype=dt).element_size()
+        nbytes = rows * d * (4 + es) + (rows * d * (dl.element_size() + 4) if delta else 0) + d * es
+        bnd = bound(nbytes, 4 * rows * d, "f32")
+        lib_ms = None
+        if hasattr(F, "rms_norm"):  # a yardstick only: the norm of the summed f32 residual
+            scale = ((1.0 + w.float()) if plus_one else w.float()).contiguous()
+            lib_ms = cuda_ms(lambda: F.rms_norm(ref_resid, (d,), weight=scale, eps=1e-6))
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
+        text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                 f"({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)"
+                 + (f", F.rms_norm {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    print(f"  {what}: {text}", flush=True)
+    return out
+
+
+def rope_case(gen, label: str, model: str, t: int, kind: str, dt, timed=False) -> dict:
+    """``rope_qk_cache`` against its plain version at batch 8 for
+    ``model``'s heads: ``kind`` "none" (the no-cache forward: k and v as new
+    [B, KV, T, hd]) or a cache of that type (bf16, f32, int8, int4; layer 1
+    of 2) at cursor 0 for a prefill (T > 5) and ``BLOCK_DECODE_POS`` for a
+    decode step or verify round, positions left-padded (row 7 by all but
+    its last token). q within ``rope_tolerance`` (the kernel and the plain
+    ops call the same cosf, sinf and powf: expected bit-equal), a position
+    off by one over it; v's cache rows and scales bit-equal; k's bit-equal
+    where q is, else within one step of the stored type."""
+    import dataclasses
+
+    import torch
+
+    from probing_rag_tpu_torch.models.gemma import GemmaConfig, init_kv_cache
+    from probing_rag_tpu_torch.ops import attention as at
+    from probing_rag_tpu_torch.ops import block as bk
+
+    _, h, kvh, hd = BLOCK_MODELS[model][:4]
+    b, theta = 8, 10_000.0
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+               for shape in ((b, t, h, hd), (b, t, kvh, hd), (b, t, kvh, hd)))
+    pads = torch.tensor([0, 1, 3, 7, 30, 300, 1000, 10_000], device=DEVICE)
+    cursor = 0 if t > SPEC_K + 1 or kind == "none" else BLOCK_DECODE_POS
+    slots = cursor + torch.arange(t, device=DEVICE)
+    positions = (slots[None, :] - pads[:, None]).clamp(min=0)
+    cache = ref_cache = None
+    if kind != "none":
+        cfg = dataclasses.replace(GemmaConfig.tiny(), n_layers=2, n_heads=h, n_kv_heads=kvh,
+                                  head_dim=hd)
+        s = ATTN_SLOTS if t <= SPEC_K + 1 else t + GEN_TOKENS
+        store = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8,
+                 "int4": "int4"}[kind]
+        kv = init_kv_cache(cfg, b, s, store, device=DEVICE)
+        kv_ref = {name: x.clone() for name, x in kv.items()}
+        pos = torch.tensor(cursor, device=DEVICE)
+        cache, ref_cache = (kv, 1, pos), (kv_ref, 1, pos)
+    got = bk.rope_qk_cache(q.clone(), k, v, positions, theta, cache=cache)
+    ref = bk.rope_qk_cache_plain(q.clone(), k, v, positions, theta, cache=ref_cache)
+    sync()
+    what = (f"rope_kv {label} {model} [8 x {t} x {h} / {kvh} x {hd}] {str(dt)[6:]}, "
+            + ("no cache" if kind == "none" else f"{kind} cache, cursor {cursor}"))
+    tol = bk.rope_tolerance(q, positions, theta)
+    err, unequal, text = held(what, got[0], ref[0], tol,
+                              {"position + 1": bk.rope(q, positions + 1, theta)})
+    q_equal = unequal == 0
+    for i, name in ((2, "v"), (4, "v scale")):
+        if (ref[i] is None) != (got[i] is None) or (ref[i] is not None
+                                                     and not torch.equal(got[i], ref[i])):
+            raise AssertionError(f"{what}: {name} differs from plain")
+    k_unequal = 0
+    for i, name in ((1, "k"), (3, "k scale")):
+        if ref[i] is None:
+            continue
+        if got[i].shape != ref[i].shape or got[i].dtype != ref[i].dtype:
+            raise AssertionError(f"{what}: {name} {got[i].dtype} {tuple(got[i].shape)} against "
+                                 f"{ref[i].dtype} {tuple(ref[i].shape)}")
+        k_unequal += int((got[i] != ref[i]).sum())
+    if k_unequal and q_equal:
+        raise AssertionError(f"{what}: k differs from plain in {k_unequal} places, q does not")
+    if k_unequal:  # another libm: the rotated keys within one step of the stored type
+        kd = at.dequant_kv(got[1], got[3], torch.float32)
+        rd = at.dequant_kv(ref[1], ref[3], torch.float32)
+        step = (rd.abs() * 2.0 ** -7 if ref[1].dtype == torch.bfloat16 else
+                rd.abs() * 2.0 ** -22 if ref[1].dtype == torch.float32 else
+                at.dequant_kv(torch.ones_like(ref[1]) if ref[1].dtype == torch.int8
+                              else torch.full_like(ref[1], 0x99), ref[3], torch.float32))
+        if bool(((kd - rd).abs() > step * 1.0001).any()):
+            raise AssertionError(f"{what}: k beyond one step of the stored type")
+    text += f"; v, v scales bit-equal; k and k scales {k_unequal} elements not bit-equal"
+    out = {"max_abs_err": err}
+    if timed:
+        qt = q.clone()
+        ms = cuda_ms(lambda: bk.rope_qk_cache(qt, k, v, positions, theta, cache=cache))
+        plain_ms = cuda_ms(lambda: bk.rope_qk_cache_plain(q, k, v, positions, theta,
+                                                          cache=ref_cache))
+        es = q.element_size()
+        row = {"none": hd * es, "bf16": hd * 2, "f32": hd * 4, "int8": hd + 4,
+               "int4": hd // 2 + 4 * (hd // at.kv4_group(hd))}[kind]
+        nbytes = b * t * (2 * h * hd * es + 2 * kvh * hd * es + 2 * kvh * row + 8)
+        bnd = bound(nbytes, 6 * b * t * (h + kvh) * hd // 2, "f32")
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
+        text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                 f"({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)")
+    print(f"  {what}: {text}", flush=True)
+    return out
+
+
+def gated_case(gen, label: str, rows: int, model: str, dt, timed=False) -> dict:
+    """``gated_act`` against its plain version on [rows, d_ff] of
+    ``model``: within ``ops/block.py::gated_tolerance`` (bit-equal at bf16
+    where act lies clear of a rounding midpoint), which the activation
+    left unrounded before the product (bf16) or gate and up swapped
+    exceed."""
+    import torch
+    import torch.nn.functional as F
+
+    from probing_rag_tpu_torch.ops import block as bk
+
+    f, act = BLOCK_MODELS[model][4], BLOCK_MODELS[model][5]
+    g = (2 * torch.randn((rows, f), generator=gen, device=DEVICE)).to(dt)
+    u = torch.randn((rows, f), generator=gen, device=DEVICE).to(dt)
+    got = bk.gated_act(g.clone(), u, act)
+    ref = bk.gated_act_plain(g, u, act)
+    sync()
+    tol = bk.gated_tolerance(g, u, act)
+    fn = (lambda x: F.gelu(x, approximate="tanh")) if act == "gelu" else F.silu
+    controls = {"gate and up swapped": bk.gated_act_plain(u, g, act)}
+    if dt == torch.bfloat16:
+        controls["act unrounded"] = (fn(g.float()) * u.float()).to(dt)
+    what = f"gated_act {label} {model} [{rows} x {f}] {act} {str(dt)[6:]}"
+    err, _, text = held(what, got, ref, tol, controls)
+    del tol, controls
+    out = {"max_abs_err": err}
+    if timed:
+        gt = g.clone()
+        ms = cuda_ms(lambda: bk.gated_act(gt, u, act))
+        plain_ms = cuda_ms(lambda: bk.gated_act_plain(g, u, act))
+        nbytes = 3 * rows * f * g.element_size()
+        bnd = bound(nbytes, 12 * rows * f, "f32")
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
+        text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                 f"({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)")
+    print(f"  {what}: {text}", flush=True)
+    return out
+
+
+def phase_block_kernels(results: dict) -> None:
+    """The block's three kernels against their plain versions on the card,
+    bf16 and f32, at Gemma-2B's decode step, verify round, prefill and
+    capture rows (the norm at D 2048 with and without a delta, RoPE with
+    the cache write into bf16, int8 and int4 caches of ``ATTN_SLOTS`` slots
+    at cursor ``BLOCK_DECODE_POS`` and at a prefill's cursor 0, the
+    no-cache layout, the gated gelu at d_ff 16,384), at Mistral-7B's widths
+    (D 4096 without ``1 + w``, 32 / 8 heads x 128, silu at 14,336) and at
+    the tiny configs'. Prefill cases are timed beside the plain version and
+    the byte bound; the decode step's too. The kernels line takes the
+    prefill shape (bf16 cache for rope_kv)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = BLOCK_ROWS
+    norm = {
+        "prefill": norm_case(gen, "prefill", rows["prefill"], "gemma_2b", bf16, timed=True),
+        "decode": norm_case(gen, "decode", rows["decode"], "gemma_2b", bf16, timed=True),
+        "capture": norm_case(gen, "capture", rows["capture"], "gemma_2b", bf16, timed=True),
+        "mistral prefill": norm_case(gen, "prefill", 8 * PREFILL_MISTRAL_T, "mistral_7b", bf16,
+                                     timed=True),
+    }
+    checks = [norm_case(gen, "first layer", rows["prefill"], "gemma_2b", bf16, delta=False),
+              norm_case(gen, "verify", rows["verify"], "gemma_2b", bf16),
+              norm_case(gen, "decode", rows["decode"], "gemma_2b", f32),
+              norm_case(gen, "decode", rows["decode"], "mistral_7b", bf16),
+              norm_case(gen, "prefill", 8 * 64, "tiny", bf16),
+              norm_case(gen, "prefill", 8 * 64, "tiny_mistral", f32)]
+    results["rms_norm"] = {
+        **norm["prefill"], "max_abs_err": max(r["max_abs_err"] for r in [*norm.values(), *checks]),
+        "shape": f"[{rows['prefill']} x 2048] f32 + bf16 delta -> bf16",
+        **{f"{k.replace(' ', '_')}_{key}": r[key] for k, r in norm.items() if k != "prefill"
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+    }
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    rope = {
+        "prefill": rope_case(gen, "prefill", "gemma_2b", PREFILL_T, "bf16", bf16, timed=True),
+        "decode": rope_case(gen, "decode", "gemma_2b", 1, "bf16", bf16, timed=True),
+        "decode int8": rope_case(gen, "decode", "gemma_2b", 1, "int8", bf16, timed=True),
+        "decode int4": rope_case(gen, "decode", "gemma_2b", 1, "int4", bf16, timed=True),
+        "prefill int8": rope_case(gen, "prefill", "gemma_2b", PREFILL_T, "int8", bf16, timed=True),
+        "capture": rope_case(gen, "capture", "gemma_2b", 1536, "none", bf16, timed=True),
+    }
+    checks = [rope_case(gen, "prefill", "gemma_2b", PREFILL_T, "int4", bf16),
+              *(rope_case(gen, "verify", "gemma_2b", SPEC_K + 1, kind, bf16)
+                for kind in ("bf16", "int8", "int4")),
+              *(rope_case(gen, "decode", "gemma_2b", 1, kind, f32)
+                for kind in ("f32", "bf16", "int8", "int4")),
+              rope_case(gen, "no-cache", "gemma_2b", 64, "none", f32),
+              *(rope_case(gen, "decode", "mistral_7b", t, kind, dt)
+                for t in (1, SPEC_K + 1) for kind in ("int8", "int4") for dt in (bf16, f32)),
+              rope_case(gen, "prefill", "mistral_7b", PREFILL_MISTRAL_T, "none", bf16),
+              *(rope_case(gen, "prefill", model, 64, kind, dt)
+                for model in ("tiny", "tiny_mistral") for kind in ("none", "int8", "int4")
+                for dt in (bf16, f32))]
+    results["rope_kv"] = {
+        **rope["prefill"], "max_abs_err": max(r["max_abs_err"] for r in [*rope.values(), *checks]),
+        "shape": f"q [8 x {PREFILL_T} x 8 x 256], k and v into a bf16 cache of "
+                 f"{PREFILL_T + GEN_TOKENS} slots",
+        **{f"{k.replace(' ', '_')}_{key}": r[key] for k, r in rope.items() if k != "prefill"
+           for key in ("ms", "plain_ms", "bound_ms")},
+    }
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    gated = {
+        "prefill": gated_case(gen, "prefill", rows["prefill"], "gemma_2b", bf16, timed=True),
+        "decode": gated_case(gen, "decode", rows["decode"], "gemma_2b", bf16, timed=True),
+        "capture": gated_case(gen, "capture", rows["capture"], "gemma_2b", bf16, timed=True),
+        "mistral prefill": gated_case(gen, "prefill", 8 * PREFILL_MISTRAL_T, "mistral_7b", bf16,
+                                      timed=True),
+    }
+    checks = [gated_case(gen, "verify", rows["verify"], "gemma_2b", bf16),
+              gated_case(gen, "decode", rows["decode"], "gemma_2b", f32),
+              gated_case(gen, "decode", rows["decode"], "mistral_7b", f32),
+              gated_case(gen, "ragged", 8 * 64 + 3, "tiny", bf16),
+              gated_case(gen, "prefill", 8 * 64, "tiny_mistral", f32)]
+    results["gated_act"] = {
+        **gated["prefill"],
+        "max_abs_err": max(r["max_abs_err"] for r in [*gated.values(), *checks]),
+        "shape": f"[{rows['prefill']} x 16384] gelu bf16",
+        **{f"{k.replace(' ', '_')}_{key}": r[key] for k, r in gated.items() if k != "prefill"
+           for key in ("ms", "plain_ms", "bound_ms")},
+    }
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
 def device_profile(fn, reps: int = 1, top: int = 8, focus: str = "") -> str:
     """Where ``fn()`` spends its device time: ``torch.profiler`` over one
     call of ``fn`` (``reps`` runs of what it times), the kernels' device
     milliseconds a run by name (the kernels' own events: an op that
-    launches a kernel carries its time too), the largest ``top`` and the
-    total; with ``focus``, first the kernels whose name holds it, their ms
+    launches a kernel carries its time too), the largest ``top``, the
+    total and the kernel launches a run; with ``focus``, first the kernels whose name holds it, their ms
     and share of the total."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2643,17 +3010,18 @@ def device_profile(fn, reps: int = 1, top: int = 8, focus: str = "") -> str:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  reverse=True)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key) for e in events), reverse=True)
     if not rows:
         return "the profiler saw no device time"
     total = sum(ms for ms, _ in rows)
+    launches = sum(e.count for e in events) / reps
     head = ""
     if focus:
         hit = sum(ms for ms, name in rows if focus in name)
         head = f"{focus} {hit:.3f} ms, {100 * hit / total:.1f}% of the device time; "
-    return head + (f"{total:.3f} ms in {len(rows)} kernels; " + "; ".join(
+    return head + (f"{total:.3f} ms in {launches:.0f} launches of {len(rows)} kernels; " + "; ".join(
         f"{name[:60]} {ms:.3f}" for ms, name in rows[:top]))
 
 
@@ -2758,6 +3126,7 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
         t_graph, res_g, loop = run(p, cfg, **kv)
         mm = kernels.LAUNCHES["matmul_int8"]
         attn = kernels.LAUNCHES["decode_attention"]
+        block = [kernels.LAUNCHES[name] for name in BLOCK_KERNELS]
         t_eager, res_e, eloop = run(p, cfg, eager=True, **kv)
         same(res_g, res_e, f"{label}: graph vs eager")
         if loop.steps != steps_max or int(res_g.n_generated.sum()) != 8 * n:
@@ -2773,6 +3142,11 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
         if attn != cfg.n_layers * loop.steps:  # the prefill (T 3,712) runs prefill_attention
             raise AssertionError(f"{label}: decode_attention launched {attn} times, not "
                                  f"{cfg.n_layers} x {loop.steps}")
+        forwards = loop.steps + 1  # the steps and the prefill
+        if block != [(2 * cfg.n_layers + 1) * forwards, cfg.n_layers * forwards,
+                     cfg.n_layers * forwards]:
+            raise AssertionError(f"{label}: rms_norm, rope_kv, gated_act launched {block} times, "
+                                 f"not (37, 18, 18) x {forwards} forwards")
         step_ms = replay_ms(loop)
         wall_g = (t_graph - t1) / loop.steps * 1e3
         wall_e = (t_eager - t1) / eloop.steps * 1e3
@@ -2815,6 +3189,30 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
               f"kernel's (parting rows' logit gaps {[round(g, 5) for g in gaps]}, limit "
               f"{ATTN_DRIFT}); step wall {(t_plain - t1) / ploop.steps * 1e3:.2f} ms, device "
               f"{plain_ms:.3f} ms, {8 * ploop.steps / (t_plain - t1):.1f} tokens/s", flush=True)
+        # the same step, prefill and decode with the block's plain ops
+        with PlainBlock():
+            run(p, cfg, 1, **kv)
+            t1_pb, peak_pb = prefill(p, cfg, **kv)
+            if label == "bf16":
+                print(f"  bf16 prefill with the plain block, device time by kernel "
+                      f"(torch.profiler, ms): {device_profile(lambda: run(p, cfg, 1, **kv))}",
+                      flush=True)
+            t_pb, res_pb, pbloop = run(p, cfg, **kv)
+            pb_ms = replay_ms(pbloop)
+            print(f"  {label} step with the plain block, device time by kernel (torch.profiler, "
+                  f"ms a step): {step_profile(pbloop)}", flush=True)
+        rows = int((res_pb.tokens == res_g.tokens).all(axis=1).sum())
+        gaps = decode_gaps(p, cfg, tok, prompts8, res_g.tokens, res_pb.tokens)
+        if gaps and max(gaps) > ATTN_DRIFT:
+            raise AssertionError(f"{label}: decode with the block's kernels parts from the plain "
+                                 f"block at logit gaps {gaps} (limit {ATTN_DRIFT})")
+        print(f"  {label}, the block's kernels against its plain ops in the same call: prefill "
+              f"{t1:.3f}s, peak {peak1:.2f} GiB with the kernels; {t1_pb:.3f}s, peak "
+              f"{peak_pb:.2f} GiB plain; graphed step device {step_ms:.3f} ms with the kernels, "
+              f"{pb_ms:.3f} ms plain; decode {8 * loop.steps / (t_graph - t1):.1f} tokens/s with "
+              f"the kernels, {8 * pbloop.steps / (t_pb - t1_pb):.1f} plain; {rows} of 8 rows "
+              f"equal (parting rows' logit gaps {[round(g, 5) for g in gaps]}, limit "
+              f"{ATTN_DRIFT})", flush=True)
     del q8
     GRAPHS.clear()
     torch.cuda.empty_cache()
@@ -2845,6 +3243,14 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
         run(p32, c32, 1)
         _, res32_plain, _ = run(p32, c32)
     same(res32, res32_plain, "f32 graphed decode, attention kernel vs plain")
+    with PlainBlock():
+        run(p32, c32, 1)
+        _, res32_pb, _ = run(p32, c32)
+    same(res32, res32_pb, "f32 graphed decode, the block's kernels vs its plain ops")
+    print(f"  f32 graphed decode of {n} tokens with the block's kernels equals the step with its "
+          f"plain ops (tokens, validity, counts; pooled max abs diff "
+          f"{float(np.abs(res32.pooled_captures - res32_pb.pooled_captures).max()):.3g})",
+          flush=True)
     print(f"  f32 graphed decode of {n} tokens with the attention kernel equals the step with "
           f"plain attention (tokens, validity, counts; pooled max abs diff "
           f"{float(np.abs(res32.pooled_captures - res32_plain.pooled_captures).max()):.3g})",
@@ -3098,12 +3504,19 @@ def phase_prober_training(lm, index, questions, results: dict) -> dict:
     if kernels.LAUNCHES["prefill_attention"] != cfg.n_layers:
         raise AssertionError(f"the capture forward launched prefill_attention "
                              f"{kernels.LAUNCHES['prefill_attention']} times, not {cfg.n_layers}")
-    launches["capture"] = {"prefill_attention": cfg.n_layers}
+    block = {name: kernels.LAUNCHES[name] for name in BLOCK_KERNELS}
+    if list(block.values()) != [2 * cfg.n_layers + 1, cfg.n_layers, cfg.n_layers]:
+        raise AssertionError(f"the capture forward launched the block's kernels {block} times")
+    launches["capture"] = {"prefill_attention": cfg.n_layers, **block}
     capture_s = cuda_ms(lambda: capture(params), reps=3) / 1e3
     with PlainAttention():
         caps_plain = capture(params)
         capture_plain_s = cuda_ms(lambda: capture(params), reps=3) / 1e3
     cap_rel = float((caps - caps_plain).norm() / caps_plain.norm())
+    with PlainBlock():
+        caps_plain = capture(params)
+        capture_block_s = cuda_ms(lambda: capture(params), reps=3) / 1e3
+    cap_rel_block = float((caps - caps_plain).norm() / caps_plain.norm())
     del caps_plain
     lab = torch.as_tensor(labels8, dtype=torch.int64, device=DEVICE)
     pl = torch.as_tensor(pred_lens, dtype=torch.int64, device=DEVICE)
@@ -3118,8 +3531,10 @@ def phase_prober_training(lm, index, questions, results: dict) -> dict:
           f"{len(train) * tc.epochs / t_train:.1f} training examples/s; "
           f"capture forward [{tc.batch_size} x {tc.max_len}] -> [{len(tc.sites)}, "
           f"{tc.batch_size}, {tc.max_len}, {cfg.d_model}] f32 {capture_s:.3f}s a batch through "
-          f"prefill_attention ({cfg.n_layers} launches), {capture_plain_s:.3f}s with plain "
-          f"attention (captures' relative difference {cap_rel:.3g}); prober "
+          f"prefill_attention ({cfg.n_layers} launches) and the block's kernels ({block}), "
+          f"{capture_plain_s:.3f}s with plain attention (captures' relative difference "
+          f"{cap_rel:.3g}), {capture_block_s:.3f}s with the block's plain ops (relative "
+          f"difference {cap_rel_block:.3g}); prober "
           f"step {step_ms:.3f} ms; peak {peak / 2**30:.2f} GiB; mean loss by epoch "
           f"{[round(l, 4) for l in epoch_loss]}; dev accuracy by epoch {dev_acc}", flush=True)
     if max(dev_acc[-1]) <= 0.9:
@@ -4194,6 +4609,8 @@ def main() -> int:
                     help="only phases 1, 2 and phase 12 (over the phase-4 index and phase 5's weights)")
     ap.add_argument("--attention", action="store_true",
                     help="only phases 1, 2 and phase 9's decode and prefill attention cases")
+    ap.add_argument("--block", action="store_true",
+                    help="only phases 1, 2 and 9a (the block's elementwise kernels)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4216,6 +4633,11 @@ def main() -> int:
         print(f"  build + load {time.time() - t0:.1f}s")
 
     results: dict = {}
+    if args.block:
+        with Phase("9a block kernels"):
+            phase_block_kernels(results)
+        print(json.dumps(results))
+        return 0
     if args.attention:
         with Phase("9 attention kernels"):
             phase_attention_kernels(results)
@@ -4284,6 +4706,9 @@ def main() -> int:
     launches.update({n: dense_launches[n] for n in DENSE_KERNELS})
     with Phase("8 quantized main path"):
         launches["matmul_int8"] = phase_quantized(lm, index, questions, results)["matmul_int8"]
+    with Phase("9a block kernels"):
+        phase_block_kernels(results)
+    torch.cuda.empty_cache()
     with Phase("9 generation"):
         phase_generation(lm, index, questions, results)
     torch.cuda.empty_cache()

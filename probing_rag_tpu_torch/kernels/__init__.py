@@ -49,6 +49,9 @@ LAUNCHES: Dict[str, int] = {
     "postings_assemble": 0,
     "decode_attention": 0,
     "prefill_attention": 0,
+    "rms_norm": 0,
+    "rope_kv": 0,
+    "gated_act": 0,
 }
 
 _P = ctypes.c_void_p
@@ -85,6 +88,15 @@ _SIGNATURES = {
     # kind, b, kvh, g, t, s, hd, grp; cache and scale strides; the plan's
     # tile, stages, raw_slots, raw_stages, smem; scale, stream
     "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_I] * 5 + [_F, _P],
+    # x, delta, w, resid, normed; delta / weight / out kinds, rows, d, eps,
+    # plus_one, sms, stream
+    "rms_norm": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
+    # q, k, v, positions, cursor, k / v cache, k / v scales; dt, kind, b, t,
+    # h, kvh, hd, s, group; positions', cache and scale strides; theta,
+    # sms, stream
+    "rope_kv": [_P] * 9 + [_I] * 9 + [_LL] * 6 + [_F, _I, _P],
+    # gate, up, out; dt, act, n, sms, stream
+    "gated_act": [_P] * 3 + [_I, _I, _LL, _I, _P],
 }
 
 

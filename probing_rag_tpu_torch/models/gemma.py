@@ -32,6 +32,12 @@ kernels' wrappers, which read the cache in its stored type):
 - f32 compute (a checking mode): ``decode_attention`` over the cache where
   ``kernel_takes`` holds, else the plain ops.
 
+The block's elementwise work runs on ``ops/block.py``'s kernels on every
+path: ``add_rms_norm`` with the previous residual add folded in (so a
+block takes ``delta``, the previous block's MLP output, and the final
+norm adds the last one), ``rope_qk_cache`` (RoPE and the cache write at
+the device-side cursor) and ``gated_act``.
+
 Quantized serving (``quantize_lm_params``) keeps the JAX boundary formats:
 per-channel int8 ``{"q": int8, "s": f32}``, grouped int4 ``{"qp": uint8,
 "gs": f32}`` and rank-1 int4 ``{"qp": uint8, "rs": f32 [K, 1], "s": f32
@@ -72,10 +78,18 @@ from probing_rag_tpu_torch.ops.attention import (
     pack_int4,
     prefill_attention,
     prefill_kernel_takes,
-    quant_kv,
-    quant_kv4,
     structured_mask,
     unpack_int4,
+)
+# the block's elementwise kernels; rms_norm, rope and _cache_update are
+# their plain pieces
+from probing_rag_tpu_torch.ops.block import (  # noqa: F401
+    _cache_update,
+    add_rms_norm,
+    gated_act,
+    rms_norm,
+    rope,
+    rope_qk_cache,
 )
 from probing_rag_tpu_torch.ops.matmul import matmul_int8
 
@@ -257,32 +271,6 @@ def init_quantized_lm_params(
 def param_count(params: Params) -> int:
     """Elements over every leaf of a (possibly quantized) parameter tree."""
     return sum(param_count(v) if isinstance(v, dict) else v.numel() for v in params.values())
-
-
-# ----------------------------------------------------------------- modules
-
-
-def rms_norm(
-    x: torch.Tensor, weight: torch.Tensor, eps: float, plus_one: bool = True
-) -> torch.Tensor:
-    x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    normed = x32 * torch.rsqrt(var + eps)
-    w32 = weight.float()
-    return (normed * ((1.0 + w32) if plus_one else w32)).to(x.dtype)
-
-
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding, split-half. x: [B, T, n, head_dim], positions: [B, T]."""
-    hd = x.shape[-1]
-    exponent = -torch.arange(0, hd // 2, dtype=torch.float32, device=x.device) / (hd // 2)
-    freqs = torch.pow(theta, exponent)  # a scalar base: no host-to-device copy
-    angles = positions[..., None].float() * freqs  # [B, T, hd/2]
-    cos = torch.cos(angles)[..., None, :]
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 # ------------------------------------------------ int8/int4 quantization
@@ -544,31 +532,6 @@ def _attention(q, k, v, mask, return_probs: bool = False):
     return attn_core(q.reshape(b, t, kv, h // kv, hd), k, v, mask, return_probs)
 
 
-def _cache_update(kv: Params, name: str, x: torch.Tensor, layer: int, slots: torch.Tensor
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Writes the new tokens' ``x`` [B, KV, T, hd] into ``kv[name]`` at the
-    T buffer ``slots`` (a device tensor) of ``layer`` IN PLACE (quantized
-    for an int8 or int4 cache, with their scales) and returns all S slots
-    of the layer as stored, with its scales (None for a bf16 or f32
-    cache): the shapes never depend on the cursor."""
-    buf = kv[name][layer]
-    if buf.dtype == torch.uint8:  # int4, nibble-packed; scales [L, B, KV*G, S]
-        q, s = quant_kv4(x)  # s [B, KV, T, G]
-        b, kvh, t, g = s.shape
-        scales = kv[f"{name}_scale"][layer]
-        buf.index_copy_(2, slots, pack_int4(q))
-        scales.index_copy_(2, slots, s.transpose(-1, -2).reshape(b, kvh * g, t))
-        return buf, scales
-    if buf.dtype == torch.int8:  # scales [L, B, KV, S]
-        q, s = quant_kv(x)
-        scales = kv[f"{name}_scale"][layer]
-        buf.index_copy_(2, slots, q)
-        scales.index_copy_(2, slots, s[..., 0])
-        return buf, scales
-    buf.index_copy_(2, slots, x.to(buf.dtype))
-    return buf, None
-
-
 def _rank_kv_heads(x: Optional[torch.Tensor], kvh: int, tp: dist.ProcessGroup
                    ) -> Optional[torch.Tensor]:
     """This rank's kv heads of a cache layer [B, KV, S, ..] or of its
@@ -587,18 +550,25 @@ def _block(
     positions: torch.Tensor,
     mask: torch.Tensor,
     cfg: GemmaConfig,
-    cache: Optional[Tuple],  # (kv_cache, layer, slots) | None
+    cache: Optional[Tuple],  # (kv_cache, layer, cursor) | None
     return_probs: bool = False,
     tp: Optional[dist.ProcessGroup] = None,
     *,
     smask: Tuple,  # ``mask`` as (qpos [B, T], kpos [B, S], valid [B, S] | None)
+    delta: Optional[torch.Tensor] = None,  # the previous block's MLP output
 ):
-    """One transformer block. Returns (resid_mid, resid_post, the layer's
-    attention probs [B, H, T, S] f32 if ``return_probs`` else None).
+    """One transformer block. Its residual input is ``x + delta`` (``x``
+    without a delta): the previous block's last residual add is folded
+    into this block's first norm. Returns (resid_in = x + delta in f32,
+    resid_mid, mlp_out, the layer's attention probs [B, H, T, S] f32 if
+    ``return_probs`` else None); the block's ``resid_post`` is ``resid_mid
+    + mlp_out``, which the next block's first norm (or the final norm)
+    adds. ``mlp_out`` is in the compute type (f32 under TP).
 
     With ``cache``, the new tokens' K/V are written into the layer's slice
-    of the stacked cache at ``slots`` IN PLACE (the caller's cache tensors
-    change), and attention reads all of the layer's slots under the mask.
+    of the stacked cache at the slots ``cursor + [0, T)`` IN PLACE (the
+    caller's cache tensors change), and attention reads all of the layer's
+    slots under the mask.
 
     With ``tp``, ``lp`` holds this rank's slices: its query heads attend
     over their kv heads of the replicated cache, and ``wo`` and ``w_down``
@@ -608,19 +578,16 @@ def _block(
     dt = cfg.compute_dtype
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     a8 = cfg.act_int8_rows
+    eps, plus_one = cfg.norm_eps, cfg.norm_plus_one
 
-    attn_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps, cfg.norm_plus_one).to(dt)
+    resid_in, attn_in = add_rms_norm(x, lp["attn_norm"], eps, plus_one, delta=delta, dt=dt)
     q = _mm(attn_in, lp["wq"], dt, a8).reshape(b, t, -1, hd)  # h heads, h / tp under TP
     k = _mm(attn_in, lp["wk"], dt, a8).reshape(b, t, kvh, hd)
     v = _mm(attn_in, lp["wv"], dt, a8).reshape(b, t, kvh, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta).transpose(1, 2)  # [B, KV, T, hd]
-    v = v.transpose(1, 2)
-    k_scale = v_scale = None
-    if cache is not None:
-        kv, layer, slots = cache
-        k, k_scale = _cache_update(kv, "k", k, layer, slots)
-        v, v_scale = _cache_update(kv, "v", v, layer, slots)
+    # k and v come back as the layer's cache [B, KV, S, hd] or, with no
+    # cache, as contiguous [B, KV, T, hd]
+    q, k, v, k_scale, v_scale = rope_qk_cache(q.contiguous(), k.contiguous(), v.contiguous(),
+                                              positions.long(), cfg.rope_theta, cache=cache)
 
     if tp is not None and kvh > 1:  # the kv heads of this rank's query heads
         k, v, k_scale, v_scale = (_rank_kv_heads(a, kvh, tp) for a in (k, v, k_scale, v_scale))
@@ -630,21 +597,19 @@ def _block(
         # a decode step or a verify round: the cache read in its stored type
         attn = decode_attention(q, k, v, mask, k_scale=k_scale, v_scale=v_scale, dt=dt)
     elif not return_probs and dt == torch.bfloat16 and prefill_kernel_takes(groups, hd):
-        # prefill or the no-cache forward; the kernel takes contiguous slot rows
-        k, v = (x if x.stride(-2) == x.shape[-1] else x.contiguous() for x in (k, v))
+        # prefill or the no-cache forward
         attn = prefill_attention(q, k, v, *smask, k_scale=k_scale, v_scale=v_scale, dt=dt)
     else:
         attn, probs = _attention(q, dequant_kv(k, k_scale, dt), dequant_kv(v, v_scale, dt), mask,
                                  return_probs)
-    attn_out = _all_reduce(_mm(attn.to(dt), lp["wo"], dt, a8, tp), tp).to(cfg.resid_dtype)
-    resid_mid = x + attn_out
-
-    x_in = rms_norm(resid_mid, lp["mlp_norm"], cfg.norm_eps, cfg.norm_plus_one).to(dt)
+    attn_out = _all_reduce(_mm(attn.to(dt), lp["wo"], dt, a8, tp), tp)
+    resid_mid, x_in = add_rms_norm(resid_in, lp["mlp_norm"], eps, plus_one,
+                                   delta=attn_out.contiguous(), dt=dt)
     gate = _mm(x_in, lp["w_gate"], dt, a8)
-    gate = F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu" else F.silu(gate)
     up = _mm(x_in, lp["w_up"], dt, a8)
-    mlp_out = _all_reduce(_mm(gate * up, lp["w_down"], dt, a8, tp), tp).to(cfg.resid_dtype)
-    return resid_mid, resid_mid + mlp_out, probs
+    hidden = gated_act(gate.contiguous(), up.contiguous(), cfg.mlp_activation)
+    mlp_out = _all_reduce(_mm(hidden, lp["w_down"], dt, a8, tp), tp)
+    return resid_in, resid_mid, mlp_out.contiguous(), probs
 
 
 def forward(
@@ -718,33 +683,42 @@ def forward(
         smask = (positions, positions, attn_valid)  # causal in the positions
     mask = structured_mask(*smask)  # [B, 1, T, S], for decode_attention and the plain ops
 
-    want: Dict[int, list] = {}
+    want: Dict[Tuple[int, str], list] = {}
     for i, (layer, site) in enumerate(capture.sites):
-        want.setdefault(layer, []).append((i, site))
+        want.setdefault((layer, site), []).append(i)
     caps = [None] * capture.n_sites
     probs_layer = None if attn_probs_layer is None else attn_probs_layer % cfg.n_layers
     attn_probs = None
     lp_all = params["layers"]
+    delta = None  # the last block's MLP output, added by the next norm
     for layer in range(cfg.n_layers):
         lp = {name: ({k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer])
               for name, w in lp_all.items()}
         cache = None
         if kv_cache is not None:
-            cache = (kv_cache, layer, slots)
-        resid_mid, resid_post, probs = _block(lp, x, positions, mask, cfg, cache,
-                                              return_probs=layer == probs_layer, tp=tp,
-                                              smask=smask)
+            cache = (kv_cache, layer, base)
+        resid_in, resid_mid, delta, probs = _block(lp, x, positions, mask, cfg, cache,
+                                                   return_probs=layer == probs_layer, tp=tp,
+                                                   smask=smask, delta=delta)
         if probs is not None:
             attn_probs = _all_gather(probs, tp, dim=1)
-        for i, site in want.get(layer, ()):
-            caps[i] = resid_mid if site == "resid_mid" else resid_post
-        x = resid_post
+        for i in want.get((layer - 1, "resid_post"), ()):
+            caps[i] = resid_in
+        for i in want.get((layer, "resid_mid"), ()):
+            caps[i] = resid_mid
+        x = resid_mid
 
+    last_post = want.get((cfg.n_layers - 1, "resid_post"), ())
+    if logits_last_only and not last_post:
+        # prefill only reads logits[:, -1]: norming and slicing only the last
+        # position avoids the [B, T, vocab] logits tensor
+        x, delta = x[:, -1:].contiguous(), delta[:, -1:].contiguous()
+    resid_post, x = add_rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one,
+                                 delta=delta, dt=cfg.compute_dtype)
+    for i in last_post:
+        caps[i] = resid_post
     if logits_last_only:
-        # prefill only reads logits[:, -1]: slicing before the head avoids
-        # the [B, T, vocab] logits tensor
-        x = x[:, -1:, :]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.norm_plus_one)
+        x = x[:, -1:]
     dt = cfg.compute_dtype
     if not cfg.tied_head:
         logits = _mm(x.to(dt), params["lm_head"], dt, cfg.act_int8_rows)
