@@ -2702,6 +2702,17 @@ class PlainBlock:
 BLOCK_ROWS = {"decode": 8, "verify": 8 * (SPEC_K + 1), "prefill": 8 * PREFILL_T,
               "capture": 8 * 1536}
 BLOCK_DECODE_POS = 3800
+# the first designs of rms_norm.cu (a warp a row in a grid-stride loop) and
+# rope_kv.cu (a block a token) at the timed cases, ms (this phase on an
+# NVIDIA H100 80GB HBM3, 700.00 W), printed in brackets beside this run's
+# times; cases they were not timed at have none
+FIRST_DESIGN_MS = {
+    "rms_norm prefill gemma_2b": 0.2860, "rms_norm decode gemma_2b": 0.0063,
+    "rms_norm capture gemma_2b": 0.1230, "rms_norm prefill mistral_7b": 0.1939,
+    "rope_kv prefill gemma_2b bf16": 0.1604, "rope_kv decode gemma_2b bf16": 0.0047,
+    "rope_kv decode gemma_2b int8": 0.0049, "rope_kv decode gemma_2b int4": 0.0059,
+    "rope_kv prefill gemma_2b int8": 0.2256, "rope_kv capture gemma_2b none": 0.0690,
+}
 BLOCK_MODELS = {  # d_model, heads, kv heads, head dim, d_ff, activation, plus_one
     "gemma_2b": (2048, 8, 1, 256, 16_384, "gelu", True),
     "mistral_7b": (4096, 32, 8, 128, 14_336, "silu", False),
@@ -2771,11 +2782,30 @@ def norm_case(gen, label: str, rows: int, model: str, dt, delta=True, timed=Fals
             scale = ((1.0 + w.float()) if plus_one else w.float()).contiguous()
             lib_ms = cuda_ms(lambda: F.rms_norm(ref_resid, (d,), weight=scale, eps=1e-6))
         out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
-        text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                 f"({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)"
-                 + (f", F.rms_norm {lib_ms:.4f} ms" if lib_ms is not None else ""))
+        lib_bytes = rows * d * (4 + es) + d * 4  # F.rms_norm: the summed input in, normed out
+        text += (f"; kernel {ms:.4f} ms{was(f'rms_norm {label} {model}')}, plain "
+                 f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+                 f"{nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)"
+                 + (f", F.rms_norm {lib_ms:.4f} ms (its own bound "
+                    f"{lib_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms: no delta read, no resid write)"
+                    if lib_ms is not None else "")
+                 + plan_text("rms_norm"))
     print(f"  {what}: {text}", flush=True)
     return out
+
+
+def plan_text(kernel: str) -> str:
+    """The last launch's plan of a block kernel (none on the CPU)."""
+    from probing_rag_tpu_torch.ops import block as bk
+
+    plan = bk.last_plan[kernel]
+    return f"; plan {dict(plan._asdict())}" if plan is not None else ""
+
+
+def was(key: str) -> str:
+    """The first design's time of a timed case, in brackets (empty if it
+    had none)."""
+    return f" [first design {FIRST_DESIGN_MS[key]:.4f}]" if key in FIRST_DESIGN_MS else ""
 
 
 def rope_case(gen, label: str, model: str, t: int, kind: str, dt, timed=False) -> dict:
@@ -2860,8 +2890,9 @@ def rope_case(gen, label: str, model: str, t: int, kind: str, dt, timed=False) -
         nbytes = b * t * (2 * h * hd * es + 2 * kvh * hd * es + 2 * kvh * row + 8)
         bnd = bound(nbytes, 6 * b * t * (h + kvh) * hd // 2, "f32")
         out.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
-        text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                 f"({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)")
+        text += (f"; kernel {ms:.4f} ms{was(f'rope_kv {label} {model} {kind}')}, plain "
+                 f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+                 f"{nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)" + plan_text("rope_kv"))
     print(f"  {what}: {text}", flush=True)
     return out
 
@@ -2927,11 +2958,12 @@ def phase_block_kernels(results: dict) -> None:
         "capture": norm_case(gen, "capture", rows["capture"], "gemma_2b", bf16, timed=True),
         "mistral prefill": norm_case(gen, "prefill", 8 * PREFILL_MISTRAL_T, "mistral_7b", bf16,
                                      timed=True),
+        "verify": norm_case(gen, "verify", rows["verify"], "gemma_2b", bf16, timed=True),
+        "mistral decode": norm_case(gen, "decode", rows["decode"], "mistral_7b", bf16,
+                                    timed=True),
     }
     checks = [norm_case(gen, "first layer", rows["prefill"], "gemma_2b", bf16, delta=False),
-              norm_case(gen, "verify", rows["verify"], "gemma_2b", bf16),
               norm_case(gen, "decode", rows["decode"], "gemma_2b", f32),
-              norm_case(gen, "decode", rows["decode"], "mistral_7b", bf16),
               norm_case(gen, "prefill", 8 * 64, "tiny", bf16),
               norm_case(gen, "prefill", 8 * 64, "tiny_mistral", f32)]
     results["rms_norm"] = {
@@ -2996,13 +3028,14 @@ def phase_block_kernels(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def device_profile(fn, reps: int = 1, top: int = 8, focus: str = "") -> str:
+def device_profile(fn, reps: int = 1, top: int = 8, focus=()) -> str:
     """Where ``fn()`` spends its device time: ``torch.profiler`` over one
     call of ``fn`` (``reps`` runs of what it times), the kernels' device
     milliseconds a run by name (the kernels' own events: an op that
     launches a kernel carries its time too), the largest ``top``, the
-    total and the kernel launches a run; with ``focus``, first the kernels whose name holds it, their ms
-    and share of the total."""
+    total and the kernel launches a run; with ``focus`` (a name or several),
+    first for each the kernels whose name holds it, their ms and share of
+    the total."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3018,9 +3051,9 @@ def device_profile(fn, reps: int = 1, top: int = 8, focus: str = "") -> str:
     total = sum(ms for ms, _ in rows)
     launches = sum(e.count for e in events) / reps
     head = ""
-    if focus:
-        hit = sum(ms for ms, name in rows if focus in name)
-        head = f"{focus} {hit:.3f} ms, {100 * hit / total:.1f}% of the device time; "
+    for name in ((focus,) if isinstance(focus, str) else focus):
+        hit = sum(ms for ms, key in rows if name in key)
+        head += f"{name} {hit:.3f} ms, {100 * hit / total:.1f}% of the device time; "
     return head + (f"{total:.3f} ms in {launches:.0f} launches of {len(rows)} kernels; " + "; ".join(
         f"{name[:60]} {ms:.3f}" for ms, name in rows[:top]))
 
@@ -3036,7 +3069,7 @@ def replay_ms(loop, reps: int = 20) -> float:
         return cuda_ms(loop.graph.graph.replay, reps=reps)
 
 
-def step_profile(loop, reps: int = 5, top: int = 8) -> str:
+def step_profile(loop, reps: int = 5, top: int = 8, focus=()) -> str:
     """Where one replay of ``loop``'s captured step spends its device time:
     ``device_profile`` over ``reps`` raw replays, in ms a step."""
     import torch
@@ -3047,7 +3080,7 @@ def step_profile(loop, reps: int = 5, top: int = 8) -> str:
 
     with torch.inference_mode():
         loop.state.step.zero_()
-        return device_profile(replays, reps, top)
+        return device_profile(replays, reps, top, focus)
 
 
 def phase_generation(lm, index, questions, results: dict) -> dict:
@@ -3160,7 +3193,7 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
               f"matmul_int8 launches {mm} (prefill {prefill_mm}), decode_attention {attn}",
               flush=True)
         print(f"  {label} step, device time by kernel (torch.profiler, ms a step): "
-              f"{step_profile(loop)}", flush=True)
+              f"{step_profile(loop, focus=('rms_norm', 'rope_kv'))}", flush=True)
         t_prefill[label] = t1
         graphed[label] = res_g
         if label == "bf16":

@@ -89,12 +89,13 @@ _SIGNATURES = {
     # tile, stages, raw_slots, raw_stages, smem; scale, stream
     "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_I] * 5 + [_F, _P],
     # x, delta, w, resid, normed; delta / weight / out kinds, rows, d, eps,
-    # plus_one, sms, stream
-    "rms_norm": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
+    # plus_one, the plan's width, rows_block, blocks, chunk; stream
+    "rms_norm": [_P] * 5 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     # q, k, v, positions, cursor, k / v cache, k / v scales; dt, kind, b, t,
-    # h, kvh, hd, s, group; positions', cache and scale strides; theta,
-    # sms, stream
-    "rope_kv": [_P] * 9 + [_I] * 9 + [_LL] * 6 + [_F, _I, _P],
+    # h, kvh, hd, s, group; positions', cache and scale strides; theta, the
+    # plan's vec_bytes, lanes_row, steps_warp, warps_token, tokens_block,
+    # blocks; stream
+    "rope_kv": [_P] * 9 + [_I] * 9 + [_LL] * 6 + [_F] + [_I] * 6 + [_P],
     # gate, up, out; dt, act, n, sms, stream
     "gated_act": [_P] * 3 + [_I, _I, _LL, _I, _P],
 }

@@ -21,9 +21,11 @@ the intermediates in registers:
 - :func:`gated_act` (``kernels/csrc/gated_act.cu``): ``act(gate) * up`` for
   GeGLU (tanh gelu) and SwiGLU (silu).
 
-Each is bound by device-memory bytes on the H100 (a few operations a byte,
-below its ridge of ~295): the kernels read each input once and write each
-output once. CUDA tensors launch the kernel or raise on a dtype, shape or
+Each is bound by device-memory bytes on the H100 at a prefill's rows (a few
+operations a byte, below its ridge of ~295), by latency at a decode step's:
+the kernels read each input once and write each output once, and the norm's
+and RoPE's launch geometry comes from :func:`plan_norm` and
+:func:`plan_rope`. CUDA tensors launch the kernel or raise on a dtype, shape or
 stride it does not take; CPU tensors take the plain version (``*_plain``),
 which is the JAX package's arithmetic as PyTorch ops. There is no other
 switch. The checks run on every device, before either version.
@@ -31,7 +33,7 @@ switch. The checks run on every device, before either version.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +46,7 @@ _FLOATS = {torch.bfloat16: 0, torch.float32: 1}
 # the cache's stored types in rope_kv.cu: bf16, f32, int8, int4 (uint8 pairs)
 _CACHE_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2, torch.uint8: 3}
 ACTIVATIONS = {"gelu": 0, "silu": 1}
-# rms_norm.cu: a warp a row of a multiple of 8 up to this width
+# rms_norm.cu: a row of a multiple of 8 up to this width
 NORM_VEC = 8
 NORM_MAX_D = 16384
 ROPE_MAX_HEAD_DIM = 256
@@ -225,6 +227,144 @@ def gated_tolerance(gate: torch.Tensor, up: torch.Tensor, activation: str) -> to
     return out
 
 
+# ------------------------------------------------------------------ planners
+#
+# The kernels' launch geometry, chosen here from the shapes and passed to
+# the C entries, which check it. The CPU tests carry each plan out in numpy
+# (tests/test_torch_block_plan.py).
+
+# rms_norm.cu: up to this many rows a row is a block of its own (a decode
+# step's 8, a verify round's 40: spread over as many SMs); from it on the
+# "stream" regime packs rows into blocks of NORM_STREAM_THREADS threads
+NORM_STREAM_ROWS = 1024
+NORM_STREAM_THREADS = 128
+NORM_CHUNKS = (4, 8, 16)  # vectors a thread takes at a time
+NORM_MAX_THREADS = 512  # a block; 256 for chunks of 8 vectors or more
+# rope_kv.cu: row steps a warp holds at once; a block's threads
+ROPE_MAX_STEPS = 6
+ROPE_MAX_THREADS = 512
+# up to this many tokens (a decode step's 8, a verify round's 40) a warp
+# takes one step (up to 16 warps a token), so a token's rows spread over
+# warps; from it on a warp takes as many of a token's steps as it holds,
+# ROPE_STREAM_WARPS warps a block
+ROPE_STREAM_TOKENS = 256
+ROPE_STREAM_WARPS = 4
+# a lane's vectors at a decode step into an int8 / int4 cache, where a row
+# then fits a warp: a key or value row a warp halves each lane's divides
+ROPE_DECODE_VEC_BYTES = 8
+
+
+def _last_pow2(n: int) -> int:
+    p = 1
+    while p * 2 <= n:
+        p *= 2
+    return p
+
+
+def torch_row_threads(units: int, rows: int) -> int:
+    """The threads torch's CUDA reduction gives one row of ``units`` loads
+    (4-wide vectors from 128 wide on, else elements) over ``rows`` rows:
+    its ``block_width`` from ``setReduceConfig`` (``ATen/native/cuda/
+    Reduce.cuh``), at most 512 threads a block, at least a warp.
+    ``rms_norm.cu`` holds the same rule and refuses another width."""
+    mt = NORM_MAX_THREADS
+    d0 = _last_pow2(units) if units < mt else mt
+    d1 = _last_pow2(rows) if rows < mt else mt
+    width = min(d0, 32)
+    height = min(d1, mt // width)
+    width = min(d0, mt // height)
+    return max(width, 32)
+
+
+def _norm_cap(chunk: int) -> int:
+    """A block's threads at most for a chunk of that many vectors."""
+    return 256 if chunk >= 8 else NORM_MAX_THREADS
+
+
+class NormPlan(NamedTuple):
+    regime: str  # "latency": a row a block; "stream": rows packed into blocks
+    width: int  # threads a row (torch's)
+    rows_block: int
+    blocks: int
+    per: int  # vectors (from 128 wide; else elements) a thread sums
+    chunk: int  # of them it loads at once; more than one chunk: read again
+
+
+def plan_norm(rows: int, d: int) -> NormPlan:
+    """``rms_norm.cu``'s launch over ``rows`` rows of width ``d``: the
+    threads a row are torch's (:func:`torch_row_threads`), so the sum keeps
+    torch's order; what the rows decide is how many share a block."""
+    units = d // 4 if d >= 128 else d
+    width = torch_row_threads(units, rows)
+    per = -(-units // width)
+    # the smallest chunk that holds the thread's vectors and takes the width
+    # (a wider row: the largest that takes it, a chunk at a time)
+    fits = [c for c in (NORM_CHUNKS if d >= 128 else (4,)) if width <= _norm_cap(c)]
+    chunk = next((c for c in fits if c >= per), fits[-1])
+    cap = _norm_cap(chunk)
+    if rows < NORM_STREAM_ROWS:
+        regime, rows_block = "latency", 1
+    else:
+        regime, rows_block = "stream", max(1, min(NORM_STREAM_THREADS, cap) // width)
+    return NormPlan(regime, width, rows_block, max(1, -(-rows // rows_block)), per, chunk)
+
+
+class RopePlan(NamedTuple):
+    regime: str  # "decode": a step a warp; "stream": a token's steps a warp
+    vec_bytes: int  # a lane's vectors: 16, or 8 at a decode step where a row fits a warp
+    lanes_row: int  # lanes a row: its half over vec_bytes vectors, a power of two
+    rows_step: int  # rows a warp takes at once (32 / lanes_row)
+    steps: int  # a token's steps: its h + 2 kvh rows over rows_step
+    steps_warp: int
+    warps_token: int
+    tokens_block: int
+    blocks: int
+
+
+def plan_rope(b: int, t: int, h: int, kvh: int, hd: int, dt: torch.dtype,
+              quantized: bool = False) -> RopePlan:
+    """``rope_kv.cu``'s launch over ``b * t`` tokens of ``h`` query and
+    ``kvh`` key / value heads of ``hd`` in ``dt``, into an int8 / int4
+    cache if ``quantized``: a lane holds a vector of each half of a row,
+    ``32 / lanes_row`` rows a warp step. A decode step or verify round (up
+    to ``ROPE_STREAM_TOKENS`` tokens) gives a warp one step, into a
+    quantized cache in 8-byte vectors where a row then fits a warp and a
+    token 16 warps; a prefill packs a token's steps into as few warps as
+    hold them."""
+    es = torch.empty((), dtype=dt).element_size()
+    rows = h + 2 * kvh
+    max_warps = ROPE_MAX_THREADS // 32
+
+    def geometry(vec_bytes):  # (lanes a row, rows a step, steps a token)
+        lanes = 1
+        while lanes < hd // 2 * es // vec_bytes:
+            lanes *= 2
+        return lanes, max(1, 32 // lanes), -(-rows // max(1, 32 // lanes))
+
+    tokens = b * t
+    vec_bytes = 16
+    if tokens <= ROPE_STREAM_TOKENS:  # a step a warp, or as few as a block's warps allow
+        lanes, _, steps = geometry(ROPE_DECODE_VEC_BYTES)
+        if quantized and lanes <= 32 and steps <= max_warps:
+            vec_bytes = ROPE_DECODE_VEC_BYTES
+        regime = "decode"
+    else:
+        regime = "stream"
+    lanes, rows_step, steps = geometry(vec_bytes)
+    if regime == "decode":
+        steps_warp = -(-steps // max_warps)
+    else:
+        steps_warp = -(-steps // -(-steps // ROPE_MAX_STEPS))
+    warps_token = -(-steps // steps_warp)
+    tokens_block = 1 if regime == "decode" else max(1, ROPE_STREAM_WARPS // warps_token)
+    return RopePlan(regime, vec_bytes, lanes, rows_step, steps, steps_warp, warps_token,
+                    tokens_block, max(1, -(-tokens // tokens_block)))
+
+
+# the last launches' plans (chip_smoke.py prints them)
+last_plan = {"rms_norm": None, "rope_kv": None}
+
+
 # ------------------------------------------------------------------- checks
 
 
@@ -330,6 +470,7 @@ def add_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, plus_one: bo
     _aligned("add_rms_norm", x, weight, delta)
     resid = x if delta is None else torch.empty_like(x)
     normed = torch.empty(x.shape, dtype=dt, device=x.device)
+    plan = last_plan["rms_norm"] = plan_norm(rows, d)
     lib = kernels.library()
     with torch.cuda.device(x.device):
         kernels.check(
@@ -337,8 +478,8 @@ def add_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, plus_one: bo
                 x.data_ptr(), 0 if delta is None else delta.data_ptr(), weight.data_ptr(),
                 resid.data_ptr(), normed.data_ptr(),
                 0 if delta is None else 1 + _FLOATS[delta.dtype], _FLOATS[weight.dtype],
-                _FLOATS[dt], rows, d, float(np.float32(eps)), int(plus_one),
-                kernels.sm_count(x.device), kernels.stream_ptr(x.device),
+                _FLOATS[dt], rows, d, float(np.float32(eps)), int(plus_one), plan.width,
+                plan.rows_block, plan.blocks, plan.chunk, kernels.stream_ptr(x.device),
             ),
             "rms_norm",
         )
@@ -402,6 +543,8 @@ def rope_qk_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: 
         raise ValueError(f"rope_kv kernel needs k and v caches with contiguous slot rows and "
                          f"shared strides, got {kbuf.stride()}, {vbuf.stride()}")
     sc_b, sc_r = (ks.stride(0), ks.stride(1)) if ks is not None else (0, 0)
+    _aligned("rope_qk_cache", q, k, v, kbuf, vbuf)
+    plan = last_plan["rope_kv"] = plan_rope(b, t, h, kvh, hd, q.dtype, kind >= 2)
     lib = kernels.library()
     with torch.cuda.device(q.device):
         kernels.check(
@@ -411,8 +554,9 @@ def rope_qk_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: 
                 0 if ks is None else ks.data_ptr(), 0 if vs is None else vs.data_ptr(),
                 _FLOATS[q.dtype], kind, b, t, h, kvh, hd, s, kv4_group(hd),
                 positions.stride(0), positions.stride(1), kbuf.stride(0), kbuf.stride(1),
-                sc_b, sc_r, float(theta), kernels.sm_count(q.device),
-                kernels.stream_ptr(q.device),
+                sc_b, sc_r, float(theta), plan.vec_bytes, plan.lanes_row, plan.steps_warp,
+                plan.warps_token,
+                plan.tokens_block, plan.blocks, kernels.stream_ptr(q.device),
             ),
             "rope_kv",
         )
