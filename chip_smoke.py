@@ -105,7 +105,15 @@ and the script exits non-zero:
    a position off by one, an unrounded activation, gate and up swapped);
    the prefill, capture and decode shapes timed beside the plain version,
    the byte bound and, for the norm, ``F.rms_norm`` on the summed f32
-   input (a yardstick only).
+   input (a yardstick only); ``gated_act`` also at ragged n (a tiny
+   width and a prefill-sized one), each case with its plan (``ops/block.py::plan_act``) and
+   its count of elements not bit-equal, the timed ones (each launch on a
+   fresh copy of gate) beside the same-bytes ``torch.add(gate, up,
+   out=gate)`` (the first design's bracketed times were taken in place);
+   then the card's launch floor at ``gated_act``'s decode plan: an empty
+   kernel of its geometry (built here with nvcc) by ``cuda_ms`` and as 18
+   launches in a captured CUDA graph, beside 18 ``gated_act`` and 18
+   same-bytes adds in graphs of their own.
 9. generation: at Gemma-2B width on phase 5's weights, batch 8, the
    retrieval-round prompts, 150 tokens with stops off. First the decode
    attention kernel against its plain version at [8 x 8 heads x 3,862
@@ -2702,16 +2710,20 @@ class PlainBlock:
 BLOCK_ROWS = {"decode": 8, "verify": 8 * (SPEC_K + 1), "prefill": 8 * PREFILL_T,
               "capture": 8 * 1536}
 BLOCK_DECODE_POS = 3800
-# the first designs of rms_norm.cu (a warp a row in a grid-stride loop) and
-# rope_kv.cu (a block a token) at the timed cases, ms (this phase on an
-# NVIDIA H100 80GB HBM3, 700.00 W), printed in brackets beside this run's
-# times; cases they were not timed at have none
+# the first designs of rms_norm.cu (a warp a row in a grid-stride loop),
+# rope_kv.cu (a block a token) and gated_act.cu (a grid-stride loop of
+# 16-byte vectors, 256-thread blocks; timed applying it in place to one
+# buffer, its values drifting toward 0 over the repeats) at the timed
+# cases, ms (this phase on an NVIDIA H100 80GB HBM3, 700.00 W), printed in
+# brackets beside this run's times; cases they were not timed at have none
 FIRST_DESIGN_MS = {
     "rms_norm prefill gemma_2b": 0.2860, "rms_norm decode gemma_2b": 0.0063,
     "rms_norm capture gemma_2b": 0.1230, "rms_norm prefill mistral_7b": 0.1939,
     "rope_kv prefill gemma_2b bf16": 0.1604, "rope_kv decode gemma_2b bf16": 0.0047,
     "rope_kv decode gemma_2b int8": 0.0049, "rope_kv decode gemma_2b int4": 0.0059,
     "rope_kv prefill gemma_2b int8": 0.2256, "rope_kv capture gemma_2b none": 0.0690,
+    "gated_act prefill gemma_2b": 1.0177, "gated_act decode gemma_2b": 0.0033,
+    "gated_act capture gemma_2b": 0.4271, "gated_act prefill mistral_7b": 0.2535,
 }
 BLOCK_MODELS = {  # d_model, heads, kv heads, head dim, d_ff, activation, plus_one
     "gemma_2b": (2048, 8, 1, 256, 16_384, "gelu", True),
@@ -2802,10 +2814,12 @@ def plan_text(kernel: str) -> str:
     return f"; plan {dict(plan._asdict())}" if plan is not None else ""
 
 
-def was(key: str) -> str:
-    """The first design's time of a timed case, in brackets (empty if it
-    had none)."""
-    return f" [first design {FIRST_DESIGN_MS[key]:.4f}]" if key in FIRST_DESIGN_MS else ""
+def was(key: str, how: str = "") -> str:
+    """The first design's time of a timed case, in brackets, with how it
+    was timed (empty if it had none)."""
+    if key not in FIRST_DESIGN_MS:
+        return ""
+    return f" [first design {FIRST_DESIGN_MS[key]:.4f}{', ' + how if how else ''}]"
 
 
 def rope_case(gen, label: str, model: str, t: int, kind: str, dt, timed=False) -> dict:
@@ -2897,18 +2911,22 @@ def rope_case(gen, label: str, model: str, t: int, kind: str, dt, timed=False) -
     return out
 
 
-def gated_case(gen, label: str, rows: int, model: str, dt, timed=False) -> dict:
+def gated_case(gen, label: str, rows: int, model: str, dt, timed=False, f=None) -> dict:
     """``gated_act`` against its plain version on [rows, d_ff] of
-    ``model``: within ``ops/block.py::gated_tolerance`` (bit-equal at bf16
-    where act lies clear of a rounding midpoint), which the activation
-    left unrounded before the product (bf16) or gate and up swapped
-    exceed."""
+    ``model`` (or [rows, f]): within ``ops/block.py::gated_tolerance``
+    (bit-equal at bf16 where act lies clear of a rounding midpoint), which
+    the activation left unrounded before the product (bf16) or gate and up
+    swapped exceed; the count of elements not bit-equal and the plan
+    printed. Timed: beside the plain version, the byte bound and the
+    same-bytes add ``torch.add(gate, up, out=gate)`` (these reads and
+    writes with no arithmetic to speak of: the card's floor for this
+    traffic at this size, launch latency included)."""
     import torch
     import torch.nn.functional as F
 
     from probing_rag_tpu_torch.ops import block as bk
 
-    f, act = BLOCK_MODELS[model][4], BLOCK_MODELS[model][5]
+    f, act = f or BLOCK_MODELS[model][4], BLOCK_MODELS[model][5]
     g = (2 * torch.randn((rows, f), generator=gen, device=DEVICE)).to(dt)
     u = torch.randn((rows, f), generator=gen, device=DEVICE).to(dt)
     got = bk.gated_act(g.clone(), u, act)
@@ -2920,19 +2938,102 @@ def gated_case(gen, label: str, rows: int, model: str, dt, timed=False) -> dict:
     if dt == torch.bfloat16:
         controls["act unrounded"] = (fn(g.float()) * u.float()).to(dt)
     what = f"gated_act {label} {model} [{rows} x {f}] {act} {str(dt)[6:]}"
-    err, _, text = held(what, got, ref, tol, controls)
+    err, unequal, text = held(what, got, ref, tol, controls)
     del tol, controls
-    out = {"max_abs_err": err}
-    if timed:
-        gt = g.clone()
-        ms = cuda_ms(lambda: bk.gated_act(gt, u, act))
+    out = {"max_abs_err": err, "not_bit_equal": unequal}
+    text += plan_text("gated_act")
+    if timed:  # each launch on a fresh copy of gate: in place, repeats drift its values to 0
+        fresh = [g.clone() for _ in range(6)]
+        ms = cuda_ms(lambda: bk.gated_act(fresh.pop(), u, act), reps=5)
         plain_ms = cuda_ms(lambda: bk.gated_act_plain(g, u, act))
+        gt = g.clone()
+        add_ms = cuda_ms(lambda: torch.add(gt, u, out=gt))
         nbytes = 3 * rows * f * g.element_size()
         bnd = bound(nbytes, 12 * rows * f, "f32")
-        out.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
-        text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                 f"({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)")
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=None, same_bytes_add_ms=add_ms, **bnd)
+        text += (f"; kernel {ms:.4f} ms{was(f'gated_act {label} {model}', 'in place')}, plain "
+                 f"{plain_ms:.4f} ms, same-bytes add {add_ms:.4f} ms ({ms / add_ms:.2f}x), bound "
+                 f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; "
+                 f"{bnd['bound_ms'] / ms:.0%} of it)")
     print(f"  {what}: {text}", flush=True)
+    return out
+
+
+EMPTY_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def launch_floor(rounds: int = 4) -> dict:
+    """The card's launch floor at ``gated_act``'s decode plan (Gemma-2B's
+    [8 x 16,384] bf16): an empty kernel of the plan's geometry, built here,
+    timed by ``cuda_ms``, then 18 launches of it in a captured CUDA graph
+    (a decode step's 18 a replay) beside 18 ``gated_act`` launches and 18
+    same-bytes ``torch.add`` in graphs of their own, on 18 buffers each,
+    out of place (gate stays what it was), in turns over ``rounds``. The
+    smallest replay over 18, in ms a launch."""
+    import ctypes
+
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models.graphs import StepGraph
+    from probing_rag_tpu_torch.ops import block as bk
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, so = kernels.BUILD_DIR / "empty_kernel.cu", kernels.BUILD_DIR / "empty_kernel.so"
+    src.write_text(EMPTY_KERNEL_CU)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
+                   check=True, capture_output=True, text=True)
+    empty_lib = ctypes.CDLL(str(so))
+    empty_lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib = kernels.library()
+    rows, f = BLOCK_ROWS["decode"], BLOCK_MODELS["gemma_2b"][4]
+    plan = bk.plan_act(rows * f, torch.bfloat16)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        kernels.check(empty_lib.empty_launch(plan.blocks, plan.threads, stream()), "empty kernel")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    bufs = [[torch.randn((rows, f), generator=gen, device="cuda").bfloat16() for _ in range(3)]
+            for _ in range(18)]
+
+    def act(g, u, o):
+        kernels.check(lib.gated_act(g.data_ptr(), u.data_ptr(), o.data_ptr(), 0,
+                                    bk.ACTIVATIONS["gelu"], g.numel(), *plan, stream()),
+                      "gated_act")
+
+    def add(g, u, o):
+        torch.add(g, u, out=o)
+
+    def eighteen(fn):  # a decode step's 18 launches, one a buffer
+        def step():
+            for buf in bufs:
+                fn(*buf)
+        return StepGraph(step, lambda: None, lambda saved: None)
+
+    empty_ms = cuda_ms(empty, reps=20)
+    graphs = {"empty kernel": eighteen(lambda *buf: empty()), "gated_act": eighteen(act),
+              "same-bytes add": eighteen(add)}
+    ms = {name: [] for name in graphs}
+    for r in range(rounds):
+        for name in (list(graphs) if r % 2 == 0 else list(graphs)[::-1]):
+            ms[name].append(cuda_ms(graphs[name].replay, reps=20) / 18)
+    out = {"empty_cuda_ms": empty_ms, **{f"{k.replace(' ', '_').replace('-', '_')}_graph": min(v)
+                                         for k, v in ms.items()}}
+    print(f"  launch floor at gated_act's decode plan {dict(plan._asdict())}: an empty kernel "
+          f"{empty_ms * 1e3:.2f} us a launch by cuda_ms; 18 in a captured graph, us a launch "
+          f"(min of {rounds} x 20 replays): " + ", ".join(
+              f"{name} {min(v) * 1e3:.2f}" for name, v in ms.items()), flush=True)
+    del bufs, graphs
     return out
 
 
@@ -3011,21 +3112,33 @@ def phase_block_kernels(results: dict) -> None:
         "capture": gated_case(gen, "capture", rows["capture"], "gemma_2b", bf16, timed=True),
         "mistral prefill": gated_case(gen, "prefill", 8 * PREFILL_MISTRAL_T, "mistral_7b", bf16,
                                       timed=True),
+        "verify": gated_case(gen, "verify", rows["verify"], "gemma_2b", bf16, timed=True),
+        "mistral decode": gated_case(gen, "decode", rows["decode"], "mistral_7b", bf16,
+                                     timed=True),
     }
-    checks = [gated_case(gen, "verify", rows["verify"], "gemma_2b", bf16),
+    checks = [gated_case(gen, "verify", rows["verify"], "mistral_7b", bf16),
               gated_case(gen, "decode", rows["decode"], "gemma_2b", f32),
               gated_case(gen, "decode", rows["decode"], "mistral_7b", f32),
-              gated_case(gen, "ragged", 8 * 64 + 3, "tiny", bf16),
-              gated_case(gen, "prefill", 8 * 64, "tiny_mistral", f32)]
+              gated_case(gen, "capture", rows["capture"], "gemma_2b", f32),
+              gated_case(gen, "prefill", 8 * 64, "tiny", bf16),
+              gated_case(gen, "prefill", 8 * 64, "tiny_mistral", f32),
+              # n not a multiple of the vector, small and prefill-sized
+              gated_case(gen, "ragged", 8 * 64 + 3, "tiny", bf16, f=125),
+              gated_case(gen, "ragged", 8 * 64 + 3, "tiny_mistral", f32, f=125),
+              gated_case(gen, "ragged", 257, "gemma_2b", bf16, f=16_383),
+              gated_case(gen, "ragged", 257, "mistral_7b", f32, f=14_335)]
+    every = [*gated.values(), *checks]
     results["gated_act"] = {
         **gated["prefill"],
-        "max_abs_err": max(r["max_abs_err"] for r in [*gated.values(), *checks]),
+        "max_abs_err": max(r["max_abs_err"] for r in every),
+        "not_bit_equal": sum(r["not_bit_equal"] for r in every),
         "shape": f"[{rows['prefill']} x 16384] gelu bf16",
         **{f"{k.replace(' ', '_')}_{key}": r[key] for k, r in gated.items() if k != "prefill"
-           for key in ("ms", "plain_ms", "bound_ms")},
+           for key in ("ms", "plain_ms", "bound_ms", "same_bytes_add_ms")},
     }
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+        results["gated_act"]["launch_floor_ms"] = launch_floor()
 
 
 def device_profile(fn, reps: int = 1, top: int = 8, focus=()) -> str:
@@ -3067,6 +3180,10 @@ def replay_ms(loop, reps: int = 20) -> float:
     with torch.inference_mode():  # the loop's buffers are inference tensors
         loop.state.step.zero_()
         return cuda_ms(loop.graph.graph.replay, reps=reps)
+
+
+# the kernels whose share of a bf16 prefill phase 9 prints first
+PREFILL_FOCUS = ("prefill_attn", "gated_act")
 
 
 def step_profile(loop, reps: int = 5, top: int = 8, focus=()) -> str:
@@ -3193,13 +3310,13 @@ def phase_generation(lm, index, questions, results: dict) -> dict:
               f"matmul_int8 launches {mm} (prefill {prefill_mm}), decode_attention {attn}",
               flush=True)
         print(f"  {label} step, device time by kernel (torch.profiler, ms a step): "
-              f"{step_profile(loop, focus=('rms_norm', 'rope_kv'))}", flush=True)
+              f"{step_profile(loop, focus=('rms_norm', 'rope_kv', 'gated_act'))}", flush=True)
         t_prefill[label] = t1
         graphed[label] = res_g
         if label == "bf16":
             print(f"  bf16 prefill (8 x {tokens.shape[1]} tokens), device time by kernel "
                   f"(torch.profiler, ms): "
-                  f"{device_profile(lambda: run(p, cfg, 1, **kv), focus='prefill_attn')}",
+                  f"{device_profile(lambda: run(p, cfg, 1, **kv), focus=PREFILL_FOCUS)}",
                   flush=True)
         with PlainAttention():
             run(p, cfg, 1, **kv)

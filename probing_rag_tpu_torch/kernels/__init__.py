@@ -96,8 +96,9 @@ _SIGNATURES = {
     # plan's vec_bytes, lanes_row, steps_warp, warps_token, tokens_block,
     # blocks; stream
     "rope_kv": [_P] * 9 + [_I] * 9 + [_LL] * 6 + [_F] + [_I] * 6 + [_P],
-    # gate, up, out; dt, act, n, sms, stream
-    "gated_act": [_P] * 3 + [_I, _I, _LL, _I, _P],
+    # gate, up, out; dt, act, n, the plan's vec_bytes, threads, blocks;
+    # stream
+    "gated_act": [_P] * 3 + [_I, _I, _LL] + [_I] * 3 + [_P],
 }
 
 

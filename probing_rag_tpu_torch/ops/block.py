@@ -23,9 +23,9 @@ the intermediates in registers:
 
 Each is bound by device-memory bytes on the H100 at a prefill's rows (a few
 operations a byte, below its ridge of ~295), by latency at a decode step's:
-the kernels read each input once and write each output once, and the norm's
-and RoPE's launch geometry comes from :func:`plan_norm` and
-:func:`plan_rope`. CUDA tensors launch the kernel or raise on a dtype, shape or
+the kernels read each input once and write each output once, and their
+launch geometry comes from :func:`plan_norm`, :func:`plan_rope` and
+:func:`plan_act`. CUDA tensors launch the kernel or raise on a dtype, shape or
 stride it does not take; CPU tensors take the plain version (``*_plain``),
 which is the JAX package's arithmetic as PyTorch ops. There is no other
 switch. The checks run on every device, before either version.
@@ -361,8 +361,41 @@ def plan_rope(b: int, t: int, h: int, kvh: int, hd: int, dt: torch.dtype,
                     tokens_block, max(1, -(-tokens // tokens_block)))
 
 
+# gated_act.cu (its constants are these; the C entry refuses another
+# plan): one pass at every size, a vector of ACT_VEC_BYTES a thread in
+# blocks of ACT_THREADS, as many blocks as the vectors need
+ACT_VEC_BYTES = 8
+ACT_THREADS = 128
+ACT_MAX_INDEX = 2**31 - 1  # the kernel's thread indices in 32-bit ints
+
+
+class ActPlan(NamedTuple):
+    vec_bytes: int  # a thread's vector (the last one ragged where n is not a multiple)
+    threads: int  # a block
+    blocks: int
+
+
+def plan_act(n: int, dt: torch.dtype) -> ActPlan:
+    """``gated_act.cu``'s launch over ``n`` values of ``dt``: one pass, a
+    vector of ``ACT_VEC_BYTES`` a thread (the last ragged where ``n`` is
+    not a multiple of it), neighbouring threads on neighbouring vectors,
+    ``ACT_THREADS`` a block and as many blocks as the vectors need (a
+    decode step's [8 x 16,384] bf16: 256 blocks, every SM). On the card one
+    pass takes a same-bytes ``torch.add``'s time at a prefill's rows and a
+    few percent more at a decode step's (``chip_smoke.py`` phase 9a), where
+    a resident grid looping over the tensor was slower, so no size takes
+    another geometry and the SM count does not enter. Depends on the shapes
+    alone, so a captured decode step keeps its geometry."""
+    vecs = -(-n // (ACT_VEC_BYTES // torch.empty((), dtype=dt).element_size()))
+    blocks = max(1, -(-vecs // ACT_THREADS))
+    if blocks * ACT_THREADS > ACT_MAX_INDEX:
+        raise ValueError(f"gated_act kernel indexes its threads in 32-bit ints: {n} values of "
+                         f"{dt} need more")
+    return ActPlan(ACT_VEC_BYTES, ACT_THREADS, blocks)
+
+
 # the last launches' plans (chip_smoke.py prints them)
-last_plan = {"rms_norm": None, "rope_kv": None}
+last_plan = {"rms_norm": None, "rope_kv": None, "gated_act": None}
 
 
 # ------------------------------------------------------------------- checks
@@ -570,18 +603,23 @@ def gated_act(gate: torch.Tensor, up: torch.Tensor, activation: str) -> torch.Te
     computed in f32 and rounded to the compute type, then the product
     rounded to it, as the plain ops round. On the card the kernel writes
     the result IN PLACE into ``gate``'s buffer (the product's output, a
-    temporary) and returns it; the plain version returns a new tensor. CPU
-    tensors take :func:`gated_act_plain`."""
+    temporary) and returns it, its launch geometry from :func:`plan_act`;
+    the plain version returns a new tensor. CPU tensors take
+    :func:`gated_act_plain`."""
     _check_gated(gate, up, activation)
     if not _on_cuda("gated_act", gate, up):
         return gated_act_plain(gate, up, activation)
     _aligned("gated_act", gate, up)
+    n = gate.numel()
+    plan = last_plan["gated_act"] = plan_act(n, gate.dtype)
+    if n == 0:
+        return gate
     lib = kernels.library()
     with torch.cuda.device(gate.device):
         kernels.check(
             lib.gated_act(gate.data_ptr(), up.data_ptr(), gate.data_ptr(), _FLOATS[gate.dtype],
-                          ACTIVATIONS[activation], gate.numel(), kernels.sm_count(gate.device),
-                          kernels.stream_ptr(gate.device)),
+                          ACTIVATIONS[activation], n, plan.vec_bytes, plan.threads,
+                          plan.blocks, kernels.stream_ptr(gate.device)),
             "gated_act",
         )
     kernels.LAUNCHES["gated_act"] += 1

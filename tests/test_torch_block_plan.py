@@ -1,7 +1,8 @@
-"""The launch plans of the block's norm and RoPE kernels, carried out on the CPU.
+"""The launch plans of the block's kernels, carried out on the CPU.
 
-``ops/block.py::plan_norm`` and ``plan_rope`` give ``rms_norm.cu`` and
-``rope_kv.cu`` their geometry; the kernels run only on the card
+``ops/block.py::plan_norm``, ``plan_rope`` and ``plan_act`` give
+``rms_norm.cu``, ``rope_kv.cu`` and ``gated_act.cu`` their geometry; the
+kernels run only on the card
 (``chip_smoke.py`` phase 9a holds them bit-equal to their plain versions
 there). Here each plan is carried out in numpy with the kernels' rules:
 
@@ -23,7 +24,21 @@ there). Here each plan is carried out in numpy with the kernels' rules:
   half, or over the row where groups cross the halves) with the scales
   each lane writes give the bytes and scales of ``quant_kv`` /
   ``quant_kv4`` + ``pack_int4`` exactly, each scale written once.
+- ``plan_act``: the kernel's one pass (a vector a thread, the last one
+  ragged where n is not a multiple of it) carried out at Gemma-2B's
+  decode, verify, prefill and capture rows, Mistral-7B's, the tiny
+  configs' and ragged n, bf16 and f32: each element loaded once and
+  stored once, by the thread that loaded it, the loads and the stores
+  modelled apart from the kernel's own index expressions (in place is
+  safe), no idle block; the plan's end where 32-bit thread indices end;
+  and the C entry's check itself (``gated_act.cu``'s host-only ``namespace
+  gact``, compiled with g++) takes the planner's plan at every case and
+  refuses any other.
 """
+
+import ctypes
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -327,3 +342,202 @@ def test_rope_lanes_quantize_as_the_plain_cache_write(kind, hd, dt, t):
             q, s = at.quant_kv4(row[None])
             np.testing.assert_array_equal(got, at.pack_int4(q)[0].numpy())
         np.testing.assert_array_equal(scales, s[0].numpy().reshape(-1))
+
+
+# ------------------------------------------------------- the gated activation
+
+ACT_CASES = {  # (rows, d_ff): n = rows x d_ff values
+    "gemma_2b decode": (8, 16_384),
+    "gemma_2b verify": (40, 16_384),
+    "gemma_2b prefill": (8 * 3712, 16_384),
+    "gemma_2b capture": (8 * 1536, 16_384),
+    "mistral_7b decode": (8, 14_336),
+    "mistral_7b verify": (40, 14_336),
+    "mistral_7b prefill": (8 * 1024, 14_336),
+    "tiny decode": (8, 128),
+    "tiny prefill": (8 * 64, 128),
+    "ragged one value": (1, 1),
+    "ragged [3 x 7]": (3, 7),
+    "ragged [515 x 125]": (515, 125),
+    "ragged [257 x 16,383]": (257, 16_383),
+    "ragged [29,697 x 16,383]": (8 * 3712 + 1, 16_383),
+}
+WHOLE_GRID = 1 << 21  # threads carried out one by one up to this; beyond, the edges
+ACT_SHIM = """
+extern "C" int act_plan(long long n, int es, int* out) {
+  gact::Plan p;
+  if (!gact::plan(n, es, &p)) return 0;
+  out[0] = p.vec_bytes;
+  out[1] = p.threads;
+  out[2] = p.blocks;
+  return 1;
+}
+extern "C" int act_accepts(long long n, int es, int vec_bytes, int threads, int blocks) {
+  gact::Plan p;
+  return gact::accepts(n, es, vec_bytes, threads, blocks, &p);
+}
+"""
+
+
+class ActRule:
+    """``gated_act.cu``'s ``namespace gact`` (the plan's rule and the C
+    entry's check; host code only), compiled with g++ from the source the
+    card builds."""
+
+    def __init__(self, build_dir: Path):
+        src = (Path(bk.__file__).resolve().parents[1] / "kernels" / "csrc"
+               / "gated_act.cu").read_text()
+        ns = src[src.index("namespace gact {"):src.index("}  // namespace gact")] + "}\n"
+        cpp, so = build_dir / "gact.cpp", build_dir / "gact.so"
+        cpp.write_text(ns + ACT_SHIM)
+        subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC", str(cpp), "-o", str(so)],
+                       check=True, capture_output=True, text=True)
+        self.lib = ctypes.CDLL(str(so))
+        self.lib.act_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)]
+        self.lib.act_accepts.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4
+
+    def plan(self, n: int, dt: torch.dtype):
+        """``gact::plan``: (vec_bytes, threads, blocks), or None where the
+        entry takes no plan."""
+        out = (ctypes.c_int * 3)()
+        ok = self.lib.act_plan(n, torch.empty((), dtype=dt).element_size(), out)
+        return tuple(out) if ok else None
+
+    def accepts(self, plan: bk.ActPlan, n: int, dt: torch.dtype) -> bool:
+        """``gact::accepts``: the C entry launches this plan."""
+        return bool(self.lib.act_accepts(n, torch.empty((), dtype=dt).element_size(), *plan))
+
+
+@pytest.fixture(scope="module")
+def act_rule(tmp_path_factory) -> ActRule:
+    return ActRule(tmp_path_factory.mktemp("gact"))
+
+
+def act_accesses(vec: np.ndarray, ragged: np.ndarray, per: int, tail: int, vec_index,
+                 ragged_base: int) -> tuple:
+    """(elements, threads) of one access of ``gated_act_pass``: threads
+    ``vec`` each touch the ``per`` values of vector ``vec_index(i)``, and
+    the ragged thread (if in ``ragged``) the ``tail`` values from
+    ``ragged_base`` one at a time."""
+    el = [(vec_index(vec)[:, None] * per + np.arange(per)).ravel()]
+    by = [np.repeat(vec, per)]
+    for r in ragged:
+        el.append(ragged_base + np.arange(tail))
+        by.append(np.full(tail, r))
+    return np.concatenate(el), np.concatenate(by)
+
+
+def carry_out_act(plan: bk.ActPlan, n: int, dt: torch.dtype, lo: int, hi: int) -> tuple:
+    """Runs ``gated_act_pass`` for the grid's threads ``[lo, hi)`` with the
+    kernel's index expressions, its loads' and its stores' written apart:
+    thread i < full loads ``gate[i]`` and ``up[i]`` and stores ``out[i]``
+    (16-, 8-byte vectors), and the thread at i == full loads ``gate + per *
+    full + e`` and stores ``out + per * full + e`` for e < tail. Asserts
+    that each element those threads store is stored once, by the thread
+    that loaded it from gate and up, and that no element is loaded without
+    being stored (so gate may be the output: no thread touches another's
+    elements). Returns the element range they cover."""
+    per = plan.vec_bytes // torch.empty((), dtype=dt).element_size()
+    full, tail = divmod(n, per)
+    t = np.arange(lo, hi, dtype=np.int64)
+    vec, ragged = t[t < full], t[(t == full) & (tail > 0)]
+    loads = {name: act_accesses(vec, ragged, per, tail, lambda i: i, per * full)
+             for name in ("gate", "up")}
+    stored, sby = act_accesses(vec, ragged, per, tail, lambda i: i, per * full)
+    if not len(stored):
+        assert not any(len(el) for el, _ in loads.values()), "an element loaded, none stored"
+        return 0, 0
+    sorder = np.argsort(stored, kind="stable")
+    stored, sby = stored[sorder], sby[sorder]
+    assert (np.diff(stored) == 1).all(), "an element stored twice or skipped"
+    assert 0 <= stored[0] and stored[-1] < n, "a store outside the tensor"
+    for name, (loaded, by) in loads.items():
+        order = np.argsort(loaded, kind="stable")
+        assert np.array_equal(loaded[order], stored), f"an element of {name} loaded, not stored"
+        assert np.array_equal(by[order], sby), f"an element of {name} stored by another thread"
+    return int(stored[0]), int(stored[-1]) + 1
+
+
+@pytest.mark.parametrize("dt", list(DTS))
+@pytest.mark.parametrize("case", list(ACT_CASES))
+def test_act_plan_covers_every_element_once(case, dt):
+    """One pass: a thread a vector over the grid, no idle block; every
+    element loaded and stored once, by one thread (the whole grid carried
+    out up to ``WHOLE_GRID`` threads; beyond it the first block and the
+    last three, where the ragged vector and the idle threads are)."""
+    rows, f = ACT_CASES[case]
+    n = rows * f
+    plan = bk.plan_act(n, DTS[dt])
+    assert (plan.vec_bytes, plan.threads) == (bk.ACT_VEC_BYTES, bk.ACT_THREADS)
+    vecs = -(-n // (plan.vec_bytes // torch.empty((), dtype=DTS[dt]).element_size()))
+    grid = plan.blocks * plan.threads
+    assert (plan.blocks - 1) * plan.threads < vecs <= grid
+    assert grid <= bk.ACT_MAX_INDEX
+    if grid <= WHOLE_GRID:
+        assert carry_out_act(plan, n, DTS[dt], 0, grid) == (0, n)
+    else:
+        per = plan.vec_bytes // torch.empty((), dtype=DTS[dt]).element_size()
+        assert carry_out_act(plan, n, DTS[dt], 0, plan.threads) == (0, plan.threads * per)
+        last = grid - 3 * plan.threads
+        assert carry_out_act(plan, n, DTS[dt], last, grid) == (last * per, n)
+
+
+@pytest.mark.parametrize("dt", list(DTS))
+def test_act_plan_spreads_a_decode_step(dt):
+    """A decode step of Gemma-2B reaches every SM of the card (132) in
+    blocks of ``ACT_THREADS``; a verify round and a prefill take the same
+    geometry, more blocks."""
+    d = DTS[dt]
+    step = bk.plan_act(8 * 16_384, d)
+    assert step.blocks >= 132
+    assert bk.plan_act(40 * 16_384, d).blocks == 5 * step.blocks
+    assert bk.plan_act(8 * 3712 * 16_384, d).blocks == 3712 * step.blocks
+
+
+@pytest.mark.parametrize("dt", list(DTS))
+@pytest.mark.parametrize("case", list(ACT_CASES))
+def test_act_entry_takes_the_planners_plan(case, dt, act_rule):
+    """The C rule plans what ``plan_act`` plans, and the entry's check
+    launches it."""
+    rows, f = ACT_CASES[case]
+    n = rows * f
+    plan = bk.plan_act(n, DTS[dt])
+    assert act_rule.plan(n, DTS[dt]) == tuple(plan)
+    assert act_rule.accepts(plan, n, DTS[dt])
+
+
+MUTATIONS = {
+    "blocks + 1": lambda p: p._replace(blocks=p.blocks + 1),
+    "blocks - 1": lambda p: p._replace(blocks=p.blocks - 1),
+    "threads x 2": lambda p: p._replace(threads=2 * p.threads),
+    "threads / 2": lambda p: p._replace(threads=p.threads // 2),
+    "16-byte vectors": lambda p: p._replace(vec_bytes=16),
+    "4-byte vectors": lambda p: p._replace(vec_bytes=4),
+}
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS))
+@pytest.mark.parametrize("dt", list(DTS))
+@pytest.mark.parametrize("case", ["gemma_2b decode", "gemma_2b verify", "gemma_2b prefill",
+                                  "mistral_7b prefill", "ragged [3 x 7]"])
+def test_act_entry_refuses_another_plan(case, dt, mutation, act_rule):
+    """The C entry's check refuses a plan with any field other than its
+    rule's."""
+    rows, f = ACT_CASES[case]
+    n = rows * f
+    plan = bk.plan_act(n, DTS[dt])
+    assert not act_rule.accepts(MUTATIONS[mutation](plan), n, DTS[dt])
+
+
+@pytest.mark.parametrize("dt", list(DTS))
+def test_act_plan_ends_where_its_indices_do(dt, act_rule):
+    """The largest n whose threads fit 32-bit indices takes a plan, in
+    Python and in the C rule; one vector more is refused by both."""
+    per = bk.ACT_VEC_BYTES // torch.empty((), dtype=DTS[dt]).element_size()
+    last = (bk.ACT_MAX_INDEX // bk.ACT_THREADS) * bk.ACT_THREADS * per
+    assert act_rule.accepts(bk.plan_act(last, DTS[dt]), last, DTS[dt])
+    with pytest.raises(ValueError, match="32-bit"):
+        bk.plan_act(last + 1, DTS[dt])
+    assert act_rule.plan(last + 1, DTS[dt]) is None
+    assert act_rule.plan(0, DTS[dt]) == tuple(bk.plan_act(0, DTS[dt]))
