@@ -82,14 +82,38 @@ and the script exits non-zero:
    and in f32, each case with the regime the planner gave it (wgmma,
    small-M, tail); the small-M and wgmma regimes timed on the same
    products at M from 16 to 512 (where the wgmma regime starts);
+   then the int4-weight kernel (``matmul_int4``) against its plain
+   version (``phase_matmul_int4_kernels``): every decode product of
+   Gemma-2B and the verify round's wo and w_down in both schemes (rank-1
+   and grouped, group 128), the tied head of an int4 embedding, rank-1 at
+   every prefill product, at the capture forward's M and a ragged prefill
+   M, grouped at 1,024 rows, Mistral-7B's w_gate / w_up and w_down at
+   decode (both schemes) and its rank-1 prefill, ragged M, N and K in each
+   regime, a group of 64, and f32, each with its plan, bound, plain time
+   and the ``torch._weight_int4pack_mm`` yardstick (grouped at 1,024 rows
+   also the dequantized copy's route); then the shared launches (a list of
+   weights to ``matmul_int4``) at decode and verify rows;
    quantized tiny f32 forwards (int8 and rank-1 int4 weights, int8 and
    int4 KV, w8a8 prefill) against the CPU; the probing loop with
    ``--quantize int8 --kv-int8`` over the phase-4 BM25 index (8
    questions, all 4 rounds) with its own launch counts, and the prefill
-   and decode seconds of each of its generate calls; then
-   prefill seconds, decode tokens/s at batch 8 (the graphed step and the
-   eager one) and peak memory for bf16, int8 + int8 KV, int8 +
-   act_int8_rows 512 + int8 KV and rank-1 int4 + int4 KV.
+   and decode seconds of each of its generate calls; the same loop with
+   ``--quantize int4 --kv-int4`` (grouped, the CLI's default), its own
+   launch counts; then
+   prefill seconds, decode tokens/s at batch 8 (the median of
+   ``GRAPHED_CALLS`` graphed calls of 150 tokens, each split into prefill,
+   decode loop, garbage collections and captures, beside a replayed
+   step's device ms; the eager step over ``EAGER_TOKENS``) and peak memory for
+   bf16, int8 + int8 KV, int8 +
+   act_int8_rows 512 + int8 KV, rank-1 int4 + int4 KV and grouped int4 +
+   int4 KV. In the two int4 modes no int4 weight may be unpacked on the
+   card (``NoWeightUnpack``; grouped's prefill rows are past
+   ``_INT4_DEQUANT_ROWS``, where it multiplies by a dequantized copy as
+   JAX does), the captured step launches matmul_int4 72 times (the 126
+   products, those that share an input in one launch; the profiler counts
+   them in one replay; the same step captured with one launch a weight is
+   timed beside it), and a speculative generate (verify rounds of 40
+   rows) and a capture forward launch it too.
 9a. the block's elementwise kernels against their plain versions
    (``phase_block_kernels``), bf16 and f32: ``rms_norm`` (the residual add
    folded into RMSNorm; the add bit-equal, the norm within
@@ -221,11 +245,11 @@ The probing loops of phases 5, 7, 8, 9 and 10 run the decode step graphed
 Kernel times are CUDA-event means after a warm-up, with the card given a
 head start (``cuda_ms``). The kernels line lists, for each kernel, its
 launches on its path, its max abs error, kernel / plain / library ms and
-its bound (``bound``): fourteen kernels. The line before the last is the card's name and
+its bound (``bound``): fifteen kernels. The line before the last is the card's name and
 power limit; the last line is the result as one JSON object.
 
 ``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
-matmul_int8 cases alone; ``--attention`` phases 1, 2 and phase 9's
+matmul_int8 and matmul_int4 cases alone; ``--attention`` phases 1, 2 and phase 9's
 decode and prefill attention cases; ``--block`` phases 1, 2 and 9a; ``--train`` runs phases 1, 2 and phase 10, and
 ``--baselines`` phases 1, 2 and 11, ``--parallel`` phases 1, 2 and 12
 (each with the phase-4 index and phase 5's model).
@@ -233,7 +257,9 @@ decode and prefill attention cases; ``--block`` phases 1, 2 and 9a; ``--train`` 
 
 from __future__ import annotations
 
+import contextlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -293,6 +319,11 @@ GEMMA_MM = {"wq/wo": (2048, 2048), "wk/wv": (2048, 256), "w_gate/w_up": (2048, 1
             "w_down": (16384, 2048)}
 TIED_HEAD = (2048, 256_000)  # (K, N): the [V, D] embedding read transposed
 N_QUANT_QUESTIONS = 8
+# phase 8's eager decode, timed over fewer tokens than the graphed one (a
+# step's eager cost does not change along the decode)
+EAGER_TOKENS = 50
+# phase 8's graphed 150-token calls a serving mode, timed one by one
+GRAPHED_CALLS = 3
 GEN_TOKENS = 150  # phase 9's decode length, stops off
 SPEC_K = 4
 # phase 9's decode attention cases: batch 8 over the retrieval-round cache
@@ -330,6 +361,8 @@ REPLACES = {
     "dense_topk": "probing_rag_tpu/ops/pallas_dense.py:185",
     "ivf_topk": "probing_rag_tpu/ops/pallas_ivf.py:52",
     "matmul_int8": "probing_rag_tpu/ops/pallas_matmul.py:27",
+    # not a Pallas kernel: XLA's int4 convert fused into the dot's weight load
+    "matmul_int4": "probing_rag_tpu/models/gemma.py:685",
     "postings_gather": "probing_rag_tpu/ops/pallas_sparse.py:208",
     "postings_assemble": "probing_rag_tpu/ops/pallas_sparse.py:389",
     # not a Pallas kernel: XLA's fused attention over the cache
@@ -348,6 +381,7 @@ SOURCES = {
     "dense_topk": f"{REPO_KERNELS}/dense_topk.cu",
     "ivf_topk": f"{REPO_KERNELS}/ivf_topk.cu",
     "matmul_int8": f"{REPO_KERNELS}/matmul_int8.cu",
+    "matmul_int4": f"{REPO_KERNELS}/matmul_int4.cu",
     "postings_gather": f"{REPO_KERNELS}/postings_gather.cu",
     "postings_assemble": f"{REPO_KERNELS}/postings_assemble.cu",
     "decode_attention": f"{REPO_KERNELS}/decode_attention.cu",
@@ -362,6 +396,8 @@ BM25_KERNELS = ("bm25_gather", "bitonic_sort", "bitonic_sort_wide", "segment_top
 DENSE_KERNELS = ("dense_topk", "ivf_topk")
 BLOCK_KERNELS = ("rms_norm", "rope_kv", "gated_act")
 QUANT_KERNELS = ("matmul_int8",) + BM25_KERNELS
+INT4_KERNELS = (("matmul_int4", "matmul_int8", "decode_attention", "prefill_attention")
+                + BM25_KERNELS + BLOCK_KERNELS)
 
 
 class Phase:
@@ -1879,7 +1915,9 @@ def mm_case(gen, label: str, m: int, k: int, n: int, tr: bool, dt, regime: str,
         try:
             torch._weight_int8pack_mm(x, qnk, sb)
             sync()
-            lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, qnk, sb))
+            # at prefill rows a call takes seconds: one timed run after the warm-up
+            lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, qnk, sb),
+                             reps=1 if m >= 1024 else 5)
             line += f"; torch._weight_int8pack_mm {lib_ms:.4f} ms"
         except (RuntimeError, NotImplementedError) as e:
             line += f"; torch._weight_int8pack_mm: none on this card ({str(e).splitlines()[0][:60]})"
@@ -1994,6 +2032,472 @@ def phase_matmul_threshold(gen) -> None:
                   f"(the planner's pick): {'; '.join(row)}", flush=True)
     finally:
         mm.WGMMA_MIN_M, mm.WGMMA_MIN_TILES = keep
+
+
+# phase 8's int4 cases: the group of Gemma-2B's and Mistral-7B's int4 trees
+# (quantize_lm_params' default: the largest <= 128 dividing every reduction
+# dim), Mistral-7B's products as (K, N) and its prefill rows (8 x 1,024)
+MM4_GROUP = 128
+MISTRAL_MM = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "w_gate/w_up": (4096, 14336),
+              "w_down": (14336, 4096)}
+MISTRAL_PREFILL_M = 8 * 1024
+
+
+def mm4_operands(gen, m: int, k: int, n: int, scheme: str, dt, group: int = MM4_GROUP):
+    """Seeded operands of matmul_int4: x ~ N(0, 1) in ``dt``, int4 values
+    uniform in [-7, 7] packed (``pack_int4``; ``[N, K/2]`` for the channel
+    scheme, else ``[K, N/2]``), scales in [0.5, 1.5) (rs) and [0.005, 0.015)
+    (s, gs). Returns (x, qp, the scheme's scale keywords)."""
+    import torch
+
+    from probing_rag_tpu_torch.ops.attention import pack_int4
+
+    x = torch.randn((m, k), generator=gen, device=DEVICE).to(dt)
+    shape = (n, k) if scheme == "channel" else (k, n)
+    qp = pack_int4(torch.randint(-7, 8, shape, generator=gen, device=DEVICE, dtype=torch.int8))
+    u = lambda *sh: torch.rand(sh, generator=gen, device=DEVICE)  # noqa: E731
+    if scheme == "rank1":
+        scales = dict(rs=u(k // group, 1) + 0.5, s=(u(1, n) + 0.5) / 100)
+    elif scheme == "grouped":
+        scales = dict(gs=(u(k // group, n) + 0.5) / 100)
+    else:
+        scales = dict(s=(u(n, 1) + 0.5) / 100)
+    return x, qp, scales
+
+
+def mm4_check(got, ref, dt, scheme: str, x, qp, scales: dict, what: str) -> tuple:
+    """Holds a matmul_int4 result to its plain version. Rank-1 and channel
+    as ``mm_check`` holds matmul_int8 (the same op order, f32 sums in
+    another order). Grouped bf16: element by element within
+    ``ops/matmul.py::int4_grouped_tolerance`` (a group partial may round to
+    its neighbouring bf16 value before it is scaled). f32: rtol 1e-5, atol
+    1e-5 of the largest output. Returns (max abs err, share of outputs that
+    differ)."""
+    import torch
+
+    from probing_rag_tpu_torch.ops.matmul import int4_grouped_tolerance
+
+    if scheme != "grouped" or dt != torch.bfloat16:
+        return mm_check(got, ref, dt, what)
+    differ = float((got != ref).float().mean())
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    tol = torch.cat([int4_grouped_tolerance(x[i : i + 256], qp, scales["gs"])
+                     for i in range(0, x.shape[0], 256)])
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"matmul_int4 {what}: max abs err {err}, "
+                             f"{int((diff > tol).sum())} outputs past int4_grouped_tolerance")
+    return err, differ
+
+
+def int4pack_ms(x, qp, scheme: str, sc: dict, group: int, ref) -> tuple:
+    """``torch._weight_int4pack_mm``'s time on the same product, a
+    yardstick the port never calls: the weight as torch's tinygemm layout
+    wants it (``[N, K]`` u = q + 8, two to a byte along K, packed by
+    ``torch._convert_weight_to_int4pack`` outside the timed call), scales
+    and zeros ``[K / G, N, 2]`` bf16 (zero 0: w = (u - 8) scale): grouped's
+    gs (G its group), rank-1's rs[g] s[n] (G its group), the channel head's
+    s[n] in every group of G = 128. Its scales are rounded to bf16 and it
+    sums in its own order, so it is held to the plain result at atol 2^-5 of
+    the largest output before it is timed (mean of 5; once after the
+    warm-up from 1,024 rows, where a call takes milliseconds to seconds).
+    Returns (ms or None, what the line says)."""
+    import torch
+
+    from probing_rag_tpu_torch.ops.attention import unpack_int4
+
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None, "torch._weight_int4pack_mm: none in this torch"
+    m, k = x.shape
+    if scheme == "grouped":
+        scale = sc["gs"]
+    elif scheme == "rank1":
+        scale = sc["rs"].reshape(-1, 1) * sc["s"].reshape(1, -1)
+    else:
+        group = 128
+        if k % group:
+            return None, f"torch._weight_int4pack_mm: none (K {k} holds no whole 128-groups)"
+        scale = sc["s"].reshape(1, -1).expand(k // group, -1)
+    q = unpack_int4(qp)
+    u = ((q if scheme == "channel" else q.T).contiguous() + 8).to(torch.uint8)  # [N, K]
+    del q
+    sz = torch.stack([scale.to(torch.bfloat16), torch.zeros_like(scale, dtype=torch.bfloat16)],
+                     -1).contiguous()
+    why = "no packing of this torch matched"
+    for hi_first in (True, False):
+        packed = ((u[:, ::2] << 4) | u[:, 1::2]) if hi_first else (u[:, ::2] | (u[:, 1::2] << 4))
+        try:
+            w = torch._convert_weight_to_int4pack(packed.contiguous(), 8)
+            got = torch._weight_int4pack_mm(x, w, group, sz)
+            sync()
+        except (RuntimeError, TypeError, NotImplementedError) as e:
+            why = str(e).splitlines()[0][:80]
+            continue
+        scale_out = float(ref.float().abs().max())
+        if torch.allclose(got.float(), ref.float(), rtol=0, atol=2**-5 * scale_out):
+            ms = cuda_ms(lambda: torch._weight_int4pack_mm(x, w, group, sz),
+                         reps=1 if m >= 1024 else 5)
+            return ms, f"torch._weight_int4pack_mm {ms:.4f} ms"
+        why = "its result differs from the plain version's"
+    return None, f"torch._weight_int4pack_mm: none ({why})"
+
+
+def mm4_case(gen, label: str, m: int, k: int, n: int, scheme: str, dt, regime: str,
+             group: int = MM4_GROUP, yardstick: bool = False) -> dict:
+    """One matmul_int4 case of ``phase_matmul_int4_kernels``: seeded
+    operands, the kernel held to its plain version (``mm4_check``), the
+    regime the planner chose checked against ``regime``, kernel and plain
+    times with the bound (the packed weight, its scales, x and the output
+    each moved once), with ``yardstick`` the library call, and for grouped
+    from 1,024 rows the dequantized copy and ``torch.matmul`` that ``_mm``
+    runs past ``_INT4_DEQUANT_ROWS`` rows. Prints the case's line; returns
+    its numbers."""
+    import torch
+
+    from probing_rag_tpu_torch.ops import matmul as mm
+    from probing_rag_tpu_torch.ops.attention import unpack_int4
+
+    x, qp, sc = mm4_operands(gen, m, k, n, scheme, dt, group)
+    tr = scheme == "channel"
+    leaf = {"qp": qp, **sc}
+    call = lambda: mm.matmul_int4(x, leaf, dt=dt, scheme=scheme, transpose_rhs=tr)  # noqa: E731
+    mm.last_plan = None
+    got = call()
+    plan = mm.last_plan
+    ref = mm.matmul_int4_plain(x, qp, dt=dt, scheme=scheme, transpose_rhs=tr, **sc)
+    sync()
+    if DEVICE == "cuda" and plan.regime != regime:
+        raise AssertionError(f"matmul_int4 {label}: regime {plan.regime}, expected {regime}")
+    err, differ = mm4_check(got, ref, dt, scheme, x, qp, sc,
+                            f"{label} ({plan.regime if plan else 'plain'})")
+    ms = cuda_ms(call)
+    plain_ms = cuda_ms(lambda: mm.matmul_int4_plain(x, qp, dt=dt, scheme=scheme,
+                                                    transpose_rhs=tr, **sc))
+    nbytes = (x.numel() * x.element_size() + qp.numel() + sum(v.numel() * 4 for v in sc.values())
+              + m * n * x.element_size())
+    b = bound(nbytes, 2 * m * n * k, "bf16" if dt == torch.bfloat16 else "f32")
+    how = (f"{plan.regime} (tile {plan.bm} x {plan.bn}, {plan.bk} deep, {plan.splits} splits, "
+           f"{plan.grid} blocks)") if plan else "plain"
+    line = (f"  matmul_int4 {label} [{m} x {k} -> {n}] {scheme}"
+            f"{f' group {group}' if scheme != 'channel' else ''}, {how}: max abs err {err:.3g} "
+            f"({differ:.4f} of the outputs differ); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    lib_ms = dequant_ms = None
+    if yardstick:
+        lib_ms, said = int4pack_ms(x, qp, scheme, sc, group, ref)
+        line += f"; {said}"
+    if scheme == "grouped" and m >= 1024:
+        kg = sc["gs"].shape[0]
+
+        def dequantized():
+            w = unpack_int4(qp).reshape(kg, k // kg, n).to(dt) * sc["gs"][:, None, :].to(dt)
+            return x @ w.reshape(k, n)
+
+        dequant_ms = cuda_ms(dequantized)
+        line += f"; dequantized copy + torch.matmul {dequant_ms:.4f} ms"
+    print(line, flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "dequant_ms": dequant_ms, "regime": plan.regime if plan else None, **b}
+
+
+def mm4_shared_case(gen, label: str, m: int, k: int, ns, scheme: str) -> dict:
+    """One ``matmul_int4`` case of several weights, those of ``ns``, that
+    share x in one small-M launch, each output held to its plain version
+    (``mm4_check``); kernel and plain times and the bound of all of them."""
+    import torch
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.ops import matmul as mm
+
+    bf16 = torch.bfloat16
+    x = torch.randn((m, k), generator=gen, device=DEVICE).to(bf16)
+    ws = []
+    for n in ns:
+        _, qp, sc = mm4_operands(gen, m, k, n, scheme, bf16)
+        ws.append({"qp": qp, **sc})
+    mm.last_plan = None
+    before = kernels.LAUNCHES["matmul_int4"]
+    got = mm.matmul_int4(x, ws, dt=bf16, scheme=scheme)
+    plan = mm.last_plan
+    launched = kernels.LAUNCHES["matmul_int4"] - before
+    refs = [mm.matmul_int4_plain(x, w["qp"], dt=bf16, scheme=scheme,
+                                 **{key: v for key, v in w.items() if key != "qp"}) for w in ws]
+    sync()
+    if DEVICE == "cuda" and (plan.regime != "small_m" or launched != 1):
+        raise AssertionError(f"matmul_int4 {label}: regime {plan.regime}, {launched} launches")
+    err = 0.0
+    for g_, r_, w in zip(got, refs, ws):
+        e, _ = mm4_check(g_, r_, bf16, scheme, x, w["qp"], w, f"{label} (shared launch)")
+        err = max(err, e)
+    ms = cuda_ms(lambda: mm.matmul_int4(x, ws, dt=bf16, scheme=scheme))
+    plain_ms = cuda_ms(lambda: [mm.matmul_int4_plain(x, w["qp"], dt=bf16, scheme=scheme, **{
+        key: v for key, v in w.items() if key != "qp"}) for w in ws])
+    nbytes = x.numel() * 2 + sum(t.numel() * t.element_size() for w in ws for t in w.values()) \
+        + m * sum(ns) * 2
+    b = bound(nbytes, 2 * m * sum(ns) * k, "bf16")
+    how = (f"{plan.regime} (tile {plan.bm} x {plan.bn}, {plan.splits} splits, {plan.grid} blocks)"
+           if plan else "plain")
+    print(f"  matmul_int4 shared {label} [{m} x {k} -> {' + '.join(map(str, ns))}] {scheme}, one "
+          f"launch, {how}: max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+
+
+def phase_matmul_int4_kernels(results: dict, prefill_m: int) -> None:
+    """matmul_int4 against its plain version on the card: every product of
+    a Gemma-2B decode step (M = 8) and verify round (M = 40) in both
+    schemes (group 128) and the tied head of an int4 embedding; rank-1 at
+    every prefill product (M = 8 x the padded prompt length), at the
+    capture forward's M (8 x 1,536) and at a ragged prefill M; grouped at
+    its largest kernel M (1,024 rows); Mistral-7B's widths at decode (both
+    schemes) and its rank-1 prefill; ragged M, N and K in each regime; a
+    group of 64; f32 at the tiny configs' widths. Each case must take the
+    regime listed with it, prints the plan it launched
+    (``ops.matmul.last_plan``), its bound, plain time and
+    ``torch._weight_int4pack_mm`` (``int4pack_ms``, where it runs) at every
+    bf16 shape but the ragged ones, past 1,024 rows only at the w_gate/w_up
+    prefill and capture (a call takes up to seconds there); grouped at
+    1,024 rows also the dequantized copy's route. Tolerances:
+    ``mm4_check``."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+    # one weight a launch: every product at decode; at verify the two the
+    # shared launches below leave alone (wo, w_down)
+    for m, at, names in ((MM_DECODE_M, "decode", GEMMA_MM), (MM_VERIFY_M, "verify",
+                                                             ("wq/wo", "w_down"))):
+        cases += [(f"{at} {name}", m, *GEMMA_MM[name], scheme, bf16, "small_m", MM4_GROUP)
+                  for name in names for scheme in ("rank1", "grouped")]
+        cases += [(f"{at} int4 tied head", m, *TIED_HEAD, "channel", bf16, "small_m", 0)]
+    cases += [(f"prefill {name}", prefill_m, *GEMMA_MM[name], "rank1", bf16, "wgmma", MM4_GROUP)
+              for name in GEMMA_MM]
+    cases += [("capture w_gate/w_up", 8 * TRAIN_MAX_LEN, *GEMMA_MM["w_gate/w_up"], "rank1", bf16,
+               "wgmma", MM4_GROUP),
+              ("capture w_down", 8 * TRAIN_MAX_LEN, *GEMMA_MM["w_down"], "rank1", bf16, "wgmma",
+               MM4_GROUP),
+              ("prefill ragged M", prefill_m + 5, *GEMMA_MM["w_gate/w_up"], "rank1", bf16, "wgmma",
+               MM4_GROUP),
+              ("grouped 1024 rows w_gate/w_up", 1024, *GEMMA_MM["w_gate/w_up"], "grouped", bf16,
+               "small_m", MM4_GROUP),
+              ("grouped 1024 rows w_down", 1024, *GEMMA_MM["w_down"], "grouped", bf16, "small_m",
+               MM4_GROUP)]
+    cases += [(f"Mistral-7B decode {name}", MM_DECODE_M, *MISTRAL_MM[name], scheme, bf16,
+               "small_m", MM4_GROUP)
+              for name in ("w_gate/w_up", "w_down") for scheme in ("rank1", "grouped")]
+    cases += [("Mistral-7B prefill w_gate/w_up", MISTRAL_PREFILL_M, *MISTRAL_MM["w_gate/w_up"],
+               "rank1", bf16, "wgmma", MM4_GROUP),
+              ("ragged K and N, wgmma", 4096, 208, 1056, "rank1", bf16, "wgmma", 16),
+              ("ragged M and N", 37, 2048, 1000, "rank1", bf16, "tail", MM4_GROUP),
+              ("ragged M and N, grouped", 37, 2048, 1000, "grouped", bf16, "tail", MM4_GROUP),
+              ("ragged M and N, tied head", 37, 2048, 1000, "channel", bf16, "small_m", 0),
+              ("ragged K", 5, 208, 320, "rank1", bf16, "small_m", 16),
+              ("ragged K, grouped", 5, 208, 320, "grouped", bf16, "small_m", 16),
+              ("ragged K, tied head", 5, 200, 300, "channel", bf16, "tail", 0),
+              ("decode group 64 w_gate/w_up", MM_DECODE_M, *GEMMA_MM["w_gate/w_up"], "grouped",
+               bf16, "small_m", 64),
+              ("tiny f32 rank-1 w_gate", 20, 64, 128, "rank1", f32, "f32", 64),
+              ("tiny f32 grouped w_gate", 20, 64, 128, "grouped", f32, "f32", 64),
+              ("tiny f32 tied head", 20, 64, 512, "channel", f32, "f32", 0),
+              ("tiny f32 ragged", 7, 48, 30, "rank1", f32, "f32", 16)]
+    max_err, extra = 0.0, {}
+    for label, m, k, n, scheme, dt, regime, group in cases:
+        lib = dt == bf16 and "ragged" not in label and (
+            m <= 1024 or label in ("prefill w_gate/w_up", "capture w_gate/w_up"))
+        r = mm4_case(gen, label, m, k, n, scheme, dt, regime, group, yardstick=lib)
+        max_err = max(max_err, r["max_abs_err"])
+        key = f"{label} {scheme}"
+        if key == "decode w_gate/w_up grouped":
+            results["matmul_int4"] = {k_: r[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                                           "bound_ms", "bound_by")}
+        for want, name in (("decode w_gate/w_up rank1", "rank1_decode"),
+                           ("verify w_down grouped", "grouped_verify_down"),
+                           ("verify w_down rank1", "rank1_verify_down"),
+                           ("decode int4 tied head channel", "tied_head"),
+                           ("prefill w_gate/w_up rank1", "rank1_prefill"),
+                           ("capture w_gate/w_up rank1", "rank1_capture"),
+                           ("grouped 1024 rows w_gate/w_up grouped", "grouped_1024")):
+            if key == want:
+                extra.update({f"{name}_ms": r["ms"], f"{name}_plain_ms": r["plain_ms"],
+                              f"{name}_bound_ms": r["bound_ms"]})
+                for what in ("library_ms", "dequant_ms"):
+                    if r[what] is not None:
+                        extra[f"{name}_{what}"] = r[what]
+    # a layer's products that share an input, one launch each group
+    q, kv = GEMMA_MM["wq/wo"][1], GEMMA_MM["wk/wv"][1]
+    for m, at in ((MM_DECODE_M, "decode"), (MM_VERIFY_M, "verify")):
+        for scheme in ("rank1", "grouped"):
+            for name, k, ns in (("wq + wk + wv", GEMMA_MM["wq/wo"][0], (q, kv, kv)),
+                                ("w_gate + w_up", GEMMA_MM["w_gate/w_up"][0],
+                                 (GEMMA_MM["w_gate/w_up"][1],) * 2)):
+                r = mm4_shared_case(gen, f"{at} {name}", m, k, ns, scheme)
+                max_err = max(max_err, r["max_abs_err"])
+                extra[f"{scheme}_{at}_{'qkv' if 'wq' in name else 'gate_up'}_ms"] = r["ms"]
+    results["matmul_int4"].update(extra, max_abs_err=max_err)
+
+
+class NoWeightUnpack:
+    """While open, ``models/gemma.py``'s ``unpack_int4`` raises on a CUDA
+    tensor, except inside a product of a grouped int4 weight past
+    ``_INT4_DEQUANT_ROWS`` activation rows (JAX's rule: a transient
+    dequantized copy there). Any other int4 product that unpacked its
+    weight on the card (or an int4 embedding's lookup, which these runs do
+    not have) fails the phase."""
+
+    def __enter__(self):
+        import math
+
+        from probing_rag_tpu_torch.models import gemma
+
+        self.saved = gemma.unpack_int4, gemma._mm
+        self.allowed = False
+        unpack, mm = self.saved
+
+        def guarded_unpack(qp):
+            if qp.is_cuda and not self.allowed:
+                raise AssertionError(f"unpack_int4 of a {tuple(qp.shape)} int4 weight on the card")
+            return unpack(qp)
+
+        def guarded_mm(x, w, dt, *args, **kw):
+            keep = self.allowed
+            self.allowed = (isinstance(w, dict) and "gs" in w
+                            and math.prod(x.shape[:-1]) > gemma._INT4_DEQUANT_ROWS)
+            try:
+                return mm(x, w, dt, *args, **kw)
+            finally:
+                self.allowed = keep
+
+        gemma.unpack_int4, gemma._mm = guarded_unpack, guarded_mm
+        return self
+
+    def __exit__(self, *exc):
+        from probing_rag_tpu_torch.models import gemma
+
+        gemma.unpack_int4, gemma._mm = self.saved
+        return False
+
+
+def phase_int4_mode(label: str, p, cfg, tok, prompts, stops, loop) -> None:
+    """After an int4 serving mode's generate calls: its captured decode
+    step launches matmul_int4 four times a layer (the products that share
+    an input in one launch each: wq + wk + wv, wo, w_gate + w_up, w_down)
+    and matmul_int8 once (the tied int8 head), which a ``torch.profiler``
+    of one replay confirms by counting the kernel's launches; the same step
+    captured anew with one launch a weight (``MAX_SHARED`` 1: 7 a layer),
+    its replay's device ms beside the shared step's; then, with
+    ``NoWeightUnpack`` open, a speculative generate (verify rounds of 8 x
+    (SPEC_K + 1) rows, captured) and one capture forward (8 x
+    ``TRAIN_MAX_LEN`` tokens, prober training's), each launching
+    matmul_int4, with their seconds."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models.decode import generate
+    from probing_rag_tpu_torch.models.gemma import _INT4_DEQUANT_ROWS
+    from probing_rag_tpu_torch.models.graphs import GRAPHS
+    from probing_rag_tpu_torch.models.speculative import SpecConfig
+    from probing_rag_tpu_torch.ops import matmul as mm
+    from probing_rag_tpu_torch.prober.train import capture_activations
+
+    per_step = loop.graph.launches
+    # a layer's int4 products in four launches: wq + wk + wv, wo, w_gate +
+    # w_up, w_down
+    want = {"matmul_int4": 4 * cfg.n_layers, "matmul_int8": 1}
+    if DEVICE == "cuda" and {n: per_step.get(n, 0) for n in want} != want:
+        raise AssertionError(f"{label}: a captured step launches {per_step}, expected {want}")
+    with torch.inference_mode():
+        loop.state.step.zero_()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loop.graph.graph.replay()
+            sync()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    seen = sum(e.count for e in events if "mm4_" in e.key)
+    if events and seen != want["matmul_int4"]:
+        raise AssertionError(f"{label}: the profiler saw {seen} matmul_int4 kernels in a replay")
+    print(f"  {label}: a captured step launches {per_step}; the profiler "
+          f"{f'sees {seen} matmul_int4 kernels' if events else 'saw no device time'} in one "
+          f"replay: {step_profile(loop, reps=5, top=8, focus=('mm4_', 'matmul_int8'))}",
+          flush=True)
+    shared_ms = replay_ms(loop)
+    keep, mm.MAX_SHARED = mm.MAX_SHARED, 1
+    try:
+        GRAPHS.clear()
+        with LastLoop() as solo:
+            generate(p, cfg, tok, prompts, max_new_tokens=150, stop_tables=stops, kv_int4=True)
+        solo_ms = replay_ms(solo.loop)
+        solo_launches = solo.loop.graph.launches.get("matmul_int4", 0)
+    finally:
+        mm.MAX_SHARED = keep
+        GRAPHS.clear()
+    if DEVICE == "cuda" and solo_launches != 7 * cfg.n_layers:
+        raise AssertionError(f"{label}: one launch a weight made {solo_launches} launches a step")
+    print(f"  {label}: a replayed step {shared_ms:.3f} device ms with the shared launches "
+          f"({want['matmul_int4']} matmul_int4 launches), {solo_ms:.3f} with one launch a weight "
+          f"({solo_launches}), captured anew in this call", flush=True)
+    kernels.reset_launches()
+    with NoWeightUnpack():
+        sync()
+        t0 = time.time()
+        _, res = generate(p, cfg, tok, prompts, max_new_tokens=24, stop_tables=stops,
+                          kv_int4=True, spec=SpecConfig(k=SPEC_K))
+        sync()
+        t_spec = time.time() - t0
+        spec_launches = kernels.LAUNCHES["matmul_int4"]
+        rng = np.random.default_rng(SEED + 19)
+        toks = rng.integers(3, cfg.vocab_size, size=(8, TRAIN_MAX_LEN))
+        toks[:, : TRAIN_MAX_LEN // 4] = tok.pad_id  # left pads, as a padded batch has
+        sites = [(layer, "resid_post") for layer in cfg.probe_layers]
+        capture_activations(p, cfg, toks, sites, tok.pad_id)
+        sync()
+        t0 = time.time()
+        caps = capture_activations(p, cfg, toks, sites, tok.pad_id)
+        sync()
+        t_cap = time.time() - t0
+    if int(res.n_generated.sum()) == 0 or not np.isfinite(res.pooled_captures).all():
+        raise AssertionError(f"{label}: speculative decode produced no finite tokens")
+    if not bool(torch.isfinite(caps).all()):
+        raise AssertionError(f"{label}: the capture forward's activations are not finite")
+    cap_launches = kernels.LAUNCHES["matmul_int4"] - spec_launches
+    if DEVICE == "cuda" and (spec_launches == 0 or ("rank-1" in label and cap_launches == 0)):
+        raise AssertionError(f"{label}: matmul_int4 launched {spec_launches} times by the "
+                             f"speculative generate, {cap_launches} by the capture forwards")
+    print(f"  {label}: speculative generate (k {SPEC_K}, 24 tokens) {t_spec:.3f}s, matmul_int4 "
+          f"launched {spec_launches} times; capture forward (8 x {TRAIN_MAX_LEN}) {t_cap:.3f}s, "
+          f"matmul_int4 launched {cap_launches} times by two; no int4 weight unpacked on the "
+          f"card outside grouped products past {_INT4_DEQUANT_ROWS} rows", flush=True)
+
+
+class GcTimes:
+    """Seconds the host spent in Python's garbage collections while open,
+    and the number of full (generation 2) collections (``gc.callbacks``)."""
+
+    def __enter__(self):
+        import gc
+
+        self.seconds, self.full, self.t0 = 0.0, 0, 0.0
+
+        def tick(phase, info):
+            if phase == "start":
+                self.t0 = time.perf_counter()
+            else:
+                self.seconds += time.perf_counter() - self.t0
+                self.full += info["generation"] == 2
+
+        self.tick = tick
+        gc.callbacks.append(tick)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self.tick)
+        return False
 
 
 class GenerateTimes:
@@ -2131,7 +2635,7 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
     from probing_rag_tpu_torch import kernels
     from probing_rag_tpu_torch.models.decode import StopTables, _pad_batch, generate
     from probing_rag_tpu_torch.models.gemma import quantize_lm_params
-    from probing_rag_tpu_torch.models.graphs import GRAPHS
+    from probing_rag_tpu_torch.models.graphs import CAPTURES, GRAPHS
     from probing_rag_tpu_torch.pipeline.rag import AdaptiveRAGPipeline, RAGConfig
     from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
 
@@ -2153,6 +2657,8 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
     prompts8 = pipe.retrieval_prompts(questions, questions)
     padded_len = _pad_batch([tok.encode(p, add_bos=True) for p in prompts8], tok.pad_id)[0].shape[1]
     phase_matmul_kernels(results, 8 * padded_len)
+    torch.cuda.empty_cache()
+    phase_matmul_int4_kernels(results, 8 * padded_len)
     torch.cuda.empty_cache()
 
     for label, err in phase_quant_reference().items():
@@ -2182,6 +2688,36 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the quantized path: {missing}")
 
+    # rag-run --quantize int4 --kv-int4 (grouped: the CLI's default scheme),
+    # the same loop with its own launch counts
+    q4 = quantize_lm_params(params, bits=4)
+    pipe4 = AdaptiveRAGPipeline(q4, cfg, tok, retriever, store, probers,
+                                dataclasses.replace(rag, kv_int8=False, kv_int4=True))
+    GRAPHS.clear()
+    retriever.seconds, retriever.calls = 0.0, []
+    kernels.reset_launches()
+    sync()
+    t0 = time.time()
+    with GenerateTimes() as rounds:
+        result = pipe4.run(questions)
+    sync()
+    wall = time.time() - t0
+    launches4 = dict(kernels.LAUNCHES)
+    print(f"  grouped int4 + int4 KV probing loop over {len(questions)} questions: {wall:.1f}s "
+          f"wall, of which BM25 search {retriever.seconds:.3f}s ({len(retriever.calls)} calls); "
+          f"retr_count {result.retr_count_list}; kernel launches {nonzero(launches4)}")
+    print(f"  its generate calls: {rounds.line()}", flush=True)
+    if result.retr_count_list != [3] * len(questions):
+        raise AssertionError(f"int4 loop: retr_count {result.retr_count_list} != all 3")
+    if not all(isinstance(p, str) and p for p in result.pred_list):
+        raise AssertionError("int4 loop: empty prediction")
+    missing = [n for n in INT4_KERNELS if launches4[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the int4 path: {missing}")
+    launches["matmul_int4"] = launches4["matmul_int4"]
+    del pipe4
+    GRAPHS.clear()
+
     # prefill seconds and decode tokens/s at batch 8, stops off so that all
     # 150 tokens are generated; peak memory of each mode
     stops = StopTables.disabled(cfg.vocab_size)
@@ -2190,9 +2726,11 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
              ("int8 + int8 KV", lambda: q8, cfg, dict(kv_int8=True)),
              ("int8 + act_int8_rows 512 + int8 KV", lambda: q8, a8, dict(kv_int8=True)),
              ("rank-1 int4 + int4 KV", lambda: quantize_lm_params(params, bits=4, int4_scheme="rank1"),
-              cfg, dict(kv_int4=True))]
+              cfg, dict(kv_int4=True)),
+             ("grouped int4 + int4 KV", lambda: q4, cfg, dict(kv_int4=True))]
     for label, make, c, kv in modes:
         p = make()
+        int4 = "int4" in label.split(" + ")[0]
         sync()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2205,23 +2743,52 @@ def phase_quantized(lm, index, questions, results: dict) -> dict:
             sync()
             return time.time() - t, res
 
-        timed(1)
-        t1, _ = timed(1)
-        timed(150)  # the first graphed call captures the step
-        t150, res = timed(150)
-        t_eager, res_eager = timed(150, eager=True)
-        for r in (res, res_eager):
-            if int(r.n_generated.sum()) != 8 * 150 or not np.isfinite(r.pooled_captures).all():
-                raise AssertionError(f"{label}: decode did not produce 150 finite steps per row")
+        # no int4 weight is unpacked on the card by a decode step (the first
+        # graphed call captures it) or by rank-1's prefill; grouped prefill
+        # rows are past _INT4_DEQUANT_ROWS, where JAX dequantizes too
+        guard = NoWeightUnpack() if int4 else contextlib.nullcontext()
+        with guard:
+            timed(1)
+            t1, _ = timed(1)
+            with LastLoop() as last:
+                timed(150)  # the first graphed call captures the step
+        # GRAPHED_CALLS graphed calls, each split into its prefill, its
+        # decode loop, the host's garbage collections and the captures it
+        # made; the device's time for the 149 steps from one replay
+        calls = []
+        for _ in range(GRAPHED_CALLS):
+            captures = CAPTURES["count"]
+            with GenerateTimes() as split, GcTimes() as gc_t:
+                t, res = timed(150)
+            (_, pre, _, dec), = split.rounds
+            calls.append((t, pre, dec, gc_t.seconds, gc_t.full, CAPTURES["count"] - captures))
+        step_ms = replay_ms(last.loop)
+        t150 = statistics.median(c[0] for c in calls)
+        dec150 = statistics.median(c[2] for c in calls)
+        t_eager, res_eager = timed(EAGER_TOKENS, eager=True)
+        for r, n in ((res, 150), (res_eager, EAGER_TOKENS)):
+            if int(r.n_generated.sum()) != 8 * n or not np.isfinite(r.pooled_captures).all():
+                raise AssertionError(f"{label}: decode did not produce {n} finite steps per row")
+        each = "; ".join(f"{t:.3f}s = prefill {pre:.3f} + decode loop {dec:.3f} + {t - pre - dec:.3f} "
+                         f"(gc {g:.3f}s, {full} full; {cap} captures)"
+                         for t, pre, dec, g, full, cap in calls)
+        # tokens/s from the decode loops' own seconds; the 150-token call
+        # less the 1-token call also charges the decode a slower prefill
         print(f"  {label}: prefill {t1:.3f}s (8 x {padded_len} tokens), 150 tokens {t150:.3f}s "
-              f"graphed -> {8 * 149 / (t150 - t1):.1f} decode tokens/s, {t_eager:.3f}s eager -> "
-              f"{8 * 149 / (t_eager - t1):.1f}; weights {gib(tree_bytes(p)):.2f} GiB, "
+              f"graphed (median of {GRAPHED_CALLS}; decode loop {dec150:.3f}s) -> "
+              f"{8 * 149 / dec150:.1f} decode tokens/s (150-token call less 1-token call: "
+              f"{8 * 149 / (t150 - t1):.1f}) [{each}]; a replayed step {step_ms:.3f} device ms (149: {0.149 * step_ms:.3f}s) "
+              f"-> {8e3 / step_ms:.1f} tokens/s at the device's pace; {EAGER_TOKENS} tokens "
+              f"{t_eager:.3f}s eager -> {8 * (EAGER_TOKENS - 1) / (t_eager - t1):.1f}; weights "
+              f"{gib(tree_bytes(p)):.2f} GiB, "
               f"peak {gib(torch.cuda.max_memory_allocated()):.2f} GiB "
               f"({gib(torch.cuda.max_memory_allocated() - before):.2f} over the "
               f"{gib(before):.2f} allocated before)", flush=True)
-        del p
+        if int4:
+            phase_int4_mode(label, p, c, tok, prompts8, stops, last.loop)
+        del p, last
         GRAPHS.clear()
-    del q8, pipe, engine
+    del q8, q4, pipe, engine
     torch.cuda.empty_cache()
     return launches
 
@@ -4750,7 +5317,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--matmul", action="store_true",
-                    help="only phases 1, 2 and the matmul_int8 cases of phase 8")
+                    help="only phases 1, 2 and the matmul_int8 and matmul_int4 cases of phase 8")
+    ap.add_argument("--quantized", action="store_true",
+                    help="only phases 1, 2 and phase 8 (over the phase-4 index and phase 5's model)")
     ap.add_argument("--train", action="store_true",
                     help="only phases 1, 2 and phase 10 (over the phase-4 index and phase 5's model)")
     ap.add_argument("--baselines", action="store_true",
@@ -4795,8 +5364,16 @@ def main() -> int:
         print(json.dumps(results))
         return 0
     if args.matmul:
-        with Phase("8 matmul_int8 kernels"):
+        with Phase("8 matmul_int8 and matmul_int4 kernels"):
             phase_matmul_kernels(results, 8 * 3712)
+            torch.cuda.empty_cache()
+            phase_matmul_int4_kernels(results, 8 * 3712)
+        print(json.dumps(results))
+        return 0
+    if args.quantized:
+        with Phase("8 quantized main path"):
+            index, docs_tokens, _, _ = build_zipf_index()
+            phase_quantized(gemma_2b_lm(docs_tokens), index, loop_questions(index), results)
         print(json.dumps(results))
         return 0
     if args.train:
@@ -4855,7 +5432,8 @@ def main() -> int:
         dense_launches = phase_dense_main_path(docs_tokens, lm)
     launches.update({n: dense_launches[n] for n in DENSE_KERNELS})
     with Phase("8 quantized main path"):
-        launches["matmul_int8"] = phase_quantized(lm, index, questions, results)["matmul_int8"]
+        quant_launches = phase_quantized(lm, index, questions, results)
+        launches.update({n: quant_launches[n] for n in ("matmul_int8", "matmul_int4")})
     with Phase("9a block kernels"):
         phase_block_kernels(results)
     torch.cuda.empty_cache()

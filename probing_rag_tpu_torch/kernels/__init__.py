@@ -45,6 +45,7 @@ LAUNCHES: Dict[str, int] = {
     "dense_topk": 0,
     "ivf_topk": 0,
     "matmul_int8": 0,
+    "matmul_int4": 0,
     "postings_gather": 0,
     "postings_assemble": 0,
     "decode_attention": 0,
@@ -77,6 +78,10 @@ _SIGNATURES = {
     # x, q, s, out; mode, transpose, regime, m, n, k, bm, bn, splits, grid;
     # stream
     "matmul_int8": [_P] * 4 + [_I, _I, _I, _LL] + [_I] * 6 + [_P],
+    # x, arrays of qp, rs, s, gs, out pointers and of widths n; count; the
+    # wgmma regime's xs scratch; mode, fn, regime, m, k, group, bm, bn,
+    # splits, grid; stream
+    "matmul_int4": [_P] * 7 + [_I, _P, _I, _I, _I, _LL] + [_I] * 6 + [_P],
     "postings_gather": [_P] * 7 + [_I, _I, _LL, _I, _I, _P, _P, _P],
     # doc_c, imp_c, src, rlen, wt; q, tq, pad, ld, span, sentinel; out doc/imp, stream
     "postings_assemble": [_P] * 5 + [_I, _I, _LL, _LL, _LL, _I, _P, _P, _P],

@@ -41,10 +41,14 @@ the device-side cursor) and ``gated_act``.
 Quantized serving (``quantize_lm_params``) keeps the JAX boundary formats:
 per-channel int8 ``{"q": int8, "s": f32}``, grouped int4 ``{"qp": uint8,
 "gs": f32}`` and rank-1 int4 ``{"qp": uint8, "rs": f32 [K, 1], "s": f32
-[1, F]}``, int4 values nibble-packed two to a byte (there is no int4 to
-compute with; they are unpacked per call). Every w8a16 product, the tied
-head included, runs on ``ops/matmul.py::matmul_int8``; the KV cache may be
-int8 or int4 (``init_kv_cache``).
+[1, F]}``, int4 values nibble-packed two to a byte. Every w8a16 product,
+the tied head included, runs on ``ops/matmul.py::matmul_int8``; every w4a16
+product (rank-1 at every row count below the w4a8 threshold, grouped up to
+``_INT4_DEQUANT_ROWS`` rows, the tied head of an int4 embedding) on
+``ops/matmul.py::matmul_int4``, which reads the packed nibbles. The
+weight is unpacked only for the embedding lookup's rows, grouped int4
+above ``_INT4_DEQUANT_ROWS`` rows and rank-1's w4a8 product. The KV cache
+may be int8 or int4 (``init_kv_cache``).
 
 Tensor parallelism (``forward(tp=group)``, parameters from
 ``parallel/mesh.py::shard_lm_params``): JAX gets it from GSPMD with the
@@ -91,7 +95,7 @@ from probing_rag_tpu_torch.ops.block import (  # noqa: F401
     rope,
     rope_qk_cache,
 )
-from probing_rag_tpu_torch.ops.matmul import matmul_int8
+from probing_rag_tpu_torch.ops.matmul import matmul_int4, matmul_int8
 
 Params = Dict[str, Any]
 
@@ -465,44 +469,84 @@ def _int8_product(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ q.double()).to(torch.int32)
 
 
+def _int4_kernel_scheme(w, rows: int, act8_rows: int) -> Optional[str]:
+    """The ``matmul_int4`` scheme in which ``_mm`` multiplies ``rows``
+    activation rows by ``w``, or None where it takes another route: not an
+    int4 leaf, grouped above ``_INT4_DEQUANT_ROWS`` rows, rank-1 w4a8 from
+    ``act8_rows`` rows."""
+    if not isinstance(w, dict):
+        return None
+    if "gs" in w:
+        return "grouped" if rows <= _INT4_DEQUANT_ROWS else None
+    if "rs" in w:
+        return None if act8_rows and rows >= act8_rows else "rank1"
+    return None
+
+
+def _w4a16(x2: torch.Tensor, w, scheme: str, dt: torch.dtype):
+    """``matmul_int4`` of the ``[rows, D]`` activations and one int4 leaf
+    or a list of them: rank-1 takes ``x2`` as it is (its group factor folds
+    into it before the cast to ``dt``), grouped ``x2`` in ``dt``."""
+    x4 = x2 if scheme == "rank1" else x2.to(dt)
+    return matmul_int4(x4.contiguous(), w, dt=dt, scheme=scheme)
+
+
 def _mm(x: torch.Tensor, w, dt: torch.dtype, act8_rows: int = 0,
         amax_group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """``x @ w`` for plain and quantized weights (the branches of the JAX
     ``_mm``). ``act8_rows``: from that many activation rows (prefill) an
     int8 weight runs w8a8 and a rank-1 int4 weight w4a8, the activations
     quantized per row and both scales applied outside the exact int32
-    product; below it (decode) int8 and rank-1 int4 run w8a16 on the
-    ``matmul_int8`` kernel. Grouped int4 batches its product over groups up
-    to ``_INT4_DEQUANT_ROWS`` rows, and multiplies by a transient
-    dequantized copy above. ``amax_group``: the TP group of a row-split
-    product, whose w8a8 activation scale is the max over its ranks."""
+    product (on an unpacked copy of an int4 weight); below it (decode)
+    int8 runs w8a16 on the ``matmul_int8`` kernel and rank-1 int4 w4a16 on
+    ``matmul_int4``, its group factor folded into the activations. Grouped
+    int4 runs ``matmul_int4`` up to ``_INT4_DEQUANT_ROWS`` rows and
+    multiplies by a transient dequantized copy above. ``amax_group``: the
+    TP group of a row-split product, whose w8a8 activation scale is the max
+    over its ranks."""
     if not isinstance(w, dict):
         return x.to(dt) @ w.to(dt)
     lead, d = x.shape[:-1], x.shape[-1]
     rows = math.prod(lead)
     x2 = x.reshape(rows, d)
-    if "gs" in w:  # grouped int4: q [D, F], gs [K, F], K = D / group
-        q, gs = unpack_int4(w["qp"]), w["gs"]
-        f, k = q.shape[1], gs.shape[0]
-        qg = q.reshape(k, d // k, f)
-        if rows > _INT4_DEQUANT_ROWS:
-            y = x2.to(dt) @ (qg.to(dt) * gs[:, None, :].to(dt)).reshape(d, f)
-        else:
-            part = torch.einsum("rkg,kgf->rkf", x2.to(dt).reshape(rows, k, d // k), qg.to(dt))
-            y = torch.einsum("rkf,kf->rf", part.float(), gs).to(dt)
+    scheme = _int4_kernel_scheme(w, rows, act8_rows)
+    if scheme:
+        y = _w4a16(x2, w, scheme, dt)
+        return y.reshape(*lead, y.shape[-1])
+    if "gs" in w:  # grouped int4 past _INT4_DEQUANT_ROWS: qp [D, F/2], gs [K, F]
+        gs = w["gs"]
+        k, f = gs.shape
+        qg = unpack_int4(w["qp"]).reshape(k, d // k, f)
+        y = x2.to(dt) @ (qg.to(dt) * gs[:, None, :].to(dt)).reshape(d, f)
         return y.reshape(*lead, f)
-    if "rs" in w:  # rank-1 int4: the group factor folds into the activations
-        q, rs, s = unpack_int4(w["qp"]), w["rs"], w["s"]
+    if "rs" in w:  # rank-1 int4 w4a8: the group factor folds into the activations
+        rs, s = w["rs"], w["s"]
         k = rs.shape[0]
-        x2 = (x2.float().reshape(rows, k, d // k) * rs).reshape(rows, d)
-    else:  # per-channel int8
-        q, s = w["q"], w["s"]
+        xs32 = (x2.float().reshape(rows, k, d // k) * rs).reshape(rows, d)
+        xq, xs = _quant_acts(xs32, amax_group)
+        y = (_int8_product(xq, unpack_int4(w["qp"])).float() * xs * s.float()).to(dt)
+        return y.reshape(*lead, s.shape[-1])
+    q, s = w["q"], w["s"]  # per-channel int8
     if act8_rows and rows >= act8_rows:
         xq, xs = _quant_acts(x2, amax_group)
         y = (_int8_product(xq, q).float() * xs * s.float()).to(dt)
     else:
         y = matmul_int8(x2.to(dt).contiguous(), q, s, dt=dt)
     return y.reshape(*lead, q.shape[1])
+
+
+def _mm_shared(x: torch.Tensor, ws, dt: torch.dtype, act8_rows: int = 0) -> list:
+    """``[_mm(x, w, dt, act8_rows) for w in ws]`` for weights that share
+    ``x`` (a layer's wq, wk and wv; its w_gate and w_up). Where ``_mm``
+    would send each of them to ``matmul_int4`` in one scheme, one
+    ``matmul_int4`` call takes them all (which launches them together on
+    the card where its planner can), with the same values."""
+    rows = math.prod(x.shape[:-1])
+    schemes = {_int4_kernel_scheme(w, rows, act8_rows) for w in ws}
+    if len(schemes) == 1 and None not in schemes:
+        ys = _w4a16(x.reshape(rows, x.shape[-1]), list(ws), schemes.pop(), dt)
+        return [y.reshape(*x.shape[:-1], y.shape[-1]) for y in ys]
+    return [_mm(x, w, dt, act8_rows) for w in ws]
 
 
 def _all_reduce(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
@@ -581,9 +625,9 @@ def _block(
     eps, plus_one = cfg.norm_eps, cfg.norm_plus_one
 
     resid_in, attn_in = add_rms_norm(x, lp["attn_norm"], eps, plus_one, delta=delta, dt=dt)
-    q = _mm(attn_in, lp["wq"], dt, a8).reshape(b, t, -1, hd)  # h heads, h / tp under TP
-    k = _mm(attn_in, lp["wk"], dt, a8).reshape(b, t, kvh, hd)
-    v = _mm(attn_in, lp["wv"], dt, a8).reshape(b, t, kvh, hd)
+    q, k, v = _mm_shared(attn_in, (lp["wq"], lp["wk"], lp["wv"]), dt, a8)
+    q = q.reshape(b, t, -1, hd)  # h heads, h / tp under TP
+    k, v = k.reshape(b, t, kvh, hd), v.reshape(b, t, kvh, hd)
     # k and v come back as the layer's cache [B, KV, S, hd] or, with no
     # cache, as contiguous [B, KV, T, hd]
     q, k, v, k_scale, v_scale = rope_qk_cache(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -605,8 +649,7 @@ def _block(
     attn_out = _all_reduce(_mm(attn.to(dt), lp["wo"], dt, a8, tp), tp)
     resid_mid, x_in = add_rms_norm(resid_in, lp["mlp_norm"], eps, plus_one,
                                    delta=attn_out.contiguous(), dt=dt)
-    gate = _mm(x_in, lp["w_gate"], dt, a8)
-    up = _mm(x_in, lp["w_up"], dt, a8)
+    gate, up = _mm_shared(x_in, (lp["w_gate"], lp["w_up"]), dt, a8)
     hidden = gated_act(gate.contiguous(), up.contiguous(), cfg.mlp_activation)
     mlp_out = _all_reduce(_mm(hidden, lp["w_down"], dt, a8, tp), tp)
     return resid_in, resid_mid, mlp_out.contiguous(), probs
@@ -724,10 +767,12 @@ def forward(
         logits = _mm(x.to(dt), params["lm_head"], dt, cfg.act_int8_rows)
     elif isinstance(emb, dict):
         # the per-row embedding scale is the head's per-logit column scale
-        q = emb["q"] if "q" in emb else unpack_int4(emb["qp"])
         x2 = x.to(dt).reshape(-1, cfg.d_model).contiguous()
-        logits = matmul_int8(x2, q, emb["s"], dt=dt, transpose_rhs=True)
-        logits = logits.reshape(*x.shape[:-1], q.shape[0])
+        if "q" in emb:
+            logits = matmul_int8(x2, emb["q"], emb["s"], dt=dt, transpose_rhs=True)
+        else:
+            logits = matmul_int4(x2, emb, dt=dt, scheme="channel", transpose_rhs=True)
+        logits = logits.reshape(*x.shape[:-1], emb["s"].shape[0])
     else:
         logits = x.to(dt) @ emb.to(dt).T
     logits = _all_gather(logits.float(), tp)  # vocab shards under TP
