@@ -2176,8 +2176,7 @@ def mm4_case(gen, label: str, m: int, k: int, n: int, scheme: str, dt, regime: s
     nbytes = (x.numel() * x.element_size() + qp.numel() + sum(v.numel() * 4 for v in sc.values())
               + m * n * x.element_size())
     b = bound(nbytes, 2 * m * n * k, "bf16" if dt == torch.bfloat16 else "f32")
-    how = (f"{plan.regime} (tile {plan.bm} x {plan.bn}, {plan.bk} deep, {plan.splits} splits, "
-           f"{plan.grid} blocks)") if plan else "plain"
+    how = mm4_plan_text(plan)
     line = (f"  matmul_int4 {label} [{m} x {k} -> {n}] {scheme}"
             f"{f' group {group}' if scheme != 'channel' else ''}, {how}: max abs err {err:.3g} "
             f"({differ:.4f} of the outputs differ); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -2200,9 +2199,30 @@ def mm4_case(gen, label: str, m: int, k: int, n: int, scheme: str, dt, regime: s
             "dequant_ms": dequant_ms, "regime": plan.regime if plan else None, **b}
 
 
+def mm4_plan_text(plan) -> str:
+    """A matmul_int4 plan as phase 8 prints it: the regime, the row tile and
+    the column tile, and then the stream regime's persistent blocks, units a
+    block (the most), ring stages, x window steps and the clusters that
+    finish split tiles (else the scratch, where tiles split), or the other
+    regimes' depth, K splits and blocks."""
+    if plan is None:
+        return "plain"
+    if plan.regime == "stream":
+        from probing_rag_tpu_torch.ops.matmul import stream_scratch_fixup
+
+        finish = (f", clusters of {plan.splits}" if plan.splits > 1
+                  else ", split tiles through the scratch" if stream_scratch_fixup(plan) else "")
+        return (f"stream (row tile {plan.bm}, units of {plan.bn} columns x {plan.bk} deep, "
+                f"{plan.grid} blocks of up to {-(-plan.units // plan.grid)} units, ring of "
+                f"{plan.stages}, x window of {plan.xsteps} steps{finish})")
+    return (f"{plan.regime} (tile {plan.bm} x {plan.bn}, {plan.bk} deep, {plan.splits} splits, "
+            f"{plan.grid} blocks)")
+
+
 def mm4_shared_case(gen, label: str, m: int, k: int, ns, scheme: str) -> dict:
     """One ``matmul_int4`` case of several weights, those of ``ns``, that
-    share x in one small-M launch, each output held to its plain version
+    share x in one launch (the regime the planner gives it), each output
+    held to its plain version
     (``mm4_check``); kernel and plain times and the bound of all of them."""
     import torch
 
@@ -2223,7 +2243,9 @@ def mm4_shared_case(gen, label: str, m: int, k: int, ns, scheme: str) -> dict:
     refs = [mm.matmul_int4_plain(x, w["qp"], dt=bf16, scheme=scheme,
                                  **{key: v for key, v in w.items() if key != "qp"}) for w in ws]
     sync()
-    if DEVICE == "cuda" and (plan.regime != "small_m" or launched != 1):
+    # at 8 rows grouped wq + wk + wv keeps the small-M kernel (ops/matmul.py)
+    want = "small_m" if m == 8 and scheme == "grouped" and len(ns) == 3 else "stream"
+    if DEVICE == "cuda" and (plan.regime != want or launched != 1):
         raise AssertionError(f"matmul_int4 {label}: regime {plan.regime}, {launched} launches")
     err = 0.0
     for g_, r_, w in zip(got, refs, ws):
@@ -2235,8 +2257,7 @@ def mm4_shared_case(gen, label: str, m: int, k: int, ns, scheme: str) -> dict:
     nbytes = x.numel() * 2 + sum(t.numel() * t.element_size() for w in ws for t in w.values()) \
         + m * sum(ns) * 2
     b = bound(nbytes, 2 * m * sum(ns) * k, "bf16")
-    how = (f"{plan.regime} (tile {plan.bm} x {plan.bn}, {plan.splits} splits, {plan.grid} blocks)"
-           if plan else "plain")
+    how = mm4_plan_text(plan)
     print(f"  matmul_int4 shared {label} [{m} x {k} -> {' + '.join(map(str, ns))}] {scheme}, one "
           f"launch, {how}: max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
@@ -2249,7 +2270,9 @@ def phase_matmul_int4_kernels(results: dict, prefill_m: int) -> None:
     schemes (group 128) and the tied head of an int4 embedding; rank-1 at
     every prefill product (M = 8 x the padded prompt length), at the
     capture forward's M (8 x 1,536) and at a ragged prefill M; grouped at
-    its largest kernel M (1,024 rows); Mistral-7B's widths at decode (both
+    its largest kernel M (1,024 rows: wgmma, or small-M for wk/wv's 16
+    tiles), at 512 and at a ragged 100 rows; 64 rows in the stream regime
+    (its widest row tile); Mistral-7B's widths at decode (both
     schemes) and its rank-1 prefill; ragged M, N and K in each regime; a
     group of 64; f32 at the tiny configs' widths. Each case must take the
     regime listed with it, prints the plan it launched
@@ -2268,7 +2291,12 @@ def phase_matmul_int4_kernels(results: dict, prefill_m: int) -> None:
     # shared launches below leave alone (wo, w_down)
     for m, at, names in ((MM_DECODE_M, "decode", GEMMA_MM), (MM_VERIFY_M, "verify",
                                                              ("wq/wo", "w_down"))):
-        cases += [(f"{at} {name}", m, *GEMMA_MM[name], scheme, bf16, "small_m", MM4_GROUP)
+        # at 8 rows wo, wk and wv alone keep the small-M kernel (the
+        # stream regime's one-unit shares would wait on the scratch there:
+        # ops/matmul.py)
+        cases += [(f"{at} {name}", m, *GEMMA_MM[name], scheme, bf16,
+                   "small_m" if at == "decode" and name in ("wq/wo", "wk/wv") else "stream",
+                   MM4_GROUP)
                   for name in names for scheme in ("rank1", "grouped")]
         cases += [(f"{at} int4 tied head", m, *TIED_HEAD, "channel", bf16, "small_m", 0)]
     cases += [(f"prefill {name}", prefill_m, *GEMMA_MM[name], "rank1", bf16, "wgmma", MM4_GROUP)
@@ -2280,11 +2308,20 @@ def phase_matmul_int4_kernels(results: dict, prefill_m: int) -> None:
               ("prefill ragged M", prefill_m + 5, *GEMMA_MM["w_gate/w_up"], "rank1", bf16, "wgmma",
                MM4_GROUP),
               ("grouped 1024 rows w_gate/w_up", 1024, *GEMMA_MM["w_gate/w_up"], "grouped", bf16,
-               "small_m", MM4_GROUP),
-              ("grouped 1024 rows w_down", 1024, *GEMMA_MM["w_down"], "grouped", bf16, "small_m",
+               "wgmma", MM4_GROUP),
+              ("grouped 1024 rows w_down", 1024, *GEMMA_MM["w_down"], "grouped", bf16, "wgmma",
+               MM4_GROUP),
+              ("grouped 1024 rows wk/wv", 1024, *GEMMA_MM["wk/wv"], "grouped", bf16, "small_m",
+               MM4_GROUP),
+              ("grouped 512 rows wq/wo", 512, *GEMMA_MM["wq/wo"], "grouped", bf16, "wgmma",
+               MM4_GROUP),
+              ("grouped ragged 100 rows w_gate/w_up", 100, *GEMMA_MM["w_gate/w_up"], "grouped",
+               bf16, "wgmma", MM4_GROUP),
+              ("64 rows w_down", 64, *GEMMA_MM["w_down"], "grouped", bf16, "stream", MM4_GROUP),
+              ("64 rows w_gate/w_up", 64, *GEMMA_MM["w_gate/w_up"], "rank1", bf16, "stream",
                MM4_GROUP)]
     cases += [(f"Mistral-7B decode {name}", MM_DECODE_M, *MISTRAL_MM[name], scheme, bf16,
-               "small_m", MM4_GROUP)
+               "stream", MM4_GROUP)
               for name in ("w_gate/w_up", "w_down") for scheme in ("rank1", "grouped")]
     cases += [("Mistral-7B prefill w_gate/w_up", MISTRAL_PREFILL_M, *MISTRAL_MM["w_gate/w_up"],
                "rank1", bf16, "wgmma", MM4_GROUP),
@@ -2292,7 +2329,7 @@ def phase_matmul_int4_kernels(results: dict, prefill_m: int) -> None:
               ("ragged M and N", 37, 2048, 1000, "rank1", bf16, "tail", MM4_GROUP),
               ("ragged M and N, grouped", 37, 2048, 1000, "grouped", bf16, "tail", MM4_GROUP),
               ("ragged M and N, tied head", 37, 2048, 1000, "channel", bf16, "small_m", 0),
-              ("ragged K", 5, 208, 320, "rank1", bf16, "small_m", 16),
+              ("ragged K", 5, 208, 320, "rank1", bf16, "stream", 16),
               ("ragged K, grouped", 5, 208, 320, "grouped", bf16, "small_m", 16),
               ("ragged K, tied head", 5, 200, 300, "channel", bf16, "tail", 0),
               ("decode group 64 w_gate/w_up", MM_DECODE_M, *GEMMA_MM["w_gate/w_up"], "grouped",

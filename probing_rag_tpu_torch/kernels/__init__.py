@@ -79,9 +79,10 @@ _SIGNATURES = {
     # stream
     "matmul_int8": [_P] * 4 + [_I, _I, _I, _LL] + [_I] * 6 + [_P],
     # x, arrays of qp, rs, s, gs, out pointers and of widths n; count; the
-    # wgmma regime's xs scratch; mode, fn, regime, m, k, group, bm, bn,
-    # splits, grid; stream
-    "matmul_int4": [_P] * 7 + [_I, _P, _I, _I, _I, _LL] + [_I] * 6 + [_P],
+    # scratch (the wgmma regime's xs, the stream regime's partial sums);
+    # mode, fn, regime, m, k, group, bm, bn, splits, grid, stages, xsteps;
+    # the stream regime's tile counters; stream
+    "matmul_int4": [_P] * 7 + [_I, _P, _I, _I, _I, _LL] + [_I] * 8 + [_P, _P],
     "postings_gather": [_P] * 7 + [_I, _I, _LL, _I, _I, _P, _P, _P],
     # doc_c, imp_c, src, rlen, wt; q, tq, pad, ld, span, sentinel; out doc/imp, stream
     "postings_assemble": [_P] * 5 + [_I, _I, _LL, _LL, _LL, _I, _P, _P, _P],

@@ -20,8 +20,9 @@
 //
 // Bound. At decode (M = 8) the work is ~32 flop per weight byte, so the
 // packed weight read bounds it: 55 MB per Gemma-2B layer, 16.8 MB for
-// [8 x 2048 -> 16384] (5.0 us at 3.35 TB/s). At prefill (M ~ 29K) the bf16
-// tensor cores do: 2 M N K flop at 989 TFLOP/s.
+// [8 x 2048 -> 16384] (5.0 us at 3.35 TB/s). At 1,024 rows (grouped short
+// prefills) and at prefill (M ~ 29K) the bf16 tensor cores do: 2 M N K flop
+// at 989 TFLOP/s.
 //
 // Widening. 0x4300 | u is the bf16 of 128 + u (bf16 has 7 mantissa bits at
 // exponent 7), so a nibble u = q + 8 becomes q exactly with one bf16x2 fma
@@ -30,49 +31,89 @@
 //
 // Regimes, picked by ops/matmul.py::plan_matmul_int4 and checked here:
 //
-// small-M (decode and verify rows, grouped up to its 1,024 rows; M <= 64
-// or too few tiles for wgmma). The weights are mma.sync m16n8k16's A
-// operand (16 output columns a tile on its M) and x its B operand (8 rows a
-// tile on its N), so a decode step's 8 rows fill the tile; a nibble pair
-// along k goes into a register straight from shared memory (one byte
-// permute of two depth rows' words, a mask, a bf16x2 fma), with no widened
-// copy in shared memory. Blocks of 64 columns and 8, 16 or 32 rows; their
-// 4 warps take the split's 128-deep steps in turn, each warp with its own
-// cp.async ring of STAGES steps (the step's x, nibbles and scales), so no
-// block-wide barrier runs until the end, where the warps' sums are added in
-// warp order. Rank-1 scales x by rs as its fragments are loaded; grouped
-// keeps a second f32 sum: at each group's end the partial is rounded to
-// bf16, scaled by gs and added. When the tiles cannot keep every SM
-// streaming weights, K is split over a thread block cluster (at most 16)
-// whose splits sum in split order through distributed shared memory, so
-// the bits repeat; a step holds whole groups, so splits start at group
-// boundaries. One launch may take up to three weights that share x (a
-// layer's wq, wk and wv; its w_gate and w_up), their column tiles one
-// after another on the grid: fewer launches and one load latency for the
-// small products. Tail: the same kernel with element-checked synchronous
-// loads, for operands cp.async cannot copy (K % 8, a packed row that is no
+// stream (rank-1 and grouped at up to 64 rows: the decode step, the verify
+// round; grouped with groups of 128). What bounds it is the packed weight
+// read, so the design keeps every SM streaming weights from its first load
+// to its last:
+// - one persistent block a SM takes an equal contiguous share of the
+//   launch's units (a 256-column tile x a 128-deep step, 16 KB of nibbles;
+//   the products of a shared launch one after another), tile-aligned
+//   where that costs no unit a block, so no wave is left part-full and no
+//   block ramps up more than once;
+// - a producer warp keeps a deep ring of units in flight (TMA boxes of 128
+//   rows x 128 bytes in the 128-byte swizzle, completing on mbarriers; 8
+//   stages, 128 KB, at decode), and a consumer warp releases a stage as
+//   soon as it has loaded its halfwords from it;
+// - x is resident: the block copies the depths its share needs into shared
+//   memory once (rank-1 with rs folded in, xs = dt(f32(x) * rs), as the
+//   wgmma regime's pre-pass does), 128-byte swizzled; where a share's
+//   depths do not fit (w_down at 40-64 rows) one window a column tile,
+//   still each depth once;
+// - one row tile of 8, 16, 32, 40 or 64 rows holds M, so the verify round's
+//   40 rows read each weight once. The products are mma.sync m16n8k16: the
+//   widened weights its A operand (a warp two m16 tiles, 32 columns; the
+//   low nibble row g, the high row g + 8), x its B operand from the window
+//   (M / 8 n8 tiles). wgmma m64nNk16 with the same register A fragments
+//   (64 columns a warpgroup) was slower at decode, where each 16-deep step
+//   waited on the previous asynchronous product (PERF.md, row 14);
+// - at 8 rows two pairs of consumer warpgroups (17 warps; the registers
+//   allow it there) take the block's units in turn, their sums added in
+//   pair order: the consumers' latency, not the memory, bounded the
+//   decode step with one pair;
+// - a column tile whose steps fall on several blocks: in equal pieces, one
+//   a block, of at most 8, the tile's blocks form a cluster that adds the
+//   pieces through distributed shared memory; else (clusters of 16 blocks
+//   of this size did not run at once on an H100) the pieces go to a
+//   scratch and the last block to raise the tile's counter adds them. Both
+//   add in block order, so the bits repeat from run to run. A step holds
+//   one group, so pieces start at group boundaries. Grouped closes each
+//   group at its step's end: the f32 partial rounded to bf16, scaled by gs,
+//   added in f32.
+// At 8 rows the planner keeps the small-M regime below where it measured
+// faster: shares of at most two units, grouped or waiting on the scratch
+// (a decode step's wo, and its grouped wq + wk + wv).
+//
+// small-M (the first design: the int4 tied head, grouped groups other than 128,
+// products past 64 rows with too few tiles for wgmma, the short shares
+// above). The weights are
+// mma.sync m16n8k16's A operand (16 output columns a tile on its M) and x
+// its B operand (8 rows a tile on its N); a nibble pair along k goes into a
+// register straight from shared memory (one byte permute of two depth
+// rows' words, a mask, a bf16x2 fma). Blocks of 64 columns and 8, 16 or 32
+// rows; their 4 warps take the split's 128-deep steps in turn, each warp
+// with its own cp.async ring of STAGES steps (the step's x, nibbles and
+// scales); the warps' sums are added in warp order. Rank-1 scales x by rs
+// as its fragments are loaded; grouped keeps a second f32 sum. When the
+// tiles cannot keep every SM streaming weights, K is split over a thread
+// block cluster (at most 16) whose splits sum in split order through
+// distributed shared memory. One launch may take up to three weights that
+// share x. Tail: the same kernel with element-checked synchronous loads,
+// for operands cp.async cannot copy (K % 8, a packed row that is no
 // multiple of 16 bytes, unaligned bases).
 //
-// wgmma (rank-1 at prefill and capture M: M > 64, 32 output tiles or
-// more): a first launch folds rs into x once (xs into a scratch [M, K]
-// bf16 that the wrapper allocates: an activation, not a weight); then
-// matmul_int8.cu's persistent warp-specialised kernel: one producer thread
-// keeps TMA loads of the bf16 xs tile (128B-swizzled) and of the [64 x
-// BN/2] nibble tile in flight in a ring of STAGES; two consumer warpgroups
-// run wgmma m64nBNk16 and, while a step's products run, widen the next
-// step's nibbles into the swizzled K-major bf16 tile (an 8 x 8 transpose
-// in registers).
+// wgmma (M > 64 and 32 output tiles or more: rank-1 at prefill and
+// capture M; grouped from 65 rows, groups of 128): matmul_int8.cu's persistent
+// warp-specialised kernel: one producer thread keeps TMA loads of the bf16
+// x tile (128 rows, 128B-swizzled) and of the [64 x BN/2] nibble tile in
+// flight in a ring of STAGES; two consumer warpgroups run wgmma m64nBNk16
+// and, while a step's products run, widen the next step's nibbles into the
+// swizzled K-major bf16 tile (an 8 x 8 transpose in registers). Rank-1
+// first folds rs into x once (xs into a scratch [M, K] bf16 that the
+// wrapper allocates: an activation, not a weight). Grouped (128 x 128
+// tiles, so a weight is read at most 8 times at 1,024 rows, from L2) keeps
+// a second f32 sum and closes each 128-deep group (two steps) as stream
+// does.
 //
 // f32 mode (the tiny test configs): CUDA-core FMAs over 32 x 32 tiles, the
 // three functions in f32.
 //
 // Device memory sees packed weights only: nothing writes a widened copy.
 
-// nvcc-parts: 3
-// The build compiles this file once per part, with NVCC_PART = 0 .. 2 and
-// NVCC_PARTS = 3 (kernels/__init__.py reads the line above): part 1 holds
-// the rank-1 small-M kernels, part 2 the grouped ones, part 0 the channel
-// ones, the wgmma and f32 kernels and the C entry.
+// nvcc-parts: 4
+// The build compiles this file once per part, with NVCC_PART = 0 .. 3 and
+// NVCC_PARTS = 4 (kernels/__init__.py reads the line above): part 1 holds
+// the rank-1 small-M and stream kernels, part 2 the grouped ones, part 3
+// the wgmma kernels, part 0 the channel and f32 kernels and the C entry.
 #ifndef NVCC_PART
 #define NVCC_PART 0
 #define NVCC_PARTS 1
@@ -94,6 +135,7 @@ namespace mm4 {
 using namespace hop;
 
 enum Fn { kRank1 = 0, kGrouped = 1, kChannel = 2 };
+constexpr int WG_BM = 128;  // the wgmma regime's rows a tile (wg::BM)
 
 // One weight of a launch. The small-M regime takes up to MAX_PRODUCTS
 // weights of one scheme that share x (a layer's wq, wk and wv; w_gate and
@@ -122,6 +164,15 @@ cudaError_t small_grouped(const Args& a, bool aligned, int bm, int bn, int split
                           cudaStream_t st);
 cudaError_t small_channel(const Args& a, bool aligned, int bm, int bn, int splits,
                           cudaStream_t st);
+// the stream regime (rank-1 or grouped by fn): rows, persistent blocks,
+// ring stages, x window steps, the cluster of a split tile's pieces (1:
+// none), the partial sums' scratch and the tiles' counters
+cudaError_t stream_rank1(const Args& a, int rows, int grid, int stages, int xsteps, int cluster,
+                         float* ws, int* counters, cudaStream_t st);
+cudaError_t stream_grouped(const Args& a, int rows, int grid, int stages, int xsteps,
+                           int cluster, float* ws, int* counters, cudaStream_t st);
+// the wgmma regime: rank-1 folds x into xs first, grouped reads x
+cudaError_t wgmma_launch(const Args& a, int fn, int bn, void* xs, int grid, cudaStream_t st);
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -236,11 +287,13 @@ __device__ __forceinline__ void load_words(const unsigned char* q4, int kk, int 
   for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(col + 4 * i * QLD);
 }
 
-// [K, N/2]: the four tiles' fragments from those words
-__device__ __forceinline__ void words_to_fragments(const uint32_t (&w)[4], uint32_t (&af)[4][4]) {
+// [K, N/2]: the J tiles' fragments from those words (J 4), or from
+// halfwords (J 2: the stream regime's), tile j from byte j of each
+template <int J = 4>
+__device__ __forceinline__ void words_to_fragments(const uint32_t (&w)[4], uint32_t (&af)[J][4]) {
   const uint32_t h0 = w[0] >> 4, h1 = w[1] >> 4, h2 = w[2] >> 4, h3 = w[3] >> 4;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < J; ++j) {
     const uint32_t sel = j | ((4 + j) << 8);  // byte j of both words, at bits 0-7 and 16-23
     af[j][0] = nib_pair(__byte_perm(w[0], w[1], sel));
     af[j][1] = nib_pair(__byte_perm(h0, h1, sel));
@@ -605,16 +658,477 @@ cudaError_t launch_small(const Args& a, bool aligned, int bm, int bn, int splits
   return cudaErrorInvalidValue;
 }
 
+// -------------------------------------------------------------- stream
+
+namespace st {
+
+constexpr int BN = 256;                  // a unit's columns: 128 bytes of each depth row
+constexpr int BK = 128;                  // a unit's depth (grouped: one group)
+constexpr int UNIT = BK * BN / 2;        // a unit's nibbles, one TMA box: 16 KB
+constexpr int CONSUMERS = 256;           // a pair of warpgroups, 128 columns each
+constexpr int MAX_STAGES = 16;
+constexpr int MAX_TILES = 4096;          // the counters ops/matmul.py keeps
+constexpr int SMEM_MAX = 232448;         // a block's dynamic shared memory on Hopper
+constexpr int XBAR = 1;                  // the consumers' named barrier
+constexpr int EBAR = 2;                  // pair 0's, for a split tile's scratch
+
+// Shared memory from a base aligned to 1024: the ring of units, the x
+// window (xsteps steps of BK depths; each 64 depths NR rows of 128 bytes
+// in the 128-byte swizzle), the full and empty barriers, two flags, and at
+// 8 rows (two pairs of consumer warpgroups) the second pair's sums.
+// ops/matmul.py::stream_smem is the same sum.
+struct Layout {
+  int stages, xsteps, nr;
+  __host__ __device__ int xwin() const { return stages * UNIT; }
+  __host__ __device__ int bars() const { return xwin() + xsteps * nr * BK * 2; }
+  __host__ __device__ int flags() const { return bars() + 16 * stages; }
+  __host__ __device__ int pairs() const { return flags() + 16; }
+  __host__ __device__ int alloc() const {
+    return pairs() + (nr == 8 ? nr * CONSUMERS * 4 : 0) + 1024;
+  }
+};
+
+// the row tile that holds m rows (m <= 64)
+__host__ __device__ constexpr int rows_for(long long m) {
+  return m <= 8 ? 8 : m <= 16 ? 16 : m <= 32 ? 32 : m <= 40 ? 40 : 64;
+}
+
+// The launch's units in order: unit T * steps + s is step s of column tile
+// T, the products' tiles one after another. Block b takes units [start(b),
+// start(b + 1)): per + 1 of them for the first rem blocks, per after.
+struct Shares {
+  int steps, per, rem;
+  __device__ Shares(int k, int tiles, int grid)
+      : steps((k + BK - 1) / BK), per(tiles * steps / grid), rem(tiles * steps % grid) {}
+  __device__ int start(int b) const { return b * per + min(b, rem); }
+  __device__ int block_of(int u) const {
+    const int big = rem * (per + 1);
+    return u < big ? u / (per + 1) : rem + (u - big) / per;
+  }
+};
+
+// the product whose column tiles hold tile t, and its index
+__device__ __forceinline__ Product pick(const Args& a, int t, int& index) {
+  Product pr = a.p[0];
+  index = 0;
+#pragma unroll
+  for (int i = 1; i < MAX_PRODUCTS; ++i)
+    if (i < a.count && t >= a.p[i].tile0) {
+      pr = a.p[i];
+      index = i;
+    }
+  return pr;
+}
+
+// This lane's four halfwords of k16 step kk of the unit at stg (TMA's
+// 128-byte swizzle: 16-byte chunk q of row r at chunk q ^ (r & 7)): depth
+// rows 16 kk + 2t, + 1, + 8, + 9, bytes 2g and 2g + 1 of chunk `chunk`
+// (the warp's 16 bytes: 32 columns). A warp's 32 lanes touch 4 chunks (one
+// per t) x 4 words: no bank conflict.
+__device__ __forceinline__ void unit_halfwords(const uint8_t* stg, int kk, int chunk, int g, int t,
+                                               uint32_t (&h)[4]) {
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int r = 16 * kk + 2 * t + (d & 1) + 8 * (d >> 1);
+    h[d] = *reinterpret_cast<const uint16_t*>(stg + r * 128 + ((chunk ^ (r & 7)) << 4) + 2 * g);
+  }
+}
+
+// x rows [0, NR) at the depths of steps [x0, x0 + xn) into the window,
+// 16-byte piece q of a row at its 64 depths' 128-byte swizzle; rank-1
+// folds rs into it (xs = dt(f32(x) * rs)); zeros past M and K
+template <int FN, int NR, int CT>
+__device__ __forceinline__ void fill_window(uint8_t* win, const uint16_t* x, const float* rs,
+                                            long long m, int k, int group, int x0, int xn,
+                                            int tid) {
+  const int pieces = xn * (BK / 8);
+  for (int e = tid; e < NR * pieces; e += CT) {
+    const int r = e / pieces, q = e % pieces, d = x0 * BK + 8 * q;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < m && d < k) {
+      v = __ldg(reinterpret_cast<const uint4*>(x + r * static_cast<long long>(k) + d));
+      if constexpr (FN == kRank1) v = scale8(v, __ldg(rs + d / group));
+    }
+    *reinterpret_cast<uint4*>(win + (q >> 3) * NR * 128 + sw128(r, q & 7)) = v;
+  }
+}
+
+// The outputs a consumer thread holds, val[j][i][2 h + c] (mma j's sums
+// over x rows 8 i ..: its row g + 8 h is weight column col + 2 j + h, its
+// column 2t + c the x row 8 i + 2t + c), rounded (rank-1: times the bf16
+// scale) and stored 4 columns at a time.
+template <int FN, int NR>
+__device__ __forceinline__ void store_tile(const float (&val)[2][NR / 8][4], const Product& pr,
+                                           long long m, int col, int t) {
+  if (col >= pr.n) return;
+  auto* out = static_cast<__nv_bfloat16*>(pr.out);
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (FN == kRank1) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] = __ldg(pr.s + col + e);
+  }
+#pragma unroll
+  for (int i = 0; i < NR / 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int row = 8 * i + 2 * t + c;
+      if (row >= m) continue;
+      const float v[4] = {val[0][i][c], val[0][i][2 + c], val[1][i][c], val[1][i][2 + c]};
+      uint32_t w[2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        __nv_bfloat162 b;
+        b.x = FN == kGrouped ? __float2bfloat16_rn(v[2 * p]) : bf16_scale(v[2 * p], s[2 * p]);
+        b.y = FN == kGrouped ? __float2bfloat16_rn(v[2 * p + 1])
+                             : bf16_scale(v[2 * p + 1], s[2 * p + 1]);
+        w[p] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+      *reinterpret_cast<uint2*>(out + row * pr.n + col) = make_uint2(w[0], w[1]);
+    }
+}
+
+// Block b: units [start(b), start(b + 1)) (Shares), walked as pieces (the
+// steps of one column tile). The last warp is the producer: its first lane
+// loads each unit's nibble box by TMA into the ring's next stage once the
+// consumers have released it. Before it come PAIRS pairs of consumer
+// warpgroups (two at 8 rows, where the registers allow 17 warps; else
+// one); pair p takes the block's units p, p + PAIRS, ... and warpgroup c of
+// a pair columns [128 c, + 128) of each: a warp loads its halfwords of the
+// unit (32 registers a lane), releases the stage, and per 16 depths widens
+// them into two mma.sync A fragments (two m16 tiles: 32 columns) and runs
+// them against x's B fragments from the window (NR / 8 n8 tiles). Rank-1
+// sums a piece in f32; grouped closes each step's group (round, scale by
+// gs, add in f32). At a piece's end the pairs' sums are added in pair
+// order and pair 0 finishes it: a whole tile is stored; a piece of a tile
+// split over blocks either waits in shared memory for the cluster (the
+// plan's `cluster` blocks, one tile's pieces in block order) to add the
+// pieces through distributed shared memory, or, without a cluster, goes to
+// the scratch (slot 0 for the block's first piece, 1 for its last), and
+// the block that raises the tile's counter to its pieces' count adds every
+// piece in block order and stores the tile. Either way the sums repeat
+// bit for bit from run to run.
+template <int NR>
+struct Team {
+  static constexpr int PAIRS = NR == 8 ? 2 : 1;
+  static constexpr int CONSUMER_THREADS = PAIRS * CONSUMERS;
+  static constexpr int THREADS = CONSUMER_THREADS + 32;
+};
+
+// the tile's outputs a pair-0 thread holds, written as NR / 4 float4s:
+// float4 q of thread tid at [q * CONSUMERS + tid]
+template <int NT>
+__device__ __forceinline__ void put_sums(float4* dst, const float (&val)[2][NT][4], int tid) {
+#pragma unroll
+  for (int q = 0; q < 2 * NT; ++q) {
+    const float(&e)[4] = val[q / NT][q % NT];
+    dst[q * CONSUMERS + tid] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void add_sums(float (&val)[2][NT][4], float4 f, int q) {
+  float(&e)[4] = val[q / NT][q % NT];
+  e[0] += f.x;
+  e[1] += f.y;
+  e[2] += f.z;
+  e[3] += f.w;
+}
+
+// column (of a tile) and row lane t of pair-0 consumer thread tid
+__device__ __forceinline__ int thread_col(int tid) {
+  const int warp = tid >> 5, g = (tid & 31) >> 2;
+  return 128 * (warp >> 2) + 32 * (warp & 3) + 4 * g;
+}
+
+template <int FN, int NR>
+__global__ void __launch_bounds__(Team<NR>::THREADS, 1)
+mm4_stream(const Args a, const __grid_constant__ CUtensorMap q0,
+           const __grid_constant__ CUtensorMap q1, const __grid_constant__ CUtensorMap q2,
+           int stages, int xsteps, int cluster, float* __restrict__ ws,
+           int* __restrict__ counters) {
+  constexpr int NT = NR / 8;  // n8 tiles of x rows
+  constexpr int PAIRS = Team<NR>::PAIRS, CT = Team<NR>::CONSUMER_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const Layout L{stages, xsteps, NR};
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + L.bars(), empty = full + 8 * stages;
+  volatile int* last = reinterpret_cast<volatile int*>(smem + L.flags());
+  float4* pair_sums = reinterpret_cast<float4*>(smem + L.pairs());
+  int tiles = 0;
+#pragma unroll
+  for (int i = 0; i < MAX_PRODUCTS; ++i)
+    if (i < a.count) tiles = a.p[i].tile0 + (a.p[i].n + BN - 1) / BN;
+  const Shares sh(a.k, tiles, gridDim.x);
+  const int u0 = sh.start(blockIdx.x), u1 = sh.start(blockIdx.x + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, CONSUMERS / 32);  // the warps of the pair that takes the unit
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CT / 32) {  // the producer
+    if (lane == 0) {
+      for (int u = u0, i = 0; u < u1; ++u, ++i) {
+        const int s = i % stages, tile = u / sh.steps;
+        int pi;
+        const Product pr = pick(a, tile, pi);
+        mbar_wait(empty + 8 * s, ((i / stages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, UNIT);
+        tma_load_2d(base + s * UNIT, pi == 0 ? &q0 : pi == 1 ? &q1 : &q2, full + 8 * s,
+                    (tile - pr.tile0) * (BN / 2), (u - tile * sh.steps) * BK);
+      }
+    }
+  } else {
+    const int pair = warp / (CONSUMERS / 32), tid = threadIdx.x % CONSUMERS;
+    const int c = (warp >> 2) & 1, w = warp & 3, g = lane >> 2, t = lane & 3;
+    const int chunk = 4 * c + w, colw = 128 * c + 32 * w + 4 * g;
+    uint8_t* win = smem + L.xwin();
+    const auto* x = static_cast<const uint16_t*>(a.x);
+    float acc[2][NT][4], tot[2][NT][4];
+    int x0 = 0, xn = 0, xp = -1;  // the window: steps [x0, x0 + xn), folded for product xp
+    int i = 0;                    // the block's units so far: the ring's position
+    for (int u = u0; u < u1;) {
+      const int tile = u / sh.steps, t0 = tile * sh.steps, pe = min(u1, t0 + sh.steps);
+      int pi;
+      const Product pr = pick(a, tile, pi);
+      const int col = (tile - pr.tile0) * BN + colw;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i2 = 0; i2 < NT; ++i2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][i2][e] = tot[j][i2][e] = 0.0f;
+      for (int v = u; v < pe; ++v, ++i) {
+        const int step = v - t0;
+        if (step < x0 || step >= x0 + xn || (FN == kRank1 && pi != xp)) {
+          // a new window, once every warp is done with the old one
+          bar_sync(XBAR, CT);
+          x0 = xsteps >= sh.steps ? 0 : step;
+          xn = xsteps >= sh.steps ? sh.steps : min(xsteps, pe - v);
+          xp = pi;
+          fill_window<FN, NR, CT>(win, x, pr.rs, a.m, a.k, a.group, x0, xn, threadIdx.x);
+          bar_sync(XBAR, CT);
+        }
+        if (PAIRS > 1 && i % PAIRS != pair) continue;  // the other pair's unit
+        float4 gv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // grouped: the step's gs, loaded early
+        if (FN == kGrouped && col < pr.n)
+          gv = __ldg(reinterpret_cast<const float4*>(pr.gs + static_cast<long long>(step) * pr.n + col));
+        const int sg = i % stages;
+        mbar_wait(full + 8 * sg, (i / stages) & 1);
+        uint32_t hw[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) unit_halfwords(smem + sg * UNIT, kk, chunk, g, t, hw[kk]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * sg);  // this warp's loads of the stage are done
+        if constexpr (FN == kGrouped) {  // a new group
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int i2 = 0; i2 < NT; ++i2)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[j][i2][e] = 0.0f;
+        }
+        // x's B fragments of depths 16 kk + 2t, + 1 and + 8, + 9 of row 8 i +
+        // g: word t of 16-byte chunks 2 (kk % 4) and + 1 of the row's 64
+        // depths, XOR-swizzled by g (32 banks)
+        const uint8_t* xw = win + ((step - x0) * 2) * NR * 128 + 4 * t;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t af[2][4];
+          words_to_fragments<2>(hw[kk], af);
+          const int c0 = 2 * (kk & 3);
+#pragma unroll
+          for (int i2 = 0; i2 < NT; ++i2) {
+            const uint8_t* xr = xw + (kk >> 2) * NR * 128 + (8 * i2 + g) * 128;
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr + ((c0 ^ g) << 4));
+            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + (((c0 + 1) ^ g) << 4));
+#pragma unroll
+            for (int j = 0; j < 2; ++j) mma16816(acc[j][i2], af[j], b0, b1);
+          }
+        }
+        if constexpr (FN == kGrouped) {  // the step's group: round, scale by gs, add
+          const float gj[2][2] = {{gv.x, gv.y}, {gv.z, gv.w}};
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int i2 = 0; i2 < NT; ++i2)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                tot[j][i2][e] = __fadd_rn(tot[j][i2][e],
+                                          __fmul_rn(bf16_round(acc[j][i2][e]), gj[j][e >> 1]));
+        }
+      }
+      float(&val)[2][NT][4] = FN == kGrouped ? tot : acc;
+      const bool whole = u == t0 && pe == t0 + sh.steps;
+      const int slot = u == u0 ? 0 : 1;
+      u = pe;
+      if constexpr (PAIRS > 1) {  // the pairs' sums, added in pair order
+        if (pair == 1) put_sums<NT>(pair_sums, val, tid);
+        bar_sync(XBAR, CT);
+        if (pair == 0) {
+#pragma unroll
+          for (int q = 0; q < 2 * NT; ++q) add_sums<NT>(val, pair_sums[q * CONSUMERS + tid], q);
+        }
+        bar_sync(XBAR, CT);
+        if (pair == 1) continue;
+      }
+      if (whole) {
+        store_tile<FN, NR>(val, pr, a.m, col, t);
+      } else if (cluster > 1) {  // one piece a block: the cluster adds them below
+        put_sums<NT>(reinterpret_cast<float4*>(smem), val, tid);
+      } else {
+        const int b0 = sh.block_of(t0), b1 = sh.block_of(t0 + sh.steps - 1);
+        put_sums<NT>(reinterpret_cast<float4*>(ws) +
+                         static_cast<long long>(blockIdx.x * 2 + slot) * (NR / 4) * CONSUMERS, val, tid);
+        __threadfence();
+        bar_sync(EBAR, CONSUMERS);
+        if (tid == 0) {
+          const int seen = atomicAdd(counters + tile, 1);
+          const int done = seen == b1 - b0;
+          if (done) counters[tile] = 0;  // ready for the next launch
+          last[slot] = done;
+        }
+        bar_sync(EBAR, CONSUMERS);
+        if (last[slot]) {  // every piece is written: add them in block order
+          __threadfence();
+          float sum[2][NT][4];
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int i2 = 0; i2 < NT; ++i2)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sum[j][i2][e] = 0.0f;
+          // B pieces' loads in flight before their adds (at 8 rows; more rows
+          // leave no registers for them)
+          constexpr int B = NT == 1 ? 4 : 1;
+          for (int b = b0; b <= b1; b += B) {
+            float4 f[B][2 * NT];
+#pragma unroll
+            for (int r = 0; r < B; ++r) {
+              const int bb = min(b + r, b1);
+              const float4* p = reinterpret_cast<const float4*>(ws) +
+                                static_cast<long long>(bb * 2 + (sh.start(bb) >= t0 ? 0 : 1)) *
+                                    (NR / 4) * CONSUMERS + tid;
+#pragma unroll
+              for (int q = 0; q < 2 * NT; ++q) f[r][q] = __ldcg(p + q * CONSUMERS);
+            }
+#pragma unroll
+            for (int r = 0; r < B; ++r)
+              if (b + r <= b1) {
+#pragma unroll
+                for (int q = 0; q < 2 * NT; ++q) add_sums<NT>(sum, f[r][q], q);
+              }
+          }
+          store_tile<FN, NR>(sum, pr, a.m, col, t);
+        }
+      }
+    }
+  }
+  if (cluster > 1) {  // block z of a tile's cluster adds its slice of the pieces in block order
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();  // every piece is in its block's shared memory
+    const int owners = CONSUMERS / cluster, z = static_cast<int>(cl.block_rank());
+    if (static_cast<int>(threadIdx.x) < owners) {
+      const int owner = z * owners + threadIdx.x, tile = blockIdx.x / cluster;
+      int pi;
+      const Product pr = pick(a, tile, pi);
+      float sum[2][NT][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i2 = 0; i2 < NT; ++i2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[j][i2][e] = 0.0f;
+      for (int r = 0; r < cluster; ++r) {
+        const float4* p = reinterpret_cast<const float4*>(cl.map_shared_rank(smem, r)) + owner;
+#pragma unroll
+        for (int q = 0; q < 2 * NT; ++q) add_sums<NT>(sum, p[q * CONSUMERS], q);
+      }
+      store_tile<FN, NR>(sum, pr, a.m, (tile - pr.tile0) * BN + thread_col(owner), owner & 3);
+    }
+    cl.sync();  // no block leaves while the others read its shared memory
+  }
+}
+
+template <int FN, int NR>
+cudaError_t launch_nr(const Args& a, const CUtensorMap (&maps)[MAX_PRODUCTS], int grid,
+                      int stages, int xsteps, int cluster, float* ws, int* counters,
+                      cudaStream_t stream) {
+  const int smem = Layout{stages, xsteps, NR}.alloc();
+  auto kernel = mm4_stream<FN, NR>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster > 8)  // clusters of up to 16 are not portable but run on Hopper
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(Team<NR>::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cluster > 1) {  // a cluster a tile only if every tile's cluster runs at once
+    int fit = 0;
+    err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (fit * cluster < grid) cluster = attr[0].val.clusterDim.x = 1;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, a, maps[0], maps[1], maps[2], stages, xsteps, cluster,
+                           ws, counters);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// a TMA map of each weight's [K, N/2] nibbles, boxes of one unit
+template <int FN>
+cudaError_t launch(const Args& a, int rows, int grid, int stages, int xsteps, int cluster,
+                   float* ws, int* counters, cudaStream_t stream) {
+  CUtensorMap maps[MAX_PRODUCTS];
+  for (int i = 0; i < a.count; ++i)
+    if (!tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.p[i].qp, a.k, a.p[i].n / 2, BK,
+                    BN / 2, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B))
+      return cudaErrorInvalidValue;
+  for (int i = a.count; i < MAX_PRODUCTS; ++i) maps[i] = maps[0];
+  switch (rows) {
+    case 8: return launch_nr<FN, 8>(a, maps, grid, stages, xsteps, cluster, ws, counters, stream);
+    case 16: return launch_nr<FN, 16>(a, maps, grid, stages, xsteps, cluster, ws, counters, stream);
+    case 32: return launch_nr<FN, 32>(a, maps, grid, stages, xsteps, cluster, ws, counters, stream);
+    case 40: return launch_nr<FN, 40>(a, maps, grid, stages, xsteps, cluster, ws, counters, stream);
+    case 64: return launch_nr<FN, 64>(a, maps, grid, stages, xsteps, cluster, ws, counters, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace st
+
 #if IN_PART(1)
 cudaError_t small_rank1(const Args& a, bool aligned, int bm, int bn, int splits,
                         cudaStream_t st) {
   return launch_small<kRank1>(a, aligned, bm, bn, splits, st);
+}
+cudaError_t stream_rank1(const Args& a, int rows, int grid, int stages, int xsteps, int cluster,
+                         float* ws, int* counters, cudaStream_t stream) {
+  return st::launch<kRank1>(a, rows, grid, stages, xsteps, cluster, ws, counters, stream);
 }
 #endif
 #if IN_PART(2)
 cudaError_t small_grouped(const Args& a, bool aligned, int bm, int bn, int splits,
                           cudaStream_t st) {
   return launch_small<kGrouped>(a, aligned, bm, bn, splits, st);
+}
+cudaError_t stream_grouped(const Args& a, int rows, int grid, int stages, int xsteps,
+                           int cluster, float* ws, int* counters, cudaStream_t stream) {
+  return st::launch<kGrouped>(a, rows, grid, stages, xsteps, cluster, ws, counters, stream);
 }
 #endif
 
@@ -623,12 +1137,15 @@ cudaError_t small_channel(const Args& a, bool aligned, int bm, int bn, int split
                           cudaStream_t st) {
   return launch_small<kChannel>(a, aligned, bm, bn, splits, st);
 }
+#endif  // IN_PART(0)
+
+#if IN_PART(3)
 
 // ---------------------------------------------------------------- wgmma
 
 namespace wg {
 
-constexpr int BM = 128;             // output rows per tile: two warpgroups of 64
+constexpr int BM = WG_BM;           // output rows per tile: two warpgroups of 64
 constexpr int BK = 64;              // depth per step: one 128-byte bf16 row
 constexpr int STAGES = 4;           // TMA ring of x and nibble tiles
 constexpr int WIDE = 2;             // ring of widened bf16 weight tiles
@@ -706,14 +1223,17 @@ mm4_fold(const uint4* __restrict__ x, const float* __restrict__ rs, uint4* __res
   if (c < chunks) xs[c] = scale8(x[c], __ldg(rs + (c * 8 % k) / group));
 }
 
-// Persistent warp-specialised kernel (matmul_int8.cu's) over xs: block b
-// takes tiles b, b + grid, ... of 128 x BN outputs, tile t at rows (t /
-// tiles_n) * 128 and columns (t % tiles_n) * BN; every role walks the same
-// steps g.
-template <int BN>
+// Persistent warp-specialised kernel (matmul_int8.cu's) over xs (rank-1)
+// or x (grouped): block b takes tiles b, b + grid, ... of 128 x BN outputs,
+// tile t at rows (t / tiles_n) * 128 and columns (t % tiles_n) * BN; every
+// role walks the same steps g. sc: rank-1's column scales s [N], grouped's
+// gs [K / 128, N], whose group of 128 is two steps: its sums start afresh
+// at the group's first step and close after its second (round to bf16,
+// scale by gs, add in f32).
+template <int BN, int FN>
 __global__ void __launch_bounds__(THREADS, 1)
 mm4_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
-          const float* __restrict__ s, __nv_bfloat16* __restrict__ out, long long m, int n,
+          const float* __restrict__ sc, __nv_bfloat16* __restrict__ out, long long m, int n,
           int k) {
   using L = Smem<BN>;
   extern __shared__ uint8_t smem_raw[];
@@ -777,7 +1297,8 @@ mm4_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
         mbar_arrive(wempty + 8 * static_cast<int>(g % WIDE));
       }
     };
-    float acc[BN / 2];
+    constexpr bool GROUPED = FN == kGrouped;
+    float acc[BN / 2], tot[GROUPED ? BN / 2 : 1];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
     if (total > 0) widen(0);
@@ -785,7 +1306,8 @@ mm4_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
     for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
       const long long m0 = t / tiles_n * BM;
       const int n0 = static_cast<int>(t % tiles_n) * BN;
-      for (int st = 0; st < steps; ++st, ++g) {
+      // step st of the tile; fresh: its sums start from zero
+      auto step = [&](int st, bool fresh) {
         const int sg = static_cast<int>(g % STAGES), wg_ = static_cast<int>(g % WIDE);
         mbar_wait(wfull + 8 * wg_, (g / WIDE) & 1);  // its x landed before it was widened
         const uint32_t xa = base + L::X_OFF + sg * L::X + cgi * 64 * 128;
@@ -794,13 +1316,39 @@ mm4_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
           wgmma_bf16_ss(Int<BN>{}, acc, desc_sw128(xa + kk * 32), desc_sw128(wa + kk * 32),
-                        st > 0 || kk > 0);
+                        !fresh || kk > 0);
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         // keep this step in flight; the previous one has finished reading
         asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
         if (st > 0) release(g - 1);
         // the next step's weights, widened while this step's products run
         if (g + 1 < total) widen(g + 1);
+        ++g;
+      };
+      if constexpr (GROUPED) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) tot[i] = 0.0f;
+        const int c2 = 2 * (lane & 3);
+        for (int st = 0; st < steps; st += 2) {  // a group: two steps of 64
+          step(st, true);
+          step(st + 1, false);
+          asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) fence_acc(acc[i]);
+          // acc[4 j + 2 h + c] is column n0 + 8 j + c2 + c
+          const float* grow = sc + static_cast<long long>(st / 2) * n + n0 + c2;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const float2 gv = n0 + 8 * j + c2 < n ? __ldg(reinterpret_cast<const float2*>(grow + 8 * j))
+                                                  : make_float2(0.0f, 0.0f);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              tot[4 * j + e] = __fadd_rn(tot[4 * j + e],
+                                         __fmul_rn(bf16_round(acc[4 * j + e]), e & 1 ? gv.y : gv.x));
+          }
+        }
+      } else {
+        for (int st = 0; st < steps; ++st) step(st, st == 0);
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 #pragma unroll
@@ -816,12 +1364,14 @@ mm4_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
 #pragma unroll
       for (int jg = 0; jg < BN / 32; ++jg) {
         const int col = n0 + 32 * jg + 8 * c4;
-        float sc[4][2];
+        float cs[4][2] = {};
+        if constexpr (!GROUPED) {
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int cc = n0 + 8 * (4 * jg + jj) + 2 * c4;
-          sc[jj][0] = cc < n ? __ldg(s + cc) : 0.0f;
-          sc[jj][1] = cc + 1 < n ? __ldg(s + cc + 1) : 0.0f;
+          for (int jj = 0; jj < 4; ++jj) {
+            const int cc = n0 + 8 * (4 * jg + jj) + 2 * c4;
+            cs[jj][0] = cc < n ? __ldg(sc + cc) : 0.0f;
+            cs[jj][1] = cc + 1 < n ? __ldg(sc + cc + 1) : 0.0f;
+          }
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -830,8 +1380,13 @@ mm4_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
           for (int jj = 0; jj < 4; ++jj) {
             const int j = 4 * jg + jj;
             __nv_bfloat162 v;
-            v.x = bf16_scale(acc[4 * j + 2 * h], sc[jj][0]);
-            v.y = bf16_scale(acc[4 * j + 2 * h + 1], sc[jj][1]);
+            if constexpr (GROUPED) {
+              v.x = __float2bfloat16_rn(tot[4 * j + 2 * h]);
+              v.y = __float2bfloat16_rn(tot[4 * j + 2 * h + 1]);
+            } else {
+              v.x = bf16_scale(acc[4 * j + 2 * h], cs[jj][0]);
+              v.y = bf16_scale(acc[4 * j + 2 * h + 1], cs[jj][1]);
+            }
             w[jj] = *reinterpret_cast<uint32_t*>(&v);
           }
 #pragma unroll
@@ -862,29 +1417,48 @@ mm4_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
   }
 }
 
-template <int BN>
+template <int BN, int FN>
 cudaError_t launch_wgmma(const Args& a, void* xs, int grid, cudaStream_t stream) {
-  const long long chunks = a.m * a.k / 8;
   const Product& pr = a.p[0];
-  mm4_fold<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, stream>>>(
-      static_cast<const uint4*>(a.x), pr.rs, static_cast<uint4*>(xs), chunks, a.k, a.group);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const void* xt = a.x;
+  cudaError_t err = cudaSuccess;
+  if constexpr (FN == kRank1) {
+    const long long chunks = a.m * a.k / 8;
+    mm4_fold<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, stream>>>(
+        static_cast<const uint4*>(a.x), pr.rs, static_cast<uint4*>(xs), chunks, a.k, a.group);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    xt = xs;
+  }
   CUtensorMap xmap, qmap;
-  if (!tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xs, a.m, a.k, BM, BK,
+  if (!tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xt, a.m, a.k, BM, BK,
                   CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, pr.qp, a.k, pr.n / 2, BK, BN / 2,
                   CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
-  auto kernel = mm4_wgmma<BN>;
+  auto kernel = mm4_wgmma<BN, FN>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<BN>::ALLOC);
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, Smem<BN>::ALLOC, stream>>>(
-      xmap, qmap, pr.s, static_cast<__nv_bfloat16*>(pr.out), a.m, pr.n, a.k);
+      xmap, qmap, FN == kGrouped ? pr.gs : pr.s, static_cast<__nv_bfloat16*>(pr.out), a.m, pr.n,
+      a.k);
   return cudaGetLastError();
 }
 
 }  // namespace wg
+
+// rank-1: 128 x 256 or 128 x 128 tiles; grouped: 128 x 128 (its second sum
+// fits beside the first)
+cudaError_t wgmma_launch(const Args& a, int fn, int bn, void* xs, int grid, cudaStream_t stream) {
+  if (fn == kGrouped) return bn == 128 ? wg::launch_wgmma<128, kGrouped>(a, xs, grid, stream)
+                                       : cudaErrorInvalidValue;
+  if (bn == 256) return wg::launch_wgmma<256, kRank1>(a, xs, grid, stream);
+  if (bn == 128) return wg::launch_wgmma<128, kRank1>(a, xs, grid, stream);
+  return cudaErrorInvalidValue;
+}
+#endif  // IN_PART(3)
+
+#if IN_PART(0)
 
 // ------------------------------------------------------------------ f32
 
@@ -973,13 +1547,18 @@ namespace mm4 {
 // The checks and the launch of the C entry. mode 0: x bf16, out bf16;
 // mode 1: x f32, out f32. fn 0 rank-1, 1 grouped, 2 channel (qp [N, K/2];
 // else [K, N/2]). The plan, from ops/matmul.py::plan_matmul_int4: regime 0
-// wgmma (rank-1, one weight: bm 128, bn 128 or 256, grid persistent
-// blocks; x folded first into the scratch xs [M, K], two launches), 1
-// small-M, 2 tail (bm 8, 16 or 32, bn 64; K splits run as clusters of at
-// most 16), 3 f32 (one weight, 32 x 32 tiles). Refuses any other plan, and
-// operands the regime cannot read.
-int run(Args& a, void* xs, int mode, int fn, int regime, int bm, int bn, int splits, int grid,
-        cudaStream_t stream) {
+// wgmma (one weight, bm 128, grid persistent blocks: rank-1 bn 128 or 256,
+// x folded first into the scratch xs [M, K], two launches; grouped bn 128,
+// groups of 128), 1 small-M, 2 tail (bm 8, 16 or 32, bn 64; K splits run as
+// clusters of at most 16), 3 f32 (one weight, 32 x 32 tiles), 4 stream
+// (rank-1 or grouped with groups of 128, M <= bm, bm the row tile
+// st::rows_for(M), bn 256, grid persistent blocks of equal shares of the
+// units, splits 1 or the cluster of each column tile's pieces (grid =
+// tiles x splits), stages of the ring, xsteps of the x window in the
+// shared memory a block has; xs the partial sums' scratch, counters zeros
+// a tile). Refuses any other plan, and operands the regime cannot read.
+int run(Args& a, void* xs, int* counters, int mode, int fn, int regime, int bm, int bn,
+        int splits, int grid, int stages, int xsteps, cudaStream_t stream) {
   const long long m = a.m;
   const int k = a.k, group = a.group;
   if (m <= 0 || k <= 0 || fn < kRank1 || fn > kChannel || a.count < 1 ||
@@ -1016,14 +1595,35 @@ int run(Args& a, void* xs, int mode, int fn, int regime, int bm, int bn, int spl
   }
   if (mode != 0 || (fn != kChannel && group % 16 != 0)) return cudaErrorInvalidValue;
   if (regime == 0) {
-    const long long wg_tiles = (m + wg::BM - 1) / wg::BM * ((n + bn - 1) / bn);
-    if (fn != kRank1 || !aligned || bm != wg::BM || splits != 1 || grid < 1 ||
-        grid > wg_tiles || m >= (1ll << 31) || xs == nullptr ||
-        reinterpret_cast<uintptr_t>(xs) % 16 != 0)
+    const long long wg_tiles = (m + WG_BM - 1) / WG_BM * ((n + bn - 1) / bn);
+    const bool rank1 = fn == kRank1 && xs != nullptr && reinterpret_cast<uintptr_t>(xs) % 16 == 0;
+    const bool grouped = fn == kGrouped && group == 128 && bn == 128;
+    if (!(rank1 || grouped) || !aligned || bm != WG_BM || splits != 1 || grid < 1 ||
+        grid > wg_tiles || m >= (1ll << 31))
       return cudaErrorInvalidValue;
-    if (bn == 256) return wg::launch_wgmma<256>(a, xs, grid, stream);
-    if (bn == 128) return wg::launch_wgmma<128>(a, xs, grid, stream);
-    return cudaErrorInvalidValue;
+    return wgmma_launch(a, fn, bn, xs, grid, stream);
+  }
+  if (regime == 4) {
+    const int steps = (k + st::BK - 1) / st::BK;
+    int tiles4 = 0;
+    for (int i = 0; i < a.count; ++i) {
+      a.p[i].tile0 = tiles4;
+      tiles4 += (a.p[i].n + st::BN - 1) / st::BN;
+    }
+    // splits: the cluster of a split tile's pieces, one a block (shares of
+    // steps / splits units), or 1
+    const bool clustered = splits > 1 && splits <= 16 && grid == tiles4 * splits &&
+                           steps % splits == 0;
+    if (fn == kChannel || !aligned || (fn == kGrouped && group != st::BK) || m > 64 ||
+        bm != st::rows_for(m) || bn != st::BN || (splits != 1 && !clustered) || grid < 1 ||
+        static_cast<long long>(grid) > static_cast<long long>(tiles4) * steps ||
+        tiles4 > st::MAX_TILES || stages < 2 || stages > st::MAX_STAGES || xsteps < 1 ||
+        xsteps > steps || st::Layout{stages, xsteps, bm}.alloc() > st::SMEM_MAX ||
+        xs == nullptr || reinterpret_cast<uintptr_t>(xs) % 16 != 0 || counters == nullptr)
+      return cudaErrorInvalidValue;
+    float* ws = static_cast<float*>(xs);
+    return fn == kRank1 ? stream_rank1(a, bm, grid, stages, xsteps, splits, ws, counters, stream)
+                        : stream_grouped(a, bm, grid, stages, xsteps, splits, ws, counters, stream);
   }
   if ((regime != 1 && regime != 2) || (regime == 1 && !aligned) || bm <= 0 ||
       static_cast<long long>(grid) != static_cast<long long>(tiles) * ((m + bm - 1) / bm) * splits)
@@ -1037,13 +1637,15 @@ int run(Args& a, void* xs, int mode, int fn, int regime, int bm, int bn, int spl
 }  // namespace mm4
 
 // count weights (at most MAX_PRODUCTS) of one scheme times the same x: one
-// launch (two in the wgmma regime, which takes one weight). The arrays
-// hold count entries each (rs, s or gs by scheme; the others may be null).
+// launch (two in the rank-1 wgmma regime, which takes one weight). The
+// arrays hold count entries each (rs, s or gs by scheme; the others may be
+// null). xs: the rank-1 wgmma regime's folded x, the stream regime's
+// partial sums; counters: the stream regime's, a zero a column tile.
 extern "C" int matmul_int4(const void* x, const void* const* qps, const float* const* rss,
                            const float* const* ss, const float* const* gss, void* const* outs,
                            const int* ns, int count, void* xs, int mode, int fn, int regime,
                            long long m, int k, int group, int bm, int bn, int splits, int grid,
-                           void* stream_ptr) {
+                           int stages, int xsteps, void* counters, void* stream_ptr) {
   if (count < 1 || count > mm4::MAX_PRODUCTS || qps == nullptr || outs == nullptr ||
       ns == nullptr)
     return cudaErrorInvalidValue;
@@ -1056,7 +1658,7 @@ extern "C" int matmul_int4(const void* x, const void* const* qps, const float* c
   a.m = m;
   a.k = k;
   a.group = group;
-  return mm4::run(a, xs, mode, fn, regime, bm, bn, splits, grid,
-                  static_cast<cudaStream_t>(stream_ptr));
+  return mm4::run(a, xs, static_cast<int*>(counters), mode, fn, regime, bm, bn, splits, grid,
+                  stages, xsteps, static_cast<cudaStream_t>(stream_ptr));
 }
 #endif

@@ -16,8 +16,9 @@ tensors; there is no other switch.
 JAX ``_mm``'s rank-1 and grouped forms, and the tied head of an int4
 embedding) from the packed nibbles of ``ops/attention.py::pack_int4``:
 ``kernels/csrc/matmul_int4.cu`` reads them from device memory and widens
-them on chip, in the regime :func:`plan_matmul_int4` picks (wgmma for
-rank-1 at prefill, small-M at decode, tail where cp.async cannot copy the
+them on chip, in the regime :func:`plan_matmul_int4` picks (stream at
+decode and verify rows, wgmma for rank-1 at prefill and grouped from 65
+rows, small-M for the tied head, tail where cp.async cannot copy the
 operands). :func:`matmul_int4_plain`, which CPU tensors take, unpacks the
 weight first.
 """
@@ -34,7 +35,7 @@ from probing_rag_tpu_torch import kernels
 from probing_rag_tpu_torch.ops.attention import unpack_int4
 
 _MODES = {torch.bfloat16: 0, torch.float32: 1}
-REGIMES = ("wgmma", "small_m", "tail", "f32")
+REGIMES = ("wgmma", "small_m", "tail", "f32", "stream")
 _REGIME_CODE = {"wgmma": 0, "small_m": 1, "tail": 2, "f32": 0}
 # M above this takes the wgmma regime where TMA can describe the operands
 # and the product has at least WGMMA_MIN_TILES output tiles: with fewer,
@@ -67,6 +68,11 @@ class MatmulPlan:
     bk: int
     splits: int
     grid: int
+    # matmul_int4's stream regime: the ring's stages, the x window's steps
+    # and the launch's units (column tiles x depth steps)
+    stages: int = 0
+    xsteps: int = 0
+    units: int = 0
 
 
 # the plan of the last product launched on the card (read by chip_smoke.py)
@@ -199,11 +205,98 @@ def matmul_int8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
 
 INT4_SCHEMES = ("rank1", "grouped", "channel")
 _FN_CODE = {"rank1": 0, "grouped": 1, "channel": 2}
-_REGIME4_CODE = {"wgmma": 0, "small_m": 1, "tail": 2, "f32": 3}
+_REGIME4_CODE = {"wgmma": 0, "small_m": 1, "tail": 2, "f32": 3, "stream": 4}
 # matmul_int4.cu's small-M regime: 64-column tiles of 8, 16 or 32 rows
 # (more rows take more tiles), steps 128 deep (grouped: whole groups, at
 # most 128), each block's warps taking its steps in turn
 _BN4, _BK4 = 64, 128
+# its stream regime (namespace st): units of 256 columns x 128 depths (16
+# KB of nibbles; grouped: one group of 128), one row tile of STREAM_ROWS, a
+# ring of STREAM_STAGES units (fewer where the x window needs the room, at
+# least STREAM_MIN_STAGES), STREAM_BLOCKS_PER_SM persistent blocks a SM, a
+# counter per column tile (at most STREAM_MAX_TILES a launch). A column
+# tile split into at most STREAM_MAX_CLUSTER equal pieces is finished by a
+# cluster of their blocks (clusters of 16 such blocks, a SM each, did not
+# run at once on an H100: their tiles took the scratch's time); one split
+# further goes through the scratch, whose round trips cost ~3 us. At 8
+# rows, shares of at most STREAM_MIN_SCRATCH_SHARE units take the small-M
+# regime where it was faster on an H100: grouped, and rank-1 that would
+# need the scratch (a decode step's wo and grouped wq + wk + wv); at 40
+# rows that regime reads each weight twice
+STREAM_ROWS = (8, 16, 32, 40, 64)
+_ST_BN, _ST_BK, _ST_UNIT = 256, 128, 128 * 128
+STREAM_STAGES, STREAM_MIN_STAGES = 8, 4
+STREAM_BLOCKS_PER_SM, STREAM_MAX_TILES = 1, 4096
+STREAM_MAX_CLUSTER, STREAM_MIN_SCRATCH_SHARE = 8, 2
+_SMEM_MAX = 232448  # a block's dynamic shared memory on Hopper
+
+
+def stream_smem(stages: int, xsteps: int, rows: int) -> int:
+    """Dynamic shared memory of a stream block (``st::Layout::alloc``): the
+    ring, the x window of ``xsteps`` steps of 128 depths x ``rows`` bf16
+    rows, two barriers a stage, two flags (16 bytes), at 8 rows the second
+    pair of consumer warpgroups' sums (256 threads x 8 f32), and 1,024
+    bytes to align the base."""
+    pairs = rows * 256 * 4 if rows == 8 else 0
+    return stages * (_ST_UNIT + 16) + xsteps * rows * _ST_BK * 2 + 16 + pairs + 1024
+
+
+def stream_schedule(plan: MatmulPlan):
+    """The blocks' shares of a stream plan's units (``st::Shares``): block
+    b takes units ``[start(b), start(b + 1))``, unit ``T * steps + s``
+    step s of column tile T; the first ``units % grid`` blocks one unit
+    more. Returns ``start``, a list of grid + 1 unit indices."""
+    per, rem = divmod(plan.units, plan.grid)
+    return [b * per + min(b, rem) for b in range(plan.grid + 1)]
+
+
+def _stream_grid(units: int, steps: int, blocks: int) -> int:
+    """Persistent blocks for ``units`` (``steps`` a column tile) on at most
+    ``blocks``: where a share no longer than the fewest possible divides
+    the units and either divides a tile's steps or is whole tiles, that
+    many blocks, so that no share straddles two tiles (one x window a
+    block; whole tiles need no fixup); else ``min(units, blocks)``."""
+    least = math.ceil(units / blocks)
+    for share in range(least, 2 * least):
+        if units % share == 0 and (steps % share == 0 or share % steps == 0):
+            return units // share if share == least else min(units, blocks)
+    return min(units, blocks)
+
+
+def _plan_stream(m: int, ns, k: int, sm_count: int) -> MatmulPlan:
+    """The stream plan: the smallest row tile that holds M; one block a SM
+    (``STREAM_BLOCKS_PER_SM``) up to the units, tile-aligned where that
+    costs no unit a block (``_stream_grid``); an x window as deep as the
+    longest share (the whole K if a share may span it), each depth loaded
+    once a piece; the deepest ring that the window leaves room for, at most
+    ``STREAM_STAGES``, else ``STREAM_MIN_STAGES`` and a shallower window;
+    where a tile splits into equal pieces, one a block, of at most
+    ``STREAM_MAX_CLUSTER``, ``splits`` is the cluster they form."""
+    rows = next(r for r in STREAM_ROWS if r >= m)
+    steps = math.ceil(k / _ST_BK)
+    units = sum(math.ceil(w / _ST_BN) for w in ns) * steps
+    grid = _stream_grid(units, steps, sm_count * STREAM_BLOCKS_PER_SM)
+    xsteps = min(steps, math.ceil(units / grid))
+    room = _SMEM_MAX - stream_smem(0, xsteps, rows)
+    stages = min(STREAM_STAGES, room // (_ST_UNIT + 16))
+    if stages < STREAM_MIN_STAGES:
+        stages = STREAM_MIN_STAGES
+        xsteps = (_SMEM_MAX - stream_smem(stages, 0, rows)) // (rows * _ST_BK * 2)
+    # a column tile split over blocks in equal pieces, one a block (grid =
+    # tiles x pieces): its pieces form a cluster that adds them through
+    # distributed shared memory
+    share = units // grid
+    pieces = steps // share if units % grid == 0 and steps % share == 0 else 1
+    cluster = pieces if 2 <= pieces <= STREAM_MAX_CLUSTER else 1
+    return MatmulPlan("stream", m, sum(ns), k, rows, _ST_BN, _ST_BK, cluster, grid,
+                      stages=stages, xsteps=xsteps, units=units)
+
+
+def stream_scratch_fixup(plan: MatmulPlan) -> bool:
+    """Whether a stream plan finishes split column tiles through the scratch
+    and counters (no cluster holds their pieces)."""
+    share, ragged = divmod(plan.units, plan.grid)
+    return plan.splits == 1 and bool(ragged or share % math.ceil(plan.k / _ST_BK))
 
 
 def int4_tma_describable(n: int, k: int, x_ptr: int = 0, q_ptr: int = 0) -> bool:
@@ -228,7 +321,17 @@ def plan_matmul_int4(m: int, n, k: int, *, scheme: str, group: int = 0,
     - ``wgmma`` for rank-1 at M > ``WGMMA_MIN_M`` where
       :func:`int4_tma_describable` and the product has ``WGMMA_MIN_TILES``
       tiles or more: 128 x 256 tiles (128 x 128 for N <= 128), one
-      persistent block per SM up to the tile count;
+      persistent block per SM up to the tile count; and for grouped (one
+      weight, groups of 128) at M > ``WGMMA_MIN_M`` where TMA can describe
+      it and there are ``WGMMA_MIN_TILES`` tiles or more: 128 x 128 tiles,
+      so a weight is read ceil(M / 128) times;
+    - ``stream`` for rank-1 and grouped (groups of 128) at up to
+      ``WGMMA_MIN_M`` rows where TMA can describe every weight (and gs is
+      16-byte aligned), at most ``STREAM_MAX_TILES`` column tiles:
+      :func:`_plan_stream`, unless at 8 rows its shares are of at most
+      ``STREAM_MIN_SCRATCH_SHARE`` units and the scheme is grouped or the
+      plan's split tiles need the scratch (a decode step's wo, and its
+      grouped wq + wk + wv);
     - ``small_m`` for the other products whose packed rows are whole
       16-byte pieces (N % 32, or K % 32 for the channel scheme's ``[N,
       K/2]``) with K % 8 and aligned bases: tiles of 64 columns and 8, 16
@@ -250,6 +353,17 @@ def plan_matmul_int4(m: int, n, k: int, *, scheme: str, group: int = 0,
         tiles = math.ceil(m / _WG_BM) * math.ceil(n / bn)
         if tiles >= WGMMA_MIN_TILES:
             return MatmulPlan("wgmma", m, n, k, _WG_BM, bn, _WG_BK, 1, min(tiles, sm_count))
+    tma = (all(int4_tma_describable(w, k, x_ptr, q_ptr) for w in ns) and gs_ptr % 16 == 0
+           and (scheme == "rank1" or (scheme == "grouped" and group == _ST_BK)))
+    if tma and scheme == "grouped" and len(ns) == 1 and m > WGMMA_MIN_M:
+        tiles = math.ceil(m / _WG_BM) * math.ceil(n / _WG_BM)
+        if tiles >= WGMMA_MIN_TILES:
+            return MatmulPlan("wgmma", m, n, k, _WG_BM, _WG_BM, _WG_BK, 1, min(tiles, sm_count))
+    if tma and m <= WGMMA_MIN_M and sum(math.ceil(w / _ST_BN) for w in ns) <= STREAM_MAX_TILES:
+        plan = _plan_stream(m, ns, k, sm_count)
+        short = plan.bm == 8 and plan.units // plan.grid <= STREAM_MIN_SCRATCH_SHARE
+        if not (short and (scheme == "grouped" or stream_scratch_fixup(plan))):
+            return plan
     rows_aligned = all((k if channel else w) // 2 % 16 == 0 for w in ns)
     aligned = (k % 8 == 0 and rows_aligned and x_ptr % 16 == 0 and q_ptr % 16 == 0
                and gs_ptr % 16 == 0)
@@ -350,6 +464,26 @@ def int4_grouped_tolerance(x: torch.Tensor, qp: torch.Tensor, gs: torch.Tensor) 
 # the most weights that share x in one launch (matmul_int4.cu's
 # MAX_PRODUCTS)
 MAX_SHARED = 3
+# the stream regime's column-tile counters on each device: zeros that every
+# launch leaves at zero (the block that finishes a split tile resets its
+# counter), so consecutive launches on a stream share them
+_TILE_COUNTERS: dict = {}
+
+
+def _tile_counters(dev: torch.device) -> torch.Tensor:
+    """The stream regime's ``STREAM_MAX_TILES`` counters on ``dev``, made
+    at the first stream launch there. A CUDA graph capture records a fill
+    without running it, so they must exist before any capture: the
+    captured steps' warm-up runs every product eagerly first."""
+    buf = _TILE_COUNTERS.get(dev)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("matmul_int4: the stream regime's tile counters are made outside "
+                               "a CUDA graph capture; run the product once before capturing it")
+        buf = _TILE_COUNTERS[dev] = torch.zeros(STREAM_MAX_TILES, dtype=torch.int32, device=dev)
+    return buf
+
+
 # each scheme's scales in a weight's leaf, beside its "qp"
 _SCALES4 = {"rank1": ("rs", "s"), "grouped": ("gs",), "channel": ("s",)}
 
@@ -378,8 +512,8 @@ def matmul_int4(x: torch.Tensor, w, *, dt: torch.dtype, scheme: str,
     in ``dt``, contiguous operands and, in bf16, a group that is a multiple
     of 16 (grouped: at most 128). Weights that share ``x`` take one launch
     for each ``MAX_SHARED`` of them in bf16 at up to ``WGMMA_MIN_M`` rows
-    (the small-M regime: fewer launches, one load latency for the small
-    products), otherwise one launch a weight."""
+    (the stream or small-M regime: fewer launches, one load latency for
+    the small products), otherwise one launch a weight."""
     many = isinstance(w, (list, tuple))
     ws = list(w) if many else [w]
     if many and (scheme == "channel" or not ws):
@@ -432,8 +566,15 @@ def _launch_int4(x, ws, ns, *, dt, scheme, k, group) -> list:
     plan = plan_matmul_int4(m, tuple(ns), k, scheme=scheme, group=group, dt=dt,
                             sm_count=kernels.sm_count(dev), x_ptr=x.data_ptr(), q_ptr=q_or,
                             gs_ptr=gs_or)
-    # the wgmma regime first folds rs into a copy of x (an activation)
-    xs = torch.empty_like(x) if plan.regime == "wgmma" else None
+    # rank-1's wgmma regime first folds rs into a copy of x (an activation);
+    # the stream regime writes the partial sums of split column tiles, two
+    # slots of rows x 256 f32 a block, and counts their pieces
+    xs = counters = None
+    if plan.regime == "wgmma" and scheme == "rank1":
+        xs = torch.empty_like(x)
+    elif plan.regime == "stream":
+        xs = torch.empty(plan.grid * 2 * plan.bm * _ST_BN, dtype=torch.float32, device=dev)
+        counters = _tile_counters(dev)
     count = len(ws)
     arr = lambda ts: (ctypes.c_void_p * count)(*[t.data_ptr() for t in ts])  # noqa: E731
     col = lambda key: arr([v[key] for v in ws]) if key in _SCALES4[scheme] else None  # noqa: E731
@@ -445,7 +586,8 @@ def _launch_int4(x, ws, ns, *, dt, scheme, k, group) -> list:
                 arr(outs), (ctypes.c_int * count)(*ns), count,
                 None if xs is None else xs.data_ptr(), _MODES[dt], _FN_CODE[scheme],
                 _REGIME4_CODE[plan.regime], m, k, group, plan.bm, plan.bn, plan.splits,
-                plan.grid, kernels.stream_ptr(dev),
+                plan.grid, plan.stages, plan.xsteps,
+                None if counters is None else counters.data_ptr(), kernels.stream_ptr(dev),
             ),
             "matmul_int4",
         )

@@ -16,10 +16,14 @@ scaled, and the final rounding).
 
 The kernel cannot run here; what it computes can: its nibble widening
 (the byte permutes and the bf16 fma, carried out on the bits) into the
-small-M regime's mma fragments and into the wgmma regime's swizzled tile,
-each weight held once at its value; the rank-1 fold of ``rs`` into x; and
-the grouped order (16-deep products summed per group, rounded, scaled,
-the warps of a block and the splits of the plan summed in order)."""
+small-M regime's mma fragments, the stream regime's wgmma A fragments and
+the wgmma regime's swizzled tile, each weight held once at its value; the
+stream regime's persistent schedule (every unit once, pieces of a column
+tile finished in block order), its shared-memory layouts (TMA's 128-byte
+swizzle of a unit, the x window as wgmma reads it) free of bank
+conflicts; the rank-1 fold of ``rs`` into x; and each regime's order of
+sums (16-deep products summed per group or piece, rounded, scaled, the
+warps, splits or pieces of the plan summed in order)."""
 
 import functools
 import math
@@ -34,8 +38,9 @@ from probing_rag_tpu_torch import kernels
 from probing_rag_tpu_torch.models import gemma as tg
 from probing_rag_tpu_torch.ops.attention import pack_int4, unpack_int4
 from probing_rag_tpu_torch.ops.matmul import (
-    INT4_SCHEMES, MAX_SHARED, MAX_SPLITS, WGMMA_MIN_M, int4_grouped_tolerance, matmul_int4,
-    matmul_int4_plain, plan_matmul_int4,
+    INT4_SCHEMES, MAX_SHARED, MAX_SPLITS, STREAM_MAX_TILES, STREAM_ROWS, WGMMA_MIN_M,
+    int4_grouped_tolerance, matmul_int4, matmul_int4_plain, plan_matmul_int4, stream_schedule,
+    stream_scratch_fixup, stream_smem,
 )
 
 torch.set_num_threads(1)
@@ -355,41 +360,204 @@ def test_wgmma_widen_transposes_the_tile(bn):
     np.testing.assert_array_equal(widen_kn4(qp, bn), q.T.astype(np.float32))
 
 
-def emulate_rank1(x, qp, rs, s, group):
-    """The small-M and wgmma kernels' rank-1 arithmetic: x scaled by rs (one
-    scale per 16 depths) and rounded to bf16, the f32 product with the
-    widened weights, rounded, times the bf16 scale."""
+# ------------------------------------------------------- the stream regime
+
+ST_BN, ST_BK = 256, 128  # matmul_int4.cu's st::BN, st::BK
+
+
+def stream_tiles(ns):
+    """Each product's first column tile in a stream launch (256 columns a
+    tile, the products one after another), and the launch's tiles."""
+    tile0, total = [], 0
+    for n in ns:
+        tile0.append(total)
+        total += math.ceil(n / ST_BN)
+    return tile0, total
+
+
+def stream_block_of(plan, u):
+    """``st::Shares::block_of``: the block whose share holds unit u."""
+    per, rem = divmod(plan.units, plan.grid)
+    big = rem * (per + 1)
+    return u // (per + 1) if u < big else rem + (u - big) // per
+
+
+def stream_pieces(plan, ns):
+    """The stream schedule as the kernel's consumers walk it: each block's
+    pieces (the units of one column tile in its share) in order, as dicts
+    of block, tile, product, col0 (the tile's first column in its
+    product), steps [s0, s1), i0 (the block's units before the piece: the
+    ring position of its first) and slot (None for a whole tile, else the
+    scratch slot of its partial sums: 0 for the block's first piece, 1 for
+    its last)."""
+    start = stream_schedule(plan)
+    steps = math.ceil(plan.k / ST_BK)
+    tile0, _ = stream_tiles(ns)
+    for b in range(plan.grid):
+        u = start[b]
+        while u < start[b + 1]:
+            t = u // steps
+            t0 = t * steps
+            pe = min(start[b + 1], t0 + steps)
+            prod = max(i for i, f in enumerate(tile0) if t >= f)
+            whole = u == t0 and pe == t0 + steps
+            yield dict(block=b, tile=t, product=prod, col0=(t - tile0[prod]) * ST_BN, s0=u - t0,
+                       s1=pe - t0, i0=u - start[b],
+                       slot=None if whole else (0 if u == start[b] else 1))
+            u = pe
+
+
+def stream_windows(plan, pieces, scheme):
+    """The x windows each block loads, by the kernel's rule as it walks its
+    units: a step outside the window (rank-1: or a unit of another product,
+    whose rs folds into x) loads the whole K if ``xsteps`` holds it, else
+    ``xsteps`` steps from that one, at most to the piece's end. Returns
+    {block: [(product or None, x0, xn), ...]}."""
+    steps = math.ceil(plan.k / ST_BK)
+    out = {}
+    for pc in pieces:
+        wins = out.setdefault(pc["block"], [])
+        prod = pc["product"] if scheme == "rank1" else None
+        for s in range(pc["s0"], pc["s1"]):
+            if wins and wins[-1][0] == prod and wins[-1][1] <= s < wins[-1][1] + wins[-1][2]:
+                continue
+            whole = plan.xsteps >= steps
+            wins.append((prod, 0 if whole else s,
+                         steps if whole else min(plan.xsteps, pc["s1"] - s)))
+    return out
+
+
+def stream_sums(x, qs, plan, ns, scheme, gss=None):
+    """The stream kernel's f32 sums of each product in its order: a piece's
+    16-deep products summed in f32 (rank-1 over the piece; grouped closed
+    at each 128-deep group: rounded to bf16, times gs, added in f32), at 8
+    rows by two pairs of warpgroups that take the block's units in turn,
+    their sums added in pair order; a whole tile as it is, a split one the
+    sum of its pieces in block order from zero (in a cluster or through the
+    scratch alike). x [M, K] f32 (rank-1: folded), qs the products' [K, N]
+    f32, gss their gs."""
     m, k = x.shape
+    pairs = 2 if plan.bm == 8 else 1
+    outs = [np.zeros((m, n), np.float32) for n in ns]
+    parts = {}
+    for pc in stream_pieces(plan, ns):
+        p, c0 = pc["product"], pc["col0"]
+        c1 = min(ns[p], c0 + ST_BN)
+        q = qs[p][:, c0:c1]
+        val = None
+        for pair in range(pairs):
+            acc = np.zeros((m, c1 - c0), np.float32)
+            tot = np.zeros_like(acc)
+            for st in range(pc["s0"], pc["s1"]):
+                if (pc["i0"] + st - pc["s0"]) % pairs != pair:
+                    continue
+                if scheme == "grouped":
+                    acc = np.zeros_like(acc)
+                for c in range(st * ST_BK, min(k, (st + 1) * ST_BK), 16):
+                    acc = acc + x[:, c : c + 16] @ q[c : c + 16]
+                if scheme == "grouped":
+                    tot = tot + f32_to_bf16_f32(acc) * gss[p][st, c0:c1]
+            mine = tot if scheme == "grouped" else acc
+            val = mine if val is None else val + mine
+        if pc["slot"] is None:
+            outs[p][:, c0:c1] = val
+        else:
+            parts.setdefault(pc["tile"], []).append((pc["block"], p, c0, c1, val))
+    for pieces in parts.values():
+        total = np.zeros_like(pieces[0][4])
+        for _, p, c0, c1, val in sorted(pieces, key=lambda e: e[0]):  # block order
+            total = total + val
+        outs[p][:, c0:c1] = total
+    return outs
+
+
+def fold_rs(x, rs, group):
+    """xs = dt(f32(x) * rs[k // group]) in bf16, as f32: rank-1's fold."""
     xb = x.float().numpy()
     rsn = rs.reshape(-1).numpy()
     xs = np.empty_like(xb)
-    for c in range(0, k, 16):
+    for c in range(0, xb.shape[1], 16):
         xs[:, c : c + 16] = f32_to_bf16_f32(xb[:, c : c + 16] * rsn[c // group])
+    return xs
+
+
+def emulate_rank1(x, qp, rs, s, group, plan=None):
+    """The kernels' rank-1 arithmetic: x scaled by rs (one scale per 16
+    depths) and rounded to bf16, the f32 product with the widened weights
+    (in the stream plan's order for a stream ``plan``, else as the plain
+    version sums it), rounded, times the bf16 scale."""
+    xs = fold_rs(x, rs, group)
     q = unpack_int4(qp).float()
-    acc = torch.from_numpy(xs) @ q  # the plain version's f32 product
+    if plan is not None and plan.regime == "stream":
+        acc = torch.from_numpy(stream_sums(xs, [q.numpy()], plan, [q.shape[1]], "rank1")[0])
+    else:
+        acc = torch.from_numpy(xs) @ q  # the plain version's f32 product
     return acc.to(torch.bfloat16) * s.reshape(1, -1).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("m,k,n,group", [(8, 256, 160, 64), (40, 128, 64, 32), (3, 384, 96, 128)])
-def test_rank1_emulation_is_bit_equal(m, k, n, group):
+@pytest.mark.parametrize("sm_count", [132, 7])
+@pytest.mark.parametrize("m,k,n,group", [(8, 256, 160, 64), (40, 128, 64, 32), (3, 384, 96, 128),
+                                         (40, 1024, 800, 64), (64, 640, 288, 32)])
+def test_rank1_emulation_is_bit_equal(m, k, n, group, sm_count):
+    """The stream plan's order (the consumer pairs' sums, pieces of split
+    tiles summed in block order) rounds as the plain version does at these
+    shapes, among them ones whose tiles the plan splits over blocks."""
     leaf, _, _, _ = leaves(k, n, group, "rank1", seed=m)
     x = torch.from_numpy(activations(m, k, seed=5)).to(torch.bfloat16)
     want = matmul_int4_plain(x, leaf["qp"], dt=torch.bfloat16, scheme="rank1", rs=leaf["rs"],
                              s=leaf["s"])
-    got = emulate_rank1(x, leaf["qp"], leaf["rs"], leaf["s"], group)
+    plan = plan_matmul_int4(m, n, k, scheme="rank1", group=group, sm_count=sm_count)
+    assert plan.regime == "stream"
+    got = emulate_rank1(x, leaf["qp"], leaf["rs"], leaf["s"], group, plan)
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("sm_count", [132, 7])
+def test_rank1_stream_order_flips_only_rare_roundings(sm_count):
+    """At [8 x 1024 -> 4096] (tiles split into 8 pieces at 132 SMs) the
+    stream order's f32 sums, another order than the plain version's, land
+    on the other side of a bf16 rounding for one output in 32,768: every
+    output equals the plain version's or lies one bf16 step from it, and
+    at most 2^-12 of them differ. The plain version's own order, emulated,
+    is bit-equal (the fold and the roundings are the kernel's)."""
+    m, k, n, group = 8, 1024, 4096, 128
+    leaf, _, _, _ = leaves(k, n, group, "rank1", seed=m)
+    x = torch.from_numpy(activations(m, k, seed=5)).to(torch.bfloat16)
+    want = matmul_int4_plain(x, leaf["qp"], dt=torch.bfloat16, scheme="rank1", rs=leaf["rs"],
+                             s=leaf["s"])
+    plan = plan_matmul_int4(m, n, k, scheme="rank1", group=group, sm_count=sm_count)
+    assert plan.regime == "stream"
+    assert torch.equal(emulate_rank1(x, leaf["qp"], leaf["rs"], leaf["s"], group), want)
+    got = emulate_rank1(x, leaf["qp"], leaf["rs"], leaf["s"], group, plan).float()
+    ref = want.float()
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2**-126))) - 7)  # one bf16 step
+    assert ((got - ref).abs() <= step).all()
+    assert int((got != ref).sum()) <= got.numel() // 4096
+
+
 def emulate_grouped(x, qp, gs, group, plan):
-    """The small-M kernel's grouped order under ``plan``: a warp's 16-deep
-    products summed in f32 into the group partial, which at the group's end
-    is rounded to bf16, scaled by gs and added to the warp's f32 sum; the
-    block's 4 warps take its steps in turn and their sums are added in
-    warp order; the splits are summed in split order; then the rounding."""
+    """A kernel's grouped order under ``plan``: 16-deep products summed in
+    f32 into the group partial, which at the group's end is rounded to
+    bf16, scaled by gs and added to an f32 sum. Stream: per piece, pieces
+    of a split tile added in block order (``stream_sums``). wgmma: per
+    tile over the whole K. Small-M: the block's 4 warps take its steps in
+    turn and their sums are added in warp order; the splits are summed in
+    split order. Then the rounding."""
     m, k = x.shape
     xb = x.float().numpy()
     q = unpack_int4(qp).numpy().astype(np.float32)
     gsn = gs.numpy()
+    if plan.regime == "stream":
+        got = stream_sums(xb, [q], plan, [q.shape[1]], "grouped", [gsn])[0]
+        return torch.from_numpy(got).to(torch.bfloat16)
+    if plan.regime == "wgmma":
+        total = np.zeros((m, q.shape[1]), np.float32)
+        for g0 in range(0, k, group):
+            part = np.zeros_like(total)
+            for c in range(g0, g0 + group, 16):
+                part = part + xb[:, c : c + 16] @ q[c : c + 16]
+            total = total + f32_to_bf16_f32(part) * gsn[g0 // group]
+        return torch.from_numpy(total).to(torch.bfloat16)
     steps = math.ceil(k / plan.bk)
     per = math.ceil(steps / plan.splits)
     total = np.zeros((m, q.shape[1]), np.float32)
@@ -410,17 +578,29 @@ def emulate_grouped(x, qp, gs, group, plan):
 
 
 @pytest.mark.parametrize("m,k,n,group", [(8, 512, 96, 128), (40, 256, 64, 64), (8, 2048, 32, 32),
-                                         (16, 1024, 64, 128), (8, 2304, 64, 96)])
+                                         (16, 1024, 64, 128), (8, 2304, 64, 96),
+                                         (8, 2048, 512, 128), (8, 1024, 4096, 128),
+                                         (40, 1024, 800, 128),
+                                         (64, 1536, 288, 128), (200, 512, 256, 128),
+                                         (1024, 384, 96, 128), (256, 256, 2048, 128)])
 def test_grouped_emulation_within_its_tolerance(m, k, n, group):
-    """The grouped order of the plan (K split over a cluster at these
-    shapes) within ``int4_grouped_tolerance`` of the plain version, and a
-    fault that must exceed it: the partials scaled by the next group's
+    """The grouped order of the plan (small-M: K split over a cluster;
+    stream: tiles split into pieces over blocks; wgmma from 65 rows)
+    within ``int4_grouped_tolerance`` of the plain version, and a fault
+    that must exceed it: the partials scaled by the next group's
     scales."""
     leaf, _, _, _ = leaves(k, n, group, "grouped", seed=k)
     x = torch.from_numpy(activations(m, k, seed=9)).to(torch.bfloat16)
     plan = plan_matmul_int4(m, n, k, scheme="grouped", group=group)
-    if k >= 2048:
+    tiles = math.ceil(m / 128) * math.ceil(n / 128)
+    if group != 128 or m > 64:  # wgmma from 65 rows where it has the tiles
+        assert plan.regime == ("wgmma" if group == 128 and tiles >= 32 else "small_m")
+    else:  # stream, or small-M for the shortest shares at 8 rows
+        assert plan.regime in ("stream", "small_m")
+    if k >= 2048 and plan.regime == "small_m":
         assert plan.splits > 1
+    if plan.regime == "stream" and k >= 1024:
+        assert any(pc["slot"] is not None for pc in stream_pieces(plan, [n]))
     want = matmul_int4_plain(x, leaf["qp"], dt=torch.bfloat16, scheme="grouped", gs=leaf["gs"])
     tol = int4_grouped_tolerance(x, leaf["qp"], leaf["gs"])
     got = emulate_grouped(x, leaf["qp"], leaf["gs"], group, plan)
@@ -438,24 +618,31 @@ PREFILL_M = 8 * 3712
 
 
 @pytest.mark.parametrize("m,k,n,scheme,x_ptr,q_ptr,regime", [
-    (8, 2048, 16384, "rank1", 0, 0, "small_m"),
-    (8, 16384, 2048, "grouped", 0, 0, "small_m"),
-    (40, 2048, 16384, "rank1", 0, 0, "small_m"),
-    (40, 2048, 16384, "grouped", 0, 0, "small_m"),
-    (WGMMA_MIN_M, 2048, 16384, "rank1", 0, 0, "small_m"),
+    (8, 2048, 16384, "rank1", 0, 0, "stream"),
+    (8, 16384, 2048, "grouped", 0, 0, "stream"),
+    (40, 2048, 16384, "rank1", 0, 0, "stream"),
+    (40, 2048, 16384, "grouped", 0, 0, "stream"),
+    (WGMMA_MIN_M, 2048, 16384, "rank1", 0, 0, "stream"),
     (WGMMA_MIN_M + 1, 2048, 16384, "rank1", 0, 0, "wgmma"),
     (WGMMA_MIN_M + 1, 2048, 2048, "rank1", 0, 0, "small_m"),     # 8 tiles
     (PREFILL_M, 2048, 16384, "rank1", 0, 0, "wgmma"),
     (PREFILL_M, 16384, 2048, "rank1", 0, 0, "wgmma"),
     (8 * 1536, 2048, 256, "rank1", 0, 0, "wgmma"),
-    (1024, 2048, 16384, "grouped", 0, 0, "small_m"),             # never wgmma
+    (1024, 2048, 16384, "grouped", 0, 0, "wgmma"),               # grouped 128 x 128 tiles
+    (WGMMA_MIN_M + 1, 2048, 256, "grouped", 0, 0, "small_m"),   # 2 tiles
+    (1024, 2048, 256, "grouped", 0, 0, "small_m"),               # 16 tiles
+    (512, 2048, 2048, "grouped", 0, 0, "wgmma"),                 # 64 tiles
+    (1024, 2048, 16384, "grouped", 8, 0, "tail"),                # unaligned x
     (8, 2048, 256000, "channel", 0, 0, "small_m"),
     (PREFILL_M, 2048, 256000, "channel", 0, 0, "small_m"),
     (PREFILL_M, 2048, 1000, "rank1", 0, 0, "tail"),              # N % 32
     (8, 2048, 2048, "rank1", 8, 0, "tail"),                      # unaligned x
     (8, 2048, 2048, "grouped", 0, 4, "tail"),
     (8, 200, 300, "channel", 0, 0, "tail"),                      # K % 32
-    (8, 2048, 2048, "grouped", 0, 0, "small_m"),
+    (8, 2048, 2048, "grouped", 0, 0, "small_m"),                 # wo: one-unit shares
+    (8, 1024, 4096, "rank1", 0, 0, "stream"),                    # clusters of 8
+    (8, 1024, 4096, "grouped", 0, 0, "small_m"),                 # grouped one-unit shares
+    (8, 16384, 4096, "grouped", 0, 0, "stream"),
     (8, 2048, 2048, "grouped", 0, 8, "tail"),                    # gs unaligned (q_ptr 8: gs_ptr)
 ])
 def test_plan_regime(m, k, n, scheme, x_ptr, q_ptr, regime):
@@ -472,7 +659,13 @@ def test_plan_regime(m, k, n, scheme, x_ptr, q_ptr, regime):
 def plan_blocks(plan):
     """Every block's work as the kernels index it: ``(block, row0, col0,
     k0, k1)`` for each output tile over depth ``[k0, k1)`` (as
-    ``tests/test_torch_matmul.py`` reads ``plan_matmul``'s)."""
+    ``tests/test_torch_matmul.py`` reads ``plan_matmul``'s); a stream plan's
+    pieces (one product)."""
+    if plan.regime == "stream":
+        for pc in stream_pieces(plan, [plan.n]):
+            yield (pc["block"], 0, pc["col0"], pc["s0"] * plan.bk,
+                   min(plan.k, pc["s1"] * plan.bk))
+        return
     tiles_m, tiles_n = math.ceil(plan.m / plan.bm), math.ceil(plan.n / plan.bn)
     if plan.regime == "wgmma":
         for b in range(plan.grid):
@@ -513,24 +706,287 @@ def test_plan_tiles_cover_the_output_once(m, k, n, scheme, group, sm_count):
         ranges.sort()
         assert ranges[0][0] == 0 and ranges[-1][1] == k
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-        assert len(ranges) == plan.splits
+        assert len(ranges) == plan.splits or plan.regime == "stream"
     assert plan.splits <= MAX_SPLITS
     if plan.regime in ("small_m", "tail"):
         assert plan.bn == 64 and plan.bm in (8, 16, 32) and plan.bm >= min(m, 32)
         assert plan.bk % max(group, 1) == 0 and plan.bk <= 128
+    if plan.regime == "stream":  # one row tile, whole groups a unit
+        assert plan.bm == min(r for r in STREAM_ROWS if r >= m) and plan.bk == 128
 
 
 def test_decode_products_fill_the_card():
-    """At a Gemma-2B decode step every int4 product launches a block per SM
-    where its column tiles times a cluster's 16 splits allow that many (so
-    that every SM streams weights)."""
+    """At a Gemma-2B decode step and verify round every int4 launch (each
+    product alone and the shared ones) takes the stream regime with at
+    most one block per SM and shares of the fewest units a block can take
+    (differing by at most one unit), at least 32 KB of nibbles in flight a
+    block (four 16 KB stages) and shared memory that fits; except, at 8
+    rows, the launches whose blocks would take at most two units, grouped
+    or with tiles split over more blocks than a cluster holds (wo, wk and
+    wv alone, grouped wq + wk + wv), which keep the small-M regime."""
+    launches = [(k, (n,)) for k, n in GEMMA_2B.values()]
+    launches += [(2048, (2048, 256, 256)), (2048, (16384, 16384))]
     for scheme in ("rank1", "grouped"):
+        for m in (8, 40):
+            for k, ns in launches:
+                plan = plan_matmul_int4(m, ns, k, scheme=scheme, group=128)
+                if m == 8 and k == 2048 and (ns in ((2048,), (256,)) or (
+                        scheme == "grouped" and ns == (2048, 256, 256))):
+                    assert plan.regime == "small_m", (scheme, k, ns, plan)
+                    continue
+                assert plan.regime == "stream", (scheme, k, ns, plan)
+                assert plan.grid <= 132 and math.ceil(plan.units / plan.grid) == math.ceil(
+                    plan.units / min(plan.units, 132))
+                start = stream_schedule(plan)
+                sizes = {b - a for a, b in zip(start, start[1:])}
+                assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+                assert plan.stages * ST_BN * ST_BK // 2 >= 32 * 1024
+                assert stream_smem(plan.stages, plan.xsteps, plan.bm) <= 232448
+
+
+STREAM_CASES = [  # (m, k, the widths of a launch's products, scheme)
+    (8, 2048, (16384, 16384), "grouped"), (8, 2048, (16384, 16384), "rank1"),
+    (8, 2048, (2048, 256, 256), "rank1"), (40, 2048, (2048, 256, 256), "rank1"),
+    (8, 16384, (2048,), "grouped"), (8, 16384, (2048,), "rank1"), (8, 1024, (4096,), "rank1"),
+    (40, 2048, (16384, 16384), "rank1"), (40, 16384, (2048,), "grouped"),
+    (40, 2048, (2048, 256, 256), "grouped"), (64, 2048, (16384, 16384), "grouped"),
+    (64, 16384, (2048,), "rank1"), (8, 4096, (14336, 14336), "grouped"),
+    (8, 14336, (4096,), "rank1"), (5, 208, (320,), "rank1"), (1, 256, (160, 32, 32), "rank1"),
+    (17, 384, (96,), "rank1"),
+]
+
+
+@pytest.mark.parametrize("m,k,ns,scheme", STREAM_CASES)
+@pytest.mark.parametrize("sm_count", [132, 7])
+def test_stream_schedule_covers_every_unit_once(m, k, ns, scheme, sm_count):
+    """The stream plan of a launch (one product or a shared launch's
+    several): every (column tile, depth step) unit once, in equal
+    contiguous shares (at most one unit apart) of the fewest units a block
+    can take (on fewer blocks than SMs only where then no share straddles
+    two column tiles); ``st::Shares::block_of``
+    inverts them; a column tile on one block is whole, on several its
+    pieces sit on consecutive blocks, each in the scratch slot the
+    finishing block reads (its writer's first piece 0, last 1), or, where
+    the plan clusters them, one equal piece a block of the tile's cluster;
+    each piece
+    starting at a step (a group of 128) boundary; x windows that copy the
+    whole K once a block (rank-1: once a product) where the window holds
+    it, else each step of a piece once."""
+    plan = plan_matmul_int4(m, ns, k, scheme=scheme, group=128, sm_count=sm_count)
+    assert plan.regime == "stream" and plan.n == sum(ns)
+    steps = math.ceil(k / ST_BK)
+    tile0, tiles = stream_tiles(ns)
+    assert plan.units == tiles * steps and plan.grid <= min(plan.units, sm_count)
+    share = math.ceil(plan.units / min(plan.units, sm_count))  # the fewest units a block can take
+    assert math.ceil(plan.units / plan.grid) == share
+    if plan.grid < min(plan.units, sm_count):  # fewer blocks only for shares that fit the tiles
+        assert plan.units % plan.grid == 0 and (steps % share == 0 or share % steps == 0)
+    start = stream_schedule(plan)
+    assert start[0] == 0 and start[-1] == plan.units
+    assert max(b - a for a, b in zip(start, start[1:])) - min(
+        b - a for a, b in zip(start, start[1:])) <= 1
+    assert all(start[stream_block_of(plan, u)] <= u < start[stream_block_of(plan, u) + 1]
+               for u in range(plan.units))
+    pieces = list(stream_pieces(plan, ns))
+    seen = {}
+    for pc in pieces:
+        for st in range(pc["s0"], pc["s1"]):
+            seen[(pc["tile"], st)] = seen.get((pc["tile"], st), 0) + 1
+        assert pc["col0"] < ns[pc["product"]] and tile0[pc["product"]] <= pc["tile"]
+        assert (pc["s0"] * ST_BK) % 128 == 0
+    assert seen == {(t, st): 1 for t in range(tiles) for st in range(steps)}
+    by_tile = {}
+    for pc in pieces:
+        by_tile.setdefault(pc["tile"], []).append(pc)
+    for t, ps in by_tile.items():
+        if len(ps) == 1:
+            assert ps[0]["slot"] is None
+            continue
+        blocks = [pc["block"] for pc in ps]
+        b0, b1 = stream_block_of(plan, t * steps), stream_block_of(plan, (t + 1) * steps - 1)
+        assert blocks == list(range(b0, b1 + 1))
+        for pc in ps:  # the finisher's rule for the slot of block b's piece
+            assert pc["slot"] == (0 if start[pc["block"]] >= t * steps else 1)
+    slots = {}
+    for pc in pieces:
+        if pc["slot"] is not None:
+            assert (pc["block"], pc["slot"]) not in slots, "two pieces in one scratch slot"
+            slots[(pc["block"], pc["slot"])] = pc["tile"]
+    wins = stream_windows(plan, pieces, scheme)
+    for b, loads in wins.items():
+        assert all(xn <= plan.xsteps for _, _, xn in loads)
+        if plan.xsteps >= steps:  # the whole K, once (rank-1: once a product)
+            assert len(loads) == len({p for p, _, _ in loads})
+        else:  # each piece's steps once: no more than the share's units
+            assert sum(xn for _, _, xn in loads) <= start[b + 1] - start[b]
+    assert stream_smem(plan.stages, plan.xsteps, plan.bm) <= 232448
+    assert 4 <= plan.stages <= 16 and 1 <= plan.xsteps <= steps
+    if plan.splits > 1:  # each split tile's pieces: one cluster of `splits` blocks, a piece each
+        assert plan.splits <= 8 and plan.grid == tiles * plan.splits
+        assert steps % plan.splits == 0
+        for t, ps in by_tile.items():
+            assert [pc["block"] for pc in ps] == list(range(t * plan.splits, (t + 1) * plan.splits))
+            assert all(pc["s1"] - pc["s0"] == steps // plan.splits for pc in ps)
+    else:  # no cluster fits: tiles that split are finished through the scratch and counters
+        share = plan.units // plan.grid
+        assert not (plan.units % plan.grid == 0 and steps % share == 0
+                    and 2 <= steps // share <= 8)
+    if m <= 8 and stream_scratch_fixup(plan):  # shares too short for the scratch: small-M
+        assert plan.units // plan.grid > 2
+
+
+def test_stream_row_tiles():
+    """Up to 64 rows one row tile, the smallest of ``STREAM_ROWS`` that
+    holds M (the verify round's 40 rows one tile of 40: each weight read
+    once); grouped from 65 to 1,024 rows wgmma tiles of 128 rows (each
+    weight read at most 8 times) wherever the product has 32 tiles or more
+    (with fewer, the split-K small-M kernel was faster on an H100:
+    wk/wv at every row count, wq/wo and w_down at 100 rows); the stream
+    regime refuses what its counters cannot hold."""
+    for m in range(1, WGMMA_MIN_M + 1):
+        for scheme in ("rank1", "grouped"):
+            plan = plan_matmul_int4(m, 16384, 2048, scheme=scheme, group=128)
+            assert plan.regime == "stream" and plan.bm >= m and math.ceil(m / plan.bm) == 1
+            assert plan.bm == min(r for r in STREAM_ROWS if r >= m)
+    assert plan_matmul_int4(40, (16384, 16384), 2048, scheme="rank1", group=128).bm == 40
+    for m in (65, 100, 128, 129, 512, 1000, 1024):
         for k, n in GEMMA_2B.values():
-            plan = plan_matmul_int4(8, n, k, scheme=scheme, group=128)
-            assert plan.regime == "small_m"
-            tiles = math.ceil(n / plan.bn)
-            if n * k >= 2048 * 2048:
-                assert plan.grid >= min(132, tiles * MAX_SPLITS), (scheme, k, n, plan)
+            plan = plan_matmul_int4(m, n, k, scheme="grouped", group=128)
+            if math.ceil(m / 128) * math.ceil(n / 128) < 32:
+                assert plan.regime == "small_m"
+                continue
+            assert plan.regime == "wgmma" and plan.bm >= 128 and math.ceil(m / plan.bm) <= 8
+            assert plan.bn == 128 and plan.bk == 64 and 2 * plan.bk == 128  # a group: two steps
+    wide = plan_matmul_int4(8, 256 * (STREAM_MAX_TILES + 1), 256, scheme="rank1", group=128)
+    assert wide.regime == "small_m"
+    assert plan_matmul_int4(8, 2048, 2048, scheme="grouped", group=64).regime == "small_m"
+
+
+def unit_stage(tile):
+    """A unit's [128 depth rows, 128 bytes] of nibbles as TMA's 128-byte
+    swizzle lays it in a stage: 16-byte chunk q of row r at chunk q ^ (r &
+    7)."""
+    out = np.zeros(128 * 128, np.uint8)
+    for r in range(128):
+        for q in range(8):
+            at = r * 128 + ((q ^ (r & 7)) << 4)
+            out[at : at + 16] = tile[r, 16 * q : 16 * q + 16]
+    return out
+
+
+def unit_halfword_addrs(c, w, lane, kk):
+    """matmul_int4.cu::st::unit_halfwords' addresses in the stage, for
+    consumer warpgroup c, warp w: depth rows 16 kk + 2t, + 1, + 8, + 9,
+    bytes 2g, 2g + 1 of chunk 4 c + w."""
+    g, t = lane >> 2, lane & 3
+    rows = [16 * kk + 2 * t + (d & 1) + 8 * (d >> 1) for d in range(4)]
+    return [r * 128 + (((4 * c + w) ^ (r & 7)) << 4) + 2 * g for r in rows]
+
+
+def test_stream_fragments_hold_each_weight_once():
+    """The stream regime's A fragments: each consumer lane's halfwords of a
+    unit (read where the kernel reads them from the swizzled stage),
+    widened as the kernel widens them (``words_to_fragments<2>``), read
+    through mma.sync's A layout (a0 = (g, 2t), a1 = (g + 8, 2t), a2 = (g,
+    2t + 8), a3 = (g + 8, 2t + 8), each a pair along k) with tile j's row g
+    + 8 h in warp w of warpgroup c mapped to column 128 c + 32 w + 4 g + 2 j
+    + h: every weight of the unit's 128 depths x 256 columns once, at its
+    value."""
+    rng = np.random.default_rng(20)
+    q = rng.integers(-8, 8, size=(128, 256)).astype(np.int8)
+    stage = unit_stage(pack_int4(torch.from_numpy(q)).numpy())
+    got = np.full((128, 256), np.nan, np.float32)
+    for c in range(2):
+        for w in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for kk in range(8):
+                    h = [np.array([int.from_bytes(stage[a : a + 2].tobytes(), "little")], np.uint32)
+                         for a in unit_halfword_addrs(c, w, lane, kk)]
+                    hs = [v >> np.uint32(4) for v in h]
+                    for j in range(2):
+                        sel = j | ((4 + j) << 8)
+                        regs = [nib_pair(byte_perm(h[0], h[1], sel)), nib_pair(byte_perm(hs[0], hs[1], sel)),
+                                nib_pair(byte_perm(h[2], h[3], sel)), nib_pair(byte_perm(hs[2], hs[3], sel))]
+                        for i, (lo, hi) in enumerate(regs):
+                            hrow = i & 1  # a1, a3: row g + 8, the high nibble
+                            k = 16 * kk + 2 * t + 8 * (i >> 1)
+                            col = 128 * c + 32 * w + 4 * g + 2 * j + hrow
+                            for d, v in ((0, lo[0]), (1, hi[0])):
+                                assert np.isnan(got[k + d, col]), "a weight held twice"
+                                got[k + d, col] = v
+    np.testing.assert_array_equal(got, q.astype(np.float32))
+
+
+def banks_ok(addrs, width=4):
+    """One shared-memory request of a warp: no two lanes touch different
+    words of one bank (``width`` bytes a lane, in 4-byte words)."""
+    words = {}
+    for a in addrs:
+        for b in range(a // 4, (a + width - 1) // 4 + 1):
+            words.setdefault(b % 32, set()).add(b)
+    return all(len(v) == 1 for v in words.values())
+
+
+@pytest.mark.parametrize("rows", STREAM_ROWS)
+def test_stream_loads_are_conflict_free_and_window_holds_x(rows):
+    """The stream regime's shared-memory traffic: a warp's halfword loads
+    of a unit (4 chunks x 4 words), its loads of x's B fragments from the
+    window and the window's 16-byte stores (a phase of 8 lanes: the 8
+    chunks of one 128-byte row) touch each bank once; the window, written
+    as ``st::fill_window`` writes it (rank-1's rs folded in), read back
+    where the kernel reads mma.sync's B fragments (b0 = depths 16 kk + 2t,
+    + 1 of row 8 i + g, b1 the same + 8: word t of chunks 2 (kk % 4) and +
+    1 of the row's 64 depths, XOR g) gives x; and the epilogue's map (the
+    sums val[j][i][2 h + c] to x row 8 i + 2t + c, column 128 c + 32 w + 4
+    g + 2 j + h) stores every output of a tile once."""
+    for c in range(2):
+        for w in range(4):
+            for kk in range(8):
+                for d in range(4):
+                    assert banks_ok([unit_halfword_addrs(c, w, lane, kk)[d] for lane in range(32)], 2)
+    x0, xn, k, group = 1, 3, 640, 32
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32)).to(torch.bfloat16)
+    rs = torch.from_numpy(rng.uniform(0.5, 1.5, size=(k // group,)).astype(np.float32))
+    xs = fold_rs(x, rs, group)
+    win = np.full(xn * rows * 128, np.nan, np.float32)  # bf16 slots (2 bytes each)
+    pieces = xn * (ST_BK // 8)
+    stores = []
+    for e in range(rows * pieces):  # fill_window, thread e % 256 in turn
+        r, q = divmod(e, pieces)
+        d = x0 * ST_BK + 8 * q
+        at = (q >> 3) * rows * 128 + r * 128 + (((q & 7) ^ (r & 7)) << 4)
+        stores.append(at)
+        win[at // 2 : at // 2 + 8] = xs[r, d : d + 8]
+    for p0 in range(0, len(stores), 8):
+        assert banks_ok(stores[p0 : p0 + 8], 16)
+    for st in range(xn):
+        for kk in range(8):
+            c0 = 2 * (kk & 3)
+            for i in range(rows // 8):
+                for half, cc in ((0, c0), (1, c0 + 1)):  # b0, b1
+                    addrs = []
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        a = (2 * st + (kk >> 2)) * rows * 128 + (8 * i + g) * 128 + ((cc ^ g) << 4) + 4 * t
+                        addrs.append(a)
+                        d = (x0 + st) * ST_BK + 16 * kk + 2 * t + 8 * half
+                        assert list(win[a // 2 : a // 2 + 2]) == list(xs[8 * i + g, d : d + 2])
+                    assert banks_ok(addrs)
+    stored = set()
+    for c in range(2):
+        for w in range(4):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for j in range(2):
+                    for i in range(rows // 8):
+                        for h in range(2):
+                            for cc in range(2):
+                                key = (8 * i + 2 * t + cc, 128 * c + 32 * w + 4 * g + 2 * j + h)
+                                assert key not in stored
+                                stored.add(key)
+    assert stored == {(r, col) for r in range(rows) for col in range(ST_BN)}
 
 
 # ---------------------------------------------------------- wrapper and routing
@@ -569,11 +1025,13 @@ def test_wrapper_rejects_bad_operands():
 
 
 def test_kernel_is_registered():
-    """The C entry's argument types (pointers as c_void_p, the 64-bit M)
-    and its launch count."""
+    """The C entry's argument types (pointers as c_void_p, the 64-bit M,
+    the plan's ints through stages and xsteps, the counters' pointer) and
+    its launch count."""
     sig = kernels._SIGNATURES["matmul_int4"]
-    assert len(sig) == 20 and sig[:7] == [kernels._P] * 7 and sig[7] is kernels._I
+    assert len(sig) == 23 and sig[:7] == [kernels._P] * 7 and sig[7] is kernels._I
     assert sig[8] is kernels._P and sig[12] is kernels._LL
+    assert sig[13:21] == [kernels._I] * 8 and sig[21] is kernels._P
     assert sig[-1] is kernels._P and "matmul_int4" in kernels.LAUNCHES
 
 
@@ -622,7 +1080,11 @@ def test_shared_launch_equals_each_product(m, scheme):
     plan = plan_matmul_int4(m, (160, 32, 32), 256, scheme=scheme, group=64)
     single = [plan_matmul_int4(m, n, 256, scheme=scheme, group=64) for n in (160, 32, 32)]
     tiles = sum(math.ceil(p.n / p.bn) for p in single) * math.ceil(m / plan.bm)
-    assert plan.regime == "small_m" and plan.n == 224 and plan.grid == tiles * plan.splits
+    assert plan.n == 224
+    if scheme == "rank1":  # the stream regime: a unit a tile and step, a block a unit here
+        assert plan.regime == "stream" and plan.units == tiles * 2 and plan.grid == plan.units
+    else:  # groups of 64: the small-M regime
+        assert plan.regime == "small_m" and plan.grid == tiles * plan.splits
 
 
 def test_shared_routing_keeps_every_other_product():
