@@ -37,9 +37,10 @@ card each decode step runs as a replayed CUDA graph
 
 ``rag-run --retr-method probing`` gates with a random prober stack unless
 ``--probers`` names a ``save_pytree`` checkpoint (``prober-train`` writes
-one). The dense encoder is the tiny encoder with weights drawn from one
-fixed seed, the same in ``index-build`` and ``rag-run``, so that documents
-and queries are embedded by one encoder.
+one). The dense encoder has weights drawn from one fixed seed, the same in
+``index-build`` and ``rag-run``, so that documents and queries are
+embedded by one encoder: Contriever's width (768) under ``--checkpoint``,
+as in the JAX CLI, else the tiny encoder (32).
 """
 
 from __future__ import annotations
@@ -154,12 +155,14 @@ def _checked_stack(probers, template, cfg, tc):
 
 
 def _dense_encoder(args):
-    """Tiny encoder from ``ENCODER_SEED`` (drawn on the CPU, so every
-    device gets the same weights) with the byte tokenizer."""
+    """The dense encoder with weights from ``ENCODER_SEED`` (drawn on the
+    CPU, so every device gets the same weights) and the byte tokenizer:
+    Contriever's width under ``--checkpoint``, as the JAX CLI's
+    ``_dense_encoder`` takes it, else the tiny encoder."""
     from probing_rag_tpu_torch.models.encoder import EncoderConfig, init_encoder_params, text_encoder
     from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
 
-    cfg = EncoderConfig.tiny()
+    cfg = EncoderConfig.contriever() if args.checkpoint else EncoderConfig.tiny()
     params = init_encoder_params(cfg, torch.Generator().manual_seed(ENCODER_SEED),
                                  device="cpu")
 

@@ -53,6 +53,9 @@ LAUNCHES: Dict[str, int] = {
     "rms_norm": 0,
     "rope_kv": 0,
     "gated_act": 0,
+    "layer_norm": 0,
+    "bias_gelu": 0,
+    "qkv_heads": 0,
 }
 
 _P = ctypes.c_void_p
@@ -92,8 +95,8 @@ _SIGNATURES = {
     "decode_attention": [_P] * 11 + [_I] * 9 + [_LL] * 6 + [_I, _I, _F, _P],
     # q, k, v, k/v scales, qpos, kpos, valid, keff, tmin, vpart, vsum, out;
     # kind, b, kvh, g, t, s, hd, grp; cache and scale strides; the plan's
-    # tile, stages, raw_slots, raw_stages, smem; scale, stream
-    "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_I] * 5 + [_F, _P],
+    # tile, stages, raw_slots, raw_stages, smem; out_bf16, scale, stream
+    "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_I] * 6 + [_F, _P],
     # x, delta, w, resid, normed; delta / weight / out kinds, rows, d, eps,
     # plus_one, the plan's width, rows_block, blocks, chunk; stream
     "rms_norm": [_P] * 5 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
@@ -105,6 +108,14 @@ _SIGNATURES = {
     # gate, up, out; dt, act, n, the plan's vec_bytes, threads, blocks;
     # stream
     "gated_act": [_P] * 3 + [_I, _I, _LL] + [_I] * 3 + [_P],
+    # resid, delta, bias, w, b, out, xin; rows, d, eps, the plan's per,
+    # warps, blocks; stream
+    "layer_norm": [_P] * 7 + [_I, _I, _F] + [_I] * 3 + [_P],
+    # h, bias; rows, f, the plan's vec, threads, blocks; stream
+    "bias_gelu": [_P] * 2 + [_I] * 5 + [_P],
+    # y, bq, bk, bv, q, k, v; b, t, h, hd, the plan's vec, threads, blocks;
+    # stream
+    "qkv_heads": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 

@@ -61,6 +61,10 @@
 //   - a row with no attendable slot (a left pad at prefill) is the mean of
 //     bf16(1/S) v over all S slots: the prep pass sums V over all slots once
 //     per (batch row, kv head), and such rows get bf16(1/S) times that sum.
+//   - the output is stored in f32, or, where the caller asks, rounded to
+//     bf16 (the Contriever encoder casts it at once,
+//     probing_rag_tpu/models/encoder.py:123): half the store and no pass
+//     of its own for the cast.
 // Launches: prep (V partial sums, valid-slot positions and tile minima),
 // finish (the sums in a fixed order), attention; one call counts one
 // launch. No allocation and no host sync: the wrapper hands in the scratch
@@ -99,12 +103,13 @@ struct Args {  // the attention reads Q, K and V by TMA (Maps); the prep pass re
   int* tmin;                // [B, ntiles]: a tile's least keff
   float* vpart;             // [nchunks, B * KV, hd]
   float* vsum;              // [B * KV, hd]
-  float* out;               // [B, T, KV * G * hd] f32
+  void* out;                // [B, T, KV * G * hd] f32, or bf16 with out_bf16
   long long kv_b, kv_h;     // byte strides of the cache's batch and kv-head dims
   long long sc_b, sc_r;     // element strides of the scales' batch and row dims
   int kvh, g, t, s, hd, grp;
   int ntiles, nchunks;      // tiles, prep chunks
   int npos, qtiles, bkv;    // positions a consumer, query tiles of 2 npos, B * KV
+  int out_bf16;             // store the output rounded to bf16 (else f32)
   float scale;              // 1 / sqrt(hd), rounded to f32
 };
 
@@ -811,13 +816,17 @@ prefill_attn(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       const int r = half ? r1 : r0;
       if (!(half ? ok1 : ok0)) continue;
       const bool dead = (half ? m1 : m0) <= kMasked;
-      float* dst = a.out + (((long long)b * a.t + tc + r / a.g) * heads + h * a.g + r % a.g) * HD;
+      const long long at = (((long long)b * a.t + tc + r / a.g) * heads + h * a.g + r % a.g) * HD;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
         const int col = 8 * j + 2 * t4;
         float2 y = make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
         if (dead) y = make_float2(w * vs[col], w * vs[col + 1]);
-        *reinterpret_cast<float2*>(dst + col) = y;
+        if (a.out_bf16)  // the caller's cast of the f32 output, done here
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) + at + col) =
+              attn::pack_bf16(y.x, y.y);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + col) = y;
       }
     }
   }
@@ -917,7 +926,8 @@ bool cache_map(CUtensorMap* map, const void* ptr, int kind, int b, int kvh, int 
 // S] int32, valid [B, S] bool, all contiguous. Scratch: keff int32 [B,
 // ntiles * tile], tmin int32 [B, ntiles], vpart f32 [nchunks, B*KV, hd],
 // vsum f32 [B*KV, hd], with ntiles = ceil(S / tile), nchunks = ceil(S /
-// 256). out: [B, T, KV*G*hd] f32. tile .. smem: the plan
+// 256). out: [B, T, KV*G*hd] f32, or bf16 with out_bf16 1 (rounded to
+// nearest even). tile .. smem: the plan
 // (ops/attention.py::plan_prefill_attention), checked against the kernel's.
 extern "C" int prefill_attention(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale, const void* qpos,
@@ -926,9 +936,10 @@ extern "C" int prefill_attention(const void* q, const void* k, const void* v,
                                  int g, int t, int s, int hd, int grp, long long kv_b,
                                  long long kv_h, long long sc_b, long long sc_r, int tile,
                                  int stages, int raw_slots, int raw_stages, int smem,
-                                 float scale, void* stream) {
+                                 int out_bf16, float scale, void* stream) {
   if (g < 1 || g > pattn::kRows || t < 1 || s < 1 || b < 1 || kvh < 1 || tile < 8 ||
-      (kind == attn::kInt4 && grp != 32) || kv_b % 16 || kv_h % 16)
+      (kind == attn::kInt4 && grp != 32) || kv_b % 16 || kv_h % 16 || out_bf16 < 0 ||
+      out_bf16 > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   pattn::Args a;
   a.v = static_cast<const unsigned char*>(v);
@@ -941,7 +952,8 @@ extern "C" int prefill_attention(const void* q, const void* k, const void* v,
   a.tmin = static_cast<int*>(tmin);
   a.vpart = static_cast<float*>(vpart);
   a.vsum = static_cast<float*>(vsum);
-  a.out = static_cast<float*>(out);
+  a.out = out;
+  a.out_bf16 = out_bf16;
   a.kv_b = kv_b;
   a.kv_h = kv_h;
   a.sc_b = sc_b;

@@ -10,17 +10,36 @@ scores are f32 sums of ``compute_dtype`` products, as the JAX einsums with
 
 Layouts are the JAX package's (linear weights ``[in, out]``, layer leaves
 stacked ``[L, ...]``), so ``weights.encoder_params_from_jax`` is a copy.
+:func:`prepare_params` makes the tree the forward reads: the concatenated
+``wq | wk | wv`` and the other products' weights and biases in
+``compute_dtype``, the norms' in f32 (:func:`text_encoder` does it once,
+when it is made; :func:`encoder_forward` on a tree it has not prepared).
+
+One layer loop, on four functions a layer: one product of the
+concatenated weight and ``qkv_heads``, ``prefill_attention`` under the
+key-padding mask with its output stored in ``compute_dtype``, and
+``add_layer_norm`` and ``bias_gelu`` around the other products
+(``ops/encoder.py``). bf16 compute where the kernels take the config
+(``ops/encoder.py::kernels_take``: Contriever) calls the wrappers: on CUDA
+tensors each launches its kernel or raises, on CPU tensors each takes its
+plain version. f32 compute (the checking mode) and configs the kernels do
+not take (the tiny test config, head dim 16) call the plain versions, in
+``compute_dtype``.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from probing_rag_tpu_torch.ops.attention import prefill_attention, prefill_attention_plain
+from probing_rag_tpu_torch.ops.encoder import (add_layer_norm, add_layer_norm_plain, bias_gelu,
+                                               bias_gelu_plain, kernels_take, qkv_heads,
+                                               qkv_heads_plain)
 
 Params = Dict[str, Any]
 
@@ -86,10 +105,23 @@ def init_encoder_params(
     }
 
 
-def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    mean = x.mean(-1, keepdim=True)
-    var = x.var(-1, keepdim=True, unbiased=False)  # jnp.var: population variance
-    return (x - mean) * torch.rsqrt(var + eps) * w.float() + b.float()
+_PRODUCTS = ("wqkv", "wo", "w1", "w2", "bq", "bk", "bv", "bo", "b1", "b2")
+
+
+def prepare_params(params: Params, cfg: EncoderConfig) -> Params:
+    """The tree :func:`encoder_forward` reads: ``layers["wqkv"]`` ``[L, D,
+    3 D]``, the concatenated ``wq | wk | wv`` (in place of the three), the
+    products' weights and biases in ``cfg.compute_dtype``, the norms' ``w``
+    and ``b`` in f32, the embeddings as they are. A prepared tree comes back
+    with its own tensors (no copy)."""
+    dt = cfg.compute_dtype
+    lp = dict(params["layers"])
+    if "wqkv" not in lp:
+        lp["wqkv"] = torch.cat([lp.pop("wq"), lp.pop("wk"), lp.pop("wv")], dim=-1)
+    lp.update({n: lp[n].to(dt) for n in _PRODUCTS})
+    lp.update({n: {k: v.float() for k, v in lp[n].items()} for n in ("attn_ln", "mlp_ln")})
+    embed_ln = {k: v.float() for k, v in params["embed_ln"].items()}
+    return {**params, "embed_ln": embed_ln, "layers": lp}
 
 
 def encoder_forward(
@@ -99,38 +131,31 @@ def encoder_forward(
     cfg: EncoderConfig,
 ) -> torch.Tensor:
     """Returns mean-pooled sentence embeddings [B, D] (f32)."""
+    p = prepare_params(params, cfg)
     b, t = tokens.shape
-    dt = cfg.compute_dtype
+    dt, eps, h = cfg.compute_dtype, cfg.norm_eps, cfg.n_heads
+    if dt == torch.bfloat16 and kernels_take(cfg.d_model, h, cfg.d_ff):
+        norm, gelu, heads, attend = add_layer_norm, bias_gelu, qkv_heads, prefill_attention
+    else:
+        norm, gelu = partial(add_layer_norm_plain, dt=dt), bias_gelu_plain
+        heads, attend = qkv_heads_plain, prefill_attention_plain
     x = (
-        params["tok_embed"][tokens].float()
-        + params["pos_embed"][:t].float()[None]
-        + params["type_embed"][0].float()[None, None]
+        p["tok_embed"][tokens].float()
+        + p["pos_embed"][:t].float()[None]
+        + p["type_embed"][0].float()[None, None]
     )
-    x = _ln(x, params["embed_ln"]["w"], params["embed_ln"]["b"], cfg.norm_eps)
-
-    attn_mask = mask[:, None, None, :].float()  # [B, 1, 1, T]
-    lp = params["layers"]
-    hd = cfg.d_model // cfg.n_heads
-
-    def proj(h, w, bias, l):
-        return h @ lp[w][l].to(dt) + lp[bias][l].to(dt)
-
+    lp = p["layers"]
+    x, xin = norm(x, None, None, p["embed_ln"]["w"], p["embed_ln"]["b"], eps)
+    # every key at position 0 and every query too: the mask is the padding alone
+    pos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
     for l in range(cfg.n_layers):
-        xin = x.to(dt)
-        q = proj(xin, "wq", "bq", l).reshape(b, t, cfg.n_heads, hd)
-        k = proj(xin, "wk", "bk", l).reshape(b, t, cfg.n_heads, hd)
-        v = proj(xin, "wv", "bv", l).reshape(b, t, cfg.n_heads, hd)
-        scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
-        scores = scores / math.sqrt(hd) + (1.0 - attn_mask) * -1e30
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        attn = torch.einsum("bhts,bshd->bthd", probs.float(), v.float())
-        attn = proj(attn.reshape(b, t, cfg.d_model).to(dt), "wo", "bo", l)
-        x = _ln(x + attn.float(), lp["attn_ln"]["w"][l], lp["attn_ln"]["b"][l], cfg.norm_eps)
-        xin = x.to(dt)
-        h = F.gelu(proj(xin, "w1", "b1", l), approximate="none")
-        h = proj(h, "w2", "b2", l)
-        x = _ln(x + h.float(), lp["mlp_ln"]["w"][l], lp["mlp_ln"]["b"][l], cfg.norm_eps)
-
+        q, k, v = heads(xin @ lp["wqkv"][l], lp["bq"][l], lp["bk"][l], lp["bv"][l], h)
+        a = attend(q, k, v, pos, pos, mask, dt=dt, out_dtype=dt)
+        x, xin = norm(x, a @ lp["wo"][l], lp["bo"][l], lp["attn_ln"]["w"][l],
+                      lp["attn_ln"]["b"][l], eps)
+        hid = gelu(xin @ lp["w1"][l], lp["b1"][l])
+        x, xin = norm(x, hid @ lp["w2"][l], lp["b2"][l], lp["mlp_ln"]["w"][l],
+                      lp["mlp_ln"]["b"][l], eps)
     m = mask.float()[:, :, None]
     return (x * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
 
@@ -140,7 +165,10 @@ def text_encoder(
 ) -> Callable[[Sequence[str]], np.ndarray]:
     """``texts -> [B, D] f32`` numpy embeddings, as the JAX CLI's
     ``_dense_encoder`` closure: token ids cut to ``max_positions`` and
-    clamped to ``vocab_size - 1``, right-padded to the batch's longest."""
+    clamped to ``vocab_size - 1``, right-padded to the batch's longest.
+    The tree the forward reads is made here, once (:func:`prepare_params`):
+    the caller may drop ``params``."""
+    params = prepare_params(params, cfg)
 
     def encode(texts: Sequence[str]) -> np.ndarray:
         ids = [tokenizer.encode(t)[: cfg.max_positions] for t in texts]

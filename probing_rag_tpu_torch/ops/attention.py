@@ -457,8 +457,10 @@ def structured_mask(qpos: torch.Tensor, kpos: torch.Tensor,
     return mask[:, None]
 
 
-def _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt):
+def _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt, out_dtype):
     b, t, h, hd, kv, s = _check_cache(q, k, v, k_scale, v_scale, dt)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be f32 or bf16, got {out_dtype}")
     if tuple(qpos.shape) != (b, t) or tuple(kpos.shape) != (b, s):
         raise ValueError(f"need qpos [{b}, {t}] and kpos [{b}, {s}], got {tuple(qpos.shape)}, "
                          f"{tuple(kpos.shape)}")
@@ -474,35 +476,43 @@ def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             valid: Optional[torch.Tensor], *,
                             k_scale: Optional[torch.Tensor] = None,
                             v_scale: Optional[torch.Tensor] = None,
-                            dt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                            dt: torch.dtype = torch.bfloat16,
+                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of :func:`prefill_attention`: the dense mask
-    (:func:`structured_mask`), then :func:`decode_attention_plain`."""
-    _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt)
-    return decode_attention_plain(q, k, v, structured_mask(qpos, kpos, valid), k_scale=k_scale,
-                                  v_scale=v_scale, dt=dt)
+    (:func:`structured_mask`), then :func:`decode_attention_plain`, cast to
+    ``out_dtype``."""
+    _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt, out_dtype)
+    out = decode_attention_plain(q, k, v, structured_mask(qpos, kpos, valid), k_scale=k_scale,
+                                 v_scale=v_scale, dt=dt)
+    return out.to(out_dtype)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: torch.Tensor,
                       kpos: torch.Tensor, valid: Optional[torch.Tensor], *,
                       k_scale: Optional[torch.Tensor] = None,
                       v_scale: Optional[torch.Tensor] = None,
-                      dt: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                      dt: torch.dtype = torch.bfloat16,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``_attn_core``'s output ``[B, T, H*hd]`` f32 for q ``[B, T, H, hd]``
     over K and V ``[B, KV, S, hd]`` in any of the cache's formats (as
     :func:`decode_attention` takes them; the no-cache forward's own K and
     V are a bf16 "cache" of S = T slots) under the mask ``(kpos[b, s] <=
     qpos[b, t]) & valid[b, s]`` (qpos ``[B, T]``, kpos ``[B, S]`` integers,
     valid ``[B, S]`` bool or None). A row with no attendable slot is the
-    plain softmax's: the mean of ``bf16(1/S) v`` over all S slots. CPU
+    plain softmax's: the mean of ``bf16(1/S) v`` over all S slots.
+    ``out_dtype`` bf16: the output rounded to bf16 as the kernel stores it
+    (the encoder's cast, without a pass of its own). The encoder's key
+    padding mask is ``qpos = kpos = 0`` with ``valid`` the mask. CPU
     tensors take the plain version; CUDA tensors launch the kernel, which
     takes bf16 compute and :func:`prefill_kernel_takes`, and each (batch
     row, kv head) needs only contiguous slot rows (a kv-head slice is taken
     as it is)."""
-    b, t, h, hd, kv, s = _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt)
+    b, t, h, hd, kv, s = _check_prefill(q, k, v, qpos, kpos, valid, k_scale, v_scale, dt,
+                                        out_dtype)
     dev = k.device
     if dev.type == "cpu":
         return prefill_attention_plain(q, k, v, qpos, kpos, valid, k_scale=k_scale,
-                                       v_scale=v_scale, dt=dt)
+                                       v_scale=v_scale, dt=dt, out_dtype=out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"no prefill_attention for device {dev}")
     _on_device(dev, "prefill_attention", q=q, v=v, qpos=qpos, kpos=kpos, valid=valid,
@@ -527,7 +537,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: t
     tmin = torch.empty((b, ntiles), dtype=torch.int32, device=dev)
     vpart = torch.empty((nchunks, b * kv, hd), dtype=torch.float32, device=dev)
     vsum = torch.empty((b * kv, hd), dtype=torch.float32, device=dev)
-    out = torch.empty((b, t, h * hd), dtype=torch.float32, device=dev)
+    out = torch.empty((b, t, h * hd), dtype=out_dtype, device=dev)
     scale = float(np.float32(1.0) / np.float32(math.sqrt(hd)))
     lib = kernels.library()
     with torch.cuda.device(dev):
@@ -539,7 +549,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: t
                 valid.data_ptr(), keff.data_ptr(), tmin.data_ptr(), vpart.data_ptr(),
                 vsum.data_ptr(), out.data_ptr(), _KINDS[k.dtype], b, kv, groups, t, s, hd,
                 kv4_group(hd), kv_b, kv_h, sc_b, sc_r, plan.tile, plan.stages, plan.raw_slots,
-                plan.raw_stages, plan.smem, scale, kernels.stream_ptr(dev),
+                plan.raw_stages, plan.smem, int(out_dtype == torch.bfloat16), scale,
+                kernels.stream_ptr(dev),
             ),
             "prefill_attention",
         )
