@@ -75,7 +75,12 @@ and the script exits non-zero:
    index build's shape (512 docs at the phase-7 batch's own longest T and
    lengths), at T 512 and at a query batch's (8 x 40, ragged), timed
    beside the plain version, the bound and ``F.layer_norm``, ``F.gelu``
-   and ``scaled_dot_product_attention`` (none for the split).
+   and ``scaled_dot_product_attention`` (none for the split), each with
+   its time before the GELU table and the persistent attention in
+   brackets; the attention must take its persistent regime (printed with
+   its grid), the GELU prints its window and the inputs that miss it; all
+   65,536 bf16 patterns through ``bias_gelu`` bit-equal, and the table's
+   build timed (``gelu_table``).
 7. dense main path: a flat l2 index of the phase-4 corpus rendered as text,
    encoded by a Contriever-width encoder (random f32 weights from a seed,
    as the CLI's ``_dense_encoder`` draws them, the products cast to bf16
@@ -91,7 +96,8 @@ and the script exits non-zero:
    (``assert_same_search`` within the plain route's own bf16 rounding of
    the scores; the kernel route's ids equal the plain route's at least as
    often as the plain route's equal the f32 route's);
-   then the build with its own launch counts and docs/s; the probing loop of phase
+   then the build with its own launch counts (the table built once, at its
+   first GELU) and docs/s; the probing loop of phase
    5's model and probers over the flat engine and then over the IVF
    engine, 8 questions each, all 4 retrieval rounds, each loop with its
    own launch counts; then the flat loop's first and last searches again
@@ -371,6 +377,10 @@ ATTN_LONG = 16
 # [8, 32, T, S] scores fit beside it
 PREFILL_T = ATTN_PROMPT
 PREFILL_MISTRAL_T = 1024
+# a short no-cache forward at Mistral-7B's head dim 128: at most 512 slots,
+# so prefill_attention takes its persistent regime (ops/attention.py::
+# prefill_regime)
+PREFILL_SHORT_T = 300
 # bf16 decode, kernel against plain attention: where a row parts, the plain
 # model's logit gap between the two tokens, as a share of its largest logit
 ATTN_DRIFT = 0.05
@@ -405,6 +415,7 @@ REPLACES = {
     # not Pallas kernels: XLA's fusions of the Contriever encoder's elementwise work
     "layer_norm": "probing_rag_tpu/models/encoder.py:81",
     "bias_gelu": "probing_rag_tpu/models/encoder.py:132",
+    "gelu_table": "probing_rag_tpu/models/encoder.py:132",
     "qkv_heads": "probing_rag_tpu/models/encoder.py:110",
 }
 SOURCES = {
@@ -425,6 +436,7 @@ SOURCES = {
     "gated_act": f"{REPO_KERNELS}/gated_act.cu",
     "layer_norm": f"{REPO_KERNELS}/layer_norm.cu",
     "bias_gelu": f"{REPO_KERNELS}/bias_gelu.cu",
+    "gelu_table": f"{REPO_KERNELS}/bias_gelu.cu",
     "qkv_heads": f"{REPO_KERNELS}/qkv_heads.cu",
 }
 # the kernels each path must launch
@@ -1798,6 +1810,11 @@ ENCODER_BATCH = 512
 ENCODER_QUERY_T = 40
 ENCODER_QUERIES = 64  # phase 7's queries for the top-10 check
 ENCODER_DRIFT = 0.03  # tests/test_torch_encoder.py's bf16 bound, of the max abs value
+# phase 7a's times before the GELU table and the persistent attention
+# (chip_smoke.py, PR 21 F3; NVIDIA H100 80GB HBM3, 700 W), printed in brackets
+EARLIER_MS = {("bias_gelu", "build"): 1.2639, ("bias_gelu", "T 512"): 1.7065,
+              ("bias_gelu", "query"): 0.0053, ("prefill_attention", "build"): 1.7752,
+              ("prefill_attention", "T 512"): 2.1017, ("prefill_attention", "query"): 0.0144}
 
 
 class PlainEncoder:
@@ -1821,6 +1838,37 @@ class PlainEncoder:
 
         enc.add_layer_norm, enc.bias_gelu, enc.qkv_heads, enc.prefill_attention = self.saved
         return False
+
+
+class GeluMisses:
+    """Counts, while open, the inputs ``bf16(h + b)`` of the encoder's
+    ``bias_gelu`` calls and those that lie outside ``bias_gelu.cu``'s window
+    (``ops/encoder.py::gelu_window_misses``: read from the device table)."""
+
+    def __enter__(self):
+        from probing_rag_tpu_torch.models import encoder as enc
+        from probing_rag_tpu_torch.ops import encoder as ek
+
+        self.saved, self.missed, self.total = enc.bias_gelu, 0, 0
+
+        def counted(h, bias):
+            self.missed += ek.gelu_window_misses(h + bias)
+            self.total += h.numel()
+            return self.saved(h, bias)
+
+        enc.bias_gelu = counted
+        return self
+
+    def __exit__(self, *exc):
+        from probing_rag_tpu_torch.models import encoder as enc
+
+        enc.bias_gelu = self.saved
+        return False
+
+
+def earlier(kernel: str, label: str) -> str:
+    ms = EARLIER_MS.get((kernel, label))
+    return f" [{ms:.4f}]" if ms is not None else ""
 
 
 def encoder_lengths(texts) -> list:
@@ -1922,9 +1970,12 @@ def encoder_gelu_case(gen, label: str, rows: int, timed: bool = False) -> dict:
                 "bias skipped": ek.gelu_exact(h.float()).to(bf16)}
     what = f"bias_gelu {label} [{rows} x {f}]"
     err, unequal, text = held(what, got, ref, tol, controls)
+    missed = ek.gelu_window_misses(xb)
     del tol, controls, got, ref
-    out = {"max_abs_err": err, "not_bit_equal": unequal}
-    text += enc_plan_text("bias_gelu")
+    out = {"max_abs_err": err, "not_bit_equal": unequal, "window_miss_share": missed / xb.numel()}
+    text += (f"; window |x| in [2^-16, 2^8) (patterns {ek.GELU_WIN_LO:#06x} + "
+             f"{ek.GELU_WIN_LEN} of each sign): {missed} of {xb.numel()} inputs miss it "
+             f"({missed / xb.numel():.3g})" + enc_plan_text("bias_gelu"))
     if timed:
         ms = timed_fresh(lambda x: ek.bias_gelu(x, bias), h.clone)
         plain_ms = cuda_ms(lambda: ek.bias_gelu_plain(h, bias))
@@ -1932,9 +1983,65 @@ def encoder_gelu_case(gen, label: str, rows: int, timed: bool = False) -> dict:
         nbytes = rows * f * 4 + f * 2
         bnd = bound(nbytes, 20 * rows * f, "f32")
         out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
-        text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.gelu {lib_ms:.4f} ms (on "
-                 f"the biased input: no bias read), bound {bnd['bound_ms']:.4f} ms "
-                 f"({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; {bnd['bound_ms'] / ms:.0%} of it)")
+        text += (f"; kernel {ms:.4f} ms{earlier('bias_gelu', label)}, plain {plain_ms:.4f} ms, "
+                 f"F.gelu {lib_ms:.4f} ms (on the biased input: no bias read), bound "
+                 f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {nbytes / 1e6:.1f} MB; "
+                 f"{bnd['bound_ms'] / ms:.0%} of it)")
+    print(f"  {what}: {text}", flush=True)
+    return out
+
+
+def encoder_gelu_table_case() -> dict:
+    """``bias_gelu.cu``'s table: built by ``gelu_table_build`` (through
+    ``ops/encoder.py::gelu_table``, which keeps it), then every one of the
+    65,536 bf16 patterns as h, with bias -0.0 (bf16(h + -0.0) = h), through
+    ``bias_gelu``, bit-equal to the plain version (NaNs as NaN), the table
+    too. Timed: the build's launch alone beside the plain version and
+    ``F.gelu`` over the patterns, and the bound of its 128 KB written.
+    Returns the kernels line's entry of ``gelu_table``."""
+    import torch
+    import torch.nn.functional as F
+
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.ops import encoder as ek
+
+    bf16 = torch.bfloat16
+    pats = (torch.arange(ek.GELU_TABLE, dtype=torch.int32, device=DEVICE).to(torch.int16)
+            .view(bf16).reshape(64, ek.GELU_TABLE // 64))
+    zero = torch.full((pats.shape[1],), -0.0, dtype=bf16, device=DEVICE)
+    table = ek.gelu_table(pats.device) if DEVICE == "cuda" else None
+    got = ek.bias_gelu(pats.clone(), zero)
+    ref = ek.bias_gelu_plain(pats, zero)
+    sync()
+
+    def unequal(a, b) -> int:
+        nan = torch.isnan(b.float())
+        return int((torch.isnan(a.float()) != nan).sum()
+                   + (a.view(torch.int16) != b.view(torch.int16))[~nan].sum())
+
+    bad = unequal(got, ref) + (unequal(table.reshape(pats.shape), ref) if table is not None else 0)
+    missed = ek.gelu_window_misses(pats)
+    what = f"bias_gelu on all {ek.GELU_TABLE} bf16 patterns, bias -0.0"
+    if bad:
+        raise AssertionError(f"{what}: {bad} results not bit-equal to the plain version")
+    text = (f"bit-equal to plain (NaNs as NaN), the table too; {missed} patterns outside the "
+            f"window, read from the device table")
+    out = {"max_abs_err": 0.0, "not_bit_equal": 0}
+    if DEVICE == "cuda":
+        lib = kernels.library()
+        fresh = torch.empty_like(table)
+        ms = cuda_ms(lambda: kernels.check(lib.gelu_table(fresh.data_ptr(),
+                                                          kernels.stream_ptr(fresh.device)),
+                                           "gelu_table"))
+        if not torch.equal(fresh.view(torch.int16), table.view(torch.int16)):
+            raise AssertionError(f"{what}: a second build differs from the first")
+        plain_ms = cuda_ms(lambda: ek.bias_gelu_plain(pats, zero))
+        lib_ms = cuda_ms(lambda: F.gelu(pats))
+        bnd = bound(ek.GELU_TABLE * 2, 20 * ek.GELU_TABLE, "f32")
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, shape=f"[{ek.GELU_TABLE}] bf16",
+                   **bnd)
+        text += (f"; the build {ms:.4f} ms, plain {plain_ms:.4f} ms, F.gelu {lib_ms:.4f} ms, "
+                 f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
     print(f"  {what}: {text}", flush=True)
     return out
 
@@ -2028,8 +2135,11 @@ def encoder_attention_case(gen, label: str, lengths, timed: bool = False) -> dic
     text = (f"max abs err {err:.3g} (worst err/limit {ratio:.3g}; controls over it: unrounded "
             f"probabilities {n_un}, one tile dropped {n_drop}); bf16 store = f32 output rounded; "
             f"{int(dead.sum())} all-padding docs vs the mean of v {dead_err:.3g}"
-            + (f"; plan: tile {plan.tile} slots, ring {plan.stages} stages, {plan.positions} "
-               f"positions a block" if plan is not None else ""))
+            + (f"; plan: {plan.regime} regime, grid {plan.grid} blocks, {plan.q_buffers} Q "
+               f"buffers, tile {plan.tile} slots, ring {plan.stages} stages, {plan.positions} "
+               f"positions an item, {plan.smem} B shared" if plan is not None else ""))
+    if DEVICE == "cuda" and plan.regime != "persistent":
+        raise AssertionError(f"{what}: launched the {plan.regime} regime, not the persistent one")
     if timed:
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: at.prefill_attention(q, k, v, pos, pos, valid, dt=bf16,
@@ -2043,7 +2153,8 @@ def encoder_attention_case(gen, label: str, lengths, timed: bool = False) -> dic
         nbytes = 4 * b * t * h * hd * 2 + valid.numel() + 2 * pos.numel() * 4
         bnd = bound(nbytes, ops, "bf16")
         out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bnd)
-        text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        text += (f"; kernel {ms:.4f} ms{earlier('prefill_attention', label)}, plain "
+                 f"{plain_ms:.4f} ms, scaled_dot_product_attention "
                  f"{lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {pairs} "
                  f"attended pairs a head, {ops:.3g} operations, {nbytes / 1e6:.1f} MB; "
                  f"{bnd['bound_ms'] / ms:.0%} of it)")
@@ -2100,6 +2211,7 @@ def phase_encoder_kernels(docs_tokens, results: dict) -> dict:
             torch.cuda.empty_cache()
     checks = [encoder_norm_case(gen, "embedding", ENCODER_BATCH * t_build, delta=False),
               encoder_norm_case(gen, "embedding query", 8 * ENCODER_QUERY_T, delta=False)]
+    results["gelu_table"] = encoder_gelu_table_case()
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     t_shape = f"{ENCODER_BATCH} x {t_build}"
     for name, cases, shape, extra in (
@@ -2191,6 +2303,10 @@ def encoder_batch_both_ways(encode, encode32, texts, questions) -> None:
           f"vs PlainEncoder's max abs diff {drift:.3g} (max abs {np.abs(pe).max():.3g}, bound "
           f"{ENCODER_DRIFT:.0%} of it, and PlainEncoder vs the f32 route's {rounding:.3g})",
           flush=True)
+    with GeluMisses() as gm:
+        encode(batch)
+    print(f"  the first batch's GELU inputs outside bias_gelu.cu's window: {gm.missed} of "
+          f"{gm.total} ({gm.missed / max(gm.total, 1):.3g})", flush=True)
     qs = questions[:ENCODER_QUERIES]
     qk = encode(qs)
     with PlainEncoder():
@@ -2245,6 +2361,7 @@ def dense_index_build(docs_tokens):
     from probing_rag_tpu_torch import kernels
     from probing_rag_tpu_torch.models.encoder import init_encoder_params, text_encoder
     from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+    from probing_rag_tpu_torch.ops import encoder as ek
     from probing_rag_tpu_torch.retrieval.dense import DenseIndex
 
     ecfg = encoder_config()
@@ -2264,18 +2381,20 @@ def dense_index_build(docs_tokens):
     del encode32
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    ek.GELU_TABLES.clear()  # the build makes bias_gelu.cu's table anew, at its first GELU
     kernels.reset_launches()
     sync()
     t0 = time.time()
     index = DenseIndex.build(texts, encode, batch_size=ENCODER_BATCH)  # the CLI's 512
     build_s = time.time() - t0
-    counts = {n: kernels.LAUNCHES[n] for n in ENCODER_KERNELS}
+    counts = {n: kernels.LAUNCHES[n] for n in ENCODER_KERNELS + ("gelu_table",)}
     if index.embeddings.shape != (len(texts), ecfg.d_model) or not np.isfinite(index.embeddings).all():
         raise AssertionError("dense index embeddings are not finite [N, D]")
     batches = -(-len(texts) // ENCODER_BATCH)
     want = {"prefill_attention": ecfg.n_layers * batches,
             "layer_norm": (2 * ecfg.n_layers + 1) * batches,
-            "bias_gelu": ecfg.n_layers * batches, "qkv_heads": ecfg.n_layers * batches}
+            "bias_gelu": ecfg.n_layers * batches, "qkv_heads": ecfg.n_layers * batches,
+            "gelu_table": 1 if DEVICE == "cuda" else 0}
     if counts != want:
         raise AssertionError(f"the index build launched {counts}, not {want}")
     print(f"  Contriever-width index of {len(texts)} docs (mean "
@@ -2363,7 +2482,8 @@ def phase_dense_main_path(docs_tokens, lm) -> dict:
               f"{', '.join(e[0] for e in engines)}: each equal to its CPU engine")
     phase_stemming(texts, questions)
     return {"dense_topk": flat_counts["dense_topk"], "ivf_topk": ivf_counts["ivf_topk"],
-            **{n: build_counts[n] for n in ("layer_norm", "bias_gelu", "qkv_heads")},
+            **{n: build_counts[n] for n in ("layer_norm", "bias_gelu", "qkv_heads",
+                                            "gelu_table")},
             "encoder_prefill_attention": build_counts["prefill_attention"]}
 
 
@@ -3641,7 +3761,7 @@ def prefill_operands(gen, kind: str, t: int, cache: bool, model: str = "gemma_2b
 
 
 def prefill_case(gen, label: str, kind: str, t: int, cache: bool, model: str = "gemma_2b",
-                 kv_heads=None) -> dict:
+                 kv_heads=None, regime: str = "tiles") -> dict:
     """One ``prefill_attention`` case: the kernel against its plain version
     on the card (same operands; on ``kv_heads`` (first, count) of the cache
     where given), held element by element to ``rounding_tolerance`` (which
@@ -3699,6 +3819,8 @@ def prefill_case(gen, label: str, kind: str, t: int, cache: bool, model: str = "
         raise AssertionError(f"{what}: kernel differs from plain by {err} ({limit})")
     if not bit_equal:
         raise AssertionError(f"{what}: two launches on the same operands differ")
+    if plan.regime != regime:
+        raise AssertionError(f"{what}: launched the {plan.regime} regime, not the {regime} one")
     if n_un == 0 or n_drop == 0:
         raise AssertionError(f"{what}: the bf16 limit lets a fault through ({limit})")
     if dead_err > 1e-5 * float(want.abs().max()) + 1e-6:
@@ -3731,7 +3853,8 @@ def prefill_case(gen, label: str, kind: str, t: int, cache: bool, model: str = "
         lib_ms, line = None, f"scaled_dot_product_attention: none ({str(e).splitlines()[0][:60]})"
     print(f"  {what}: max abs err {err:.3g} (limit {limit}); two launches bit-equal; "
           f"{int(dead.sum())} rows with no attendable slot vs v summed at weight 1 / S "
-          f"{dead_err:.3g}; plan: tile {plan.tile} slots, ring {plan.stages} stages, raw ring "
+          f"{dead_err:.3g}; plan: {plan.regime} regime, grid {plan.grid}, tile {plan.tile} "
+          f"slots, ring {plan.stages} stages, raw ring "
           f"{plan.raw_stages} x {plan.raw_slots} slots, {plan.positions} positions a block, "
           f"{plan.smem} B shared; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {line}, bound "
           f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; {pairs} attended pairs a head, "
@@ -3748,7 +3871,10 @@ def phase_prefill_kernels(results: dict) -> None:
     an all-pad row) over bf16, int8 and int4 caches; the capture forward's
     no-cache shape (8 x ``TRAIN_MAX_LEN``, positions-style pads); Mistral-7B's
     (32 heads / 8 kv x 128) at ``PREFILL_MISTRAL_T`` over an int8 cache,
-    whole and on kv heads 2-3 (a tensor-parallel rank's slice). The kernels
+    whole and on kv heads 2-3 (a tensor-parallel rank's slice), and its
+    short no-cache forward (8 x ``PREFILL_SHORT_T``, bf16: the persistent
+    regime at head dim 128, which the encoder's head dim 64 does not
+    reach). Every case but the last must launch PR 15's regime. The kernels
     line takes the bf16 prefill case and the others' times. First, ptxas's
     report of each ``prefill_attn`` instantiation (registers and spills,
     which ptxas gives a kernel, not a role) beside the plan's setmaxnreg
@@ -3762,8 +3888,10 @@ def phase_prefill_kernels(results: dict) -> None:
     names = {0: "bf16", 1: "f32", 2: "int8", 3: "int4"}
     for u in sorted(kernels.ptxas_usage("prefill_attnI"), key=lambda u: u["template"]):
         kind, hd = u["template"][:2]
-        plan = at.plan_prefill_attention(kinds[kind], hd, 1)
-        print(f"  ptxas prefill_attn<{names[kind]}, hd {hd}>: {u['registers']} registers a thread "
+        persistent = "Lb1E" in u["name"]  # the regime's template argument
+        plan = at.plan_prefill_attention(kinds[kind], hd, 1, 512 if persistent else 4096)
+        print(f"  ptxas prefill_attn<{names[kind]}, hd {hd}, {plan.regime}>: {u['registers']} "
+              f"registers a thread "
               f"at launch, spills {u['spill_stores']} B stored / {u['spill_loads']} B loaded; "
               f"setmaxnreg consumers {plan.consumer_regs}, producer {plan.producer_regs}"
               + (f"; {'; '.join(u['warnings'])}" if u["warnings"] else ""), flush=True)
@@ -3776,6 +3904,9 @@ def phase_prefill_kernels(results: dict) -> None:
         "mistral": prefill_case(gen, "prefill", "int8", PREFILL_MISTRAL_T, True, "mistral_7b"),
         "mistral slice": prefill_case(gen, "prefill", "int8", PREFILL_MISTRAL_T, True,
                                       "mistral_7b", (2, 2)),
+        # the persistent regime at head dim 128 (a short no-cache forward)
+        "mistral short": prefill_case(gen, "short no-cache forward", "bf16", PREFILL_SHORT_T,
+                                      False, "mistral_7b", regime="persistent"),
     }
     main = out["prefill bf16"]
     results["prefill_attention"] = {
@@ -6027,8 +6158,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with Phase("7 dense main path"):
         dense_launches = phase_dense_main_path(docs_tokens, lm)
-    launches.update({n: dense_launches[n]
-                     for n in DENSE_KERNELS + ("layer_norm", "bias_gelu", "qkv_heads")})
+    launches.update({n: dense_launches[n] for n in DENSE_KERNELS + (
+        "layer_norm", "bias_gelu", "qkv_heads", "gelu_table")})
     with Phase("8 quantized main path"):
         quant_launches = phase_quantized(lm, index, questions, results)
         launches.update({n: quant_launches[n] for n in ("matmul_int8", "matmul_int4")})

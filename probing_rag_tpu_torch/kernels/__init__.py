@@ -55,6 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "gated_act": 0,
     "layer_norm": 0,
     "bias_gelu": 0,
+    "gelu_table": 0,
     "qkv_heads": 0,
 }
 
@@ -95,8 +96,9 @@ _SIGNATURES = {
     "decode_attention": [_P] * 11 + [_I] * 9 + [_LL] * 6 + [_I, _I, _F, _P],
     # q, k, v, k/v scales, qpos, kpos, valid, keff, tmin, vpart, vsum, out;
     # kind, b, kvh, g, t, s, hd, grp; cache and scale strides; the plan's
-    # tile, stages, raw_slots, raw_stages, smem; out_bf16, scale, stream
-    "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_I] * 6 + [_F, _P],
+    # tile, stages, raw_slots, raw_stages, smem, regime, grid; out_bf16,
+    # scale, stream
+    "prefill_attention": [_P] * 13 + [_I] * 8 + [_LL] * 4 + [_I] * 8 + [_F, _P],
     # x, delta, w, resid, normed; delta / weight / out kinds, rows, d, eps,
     # plus_one, the plan's width, rows_block, blocks, chunk; stream
     "rms_norm": [_P] * 5 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
@@ -111,8 +113,11 @@ _SIGNATURES = {
     # resid, delta, bias, w, b, out, xin; rows, d, eps, the plan's per,
     # warps, blocks; stream
     "layer_norm": [_P] * 7 + [_I, _I, _F] + [_I] * 3 + [_P],
-    # h, bias; rows, f, the plan's vec, threads, blocks; stream
-    "bias_gelu": [_P] * 2 + [_I] * 5 + [_P],
+    # h, bias, table; rows, f, the plan's vec, threads, blocks, unroll,
+    # win_lo, win_len; stream
+    "bias_gelu": [_P] * 3 + [_I] * 8 + [_P],
+    # table; stream
+    "gelu_table": [_P, _P],
     # y, bq, bk, bv, q, k, v; b, t, h, hd, the plan's vec, threads, blocks;
     # stream
     "qkv_heads": [_P] * 7 + [_I] * 7 + [_P],

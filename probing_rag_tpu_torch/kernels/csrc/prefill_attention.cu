@@ -65,6 +65,32 @@
 //     bf16 (the Contriever encoder casts it at once,
 //     probing_rag_tpu/models/encoder.py:123): half the store and no pass
 //     of its own for the cast.
+//   - two regimes, chosen from the shape (pattn::regime). PR 15's: a block
+//     a work item (batch row, kv head, query tile of 2 x 64 rows). The
+//     persistent regime (PR 22), for a bf16 cache of at most 4 slot tiles
+//     at head dim 64-128 (the Contriever encoder's 12 heads of 64 over at
+//     most 512 keys): there a block an item would visit 1-4 tiles a sweep
+//     and pay the ring's fill and drain every item, and the warps wait on
+//     their own chains of product, softmax and barrier rather than on the
+//     tensor cores, MUFU or bytes (measured). So:
+//       - one block an SM walks the items in a fixed stride, a (batch row,
+//         kv head)'s query tiles side by side (K and V read once from
+//         device memory, then from L2);
+//       - three consumer warpgroups of 64 rows (192 rows an item, 512
+//         threads, setmaxnreg 160 / 32: more independent warps to hide
+//         those chains), taking no turns;
+//       - Q has two buffers, each with the item's facts beside it (its
+//         tile count and qpos, written by the producer while the item's Q
+//         is in flight), and the ring's steps and phases run on across
+//         items: the producer loads the next item's Q and first tiles
+//         while the consumers finish the current one;
+//       - a warpgroup whose rows all lie past T only waits for and
+//         releases its stages (a query batch's T 40: 0.0152 -> 0.0142 ms;
+//         the branch costs 3% at the index build's shape, which never
+//         takes it: measured, H100, 700 W);
+//       - V is summed only for batch rows that hold a row attending
+//         nothing (prefill_prep_rows, prefill_vsum_rows).
+//     An item's arithmetic is otherwise PR 15's.
 // Launches: prep (V partial sums, valid-slot positions and tile minima),
 // finish (the sums in a fixed order), attention; one call counts one
 // launch. No allocation and no host sync: the wrapper hands in the scratch
@@ -92,57 +118,49 @@
 
 namespace pattn {
 
-struct Args {  // the attention reads Q, K and V by TMA (Maps); the prep pass reads v
-  const unsigned char* v;   // cache layer; slots of a (b, kv head) contiguous
-  const float* k_scale;
-  const float* v_scale;
-  const int* qpos;          // [B, T]
-  const int* kpos;          // [B, S]
-  const unsigned char* valid;  // [B, S]
-  int* keff;                // [B, ntiles * tile]: kpos of a valid slot, else INT_MAX
-  int* tmin;                // [B, ntiles]: a tile's least keff
-  float* vpart;             // [nchunks, B * KV, hd]
-  float* vsum;              // [B * KV, hd]
-  void* out;                // [B, T, KV * G * hd] f32, or bf16 with out_bf16
-  long long kv_b, kv_h;     // byte strides of the cache's batch and kv-head dims
-  long long sc_b, sc_r;     // element strides of the scales' batch and row dims
-  int kvh, g, t, s, hd, grp;
-  int ntiles, nchunks;      // tiles, prep chunks
-  int npos, qtiles, bkv;    // positions a consumer, query tiles of 2 npos, B * KV
-  int out_bf16;             // store the output rounded to bf16 (else f32)
-  float scale;              // 1 / sqrt(hd), rounded to f32
-};
-
-struct Maps {
-  CUtensorMap q, k, v;
-};
-
-// the three launches for one cache kind; plan: tile, stages, raw_slots,
-// raw_stages, smem (checked against the kernel's own layout)
-cudaError_t launch_bf16(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
-cudaError_t launch_f32(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
-cudaError_t launch_int8(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
-cudaError_t launch_int4(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
-
 // ---- the plan, shared by the kernels and the C entry's check. Its
-// Python mirror is ops/attention.py::plan_prefill_attention.
+// Python mirror is ops/attention.py::plan_prefill_attention. Host code
+// compiles it too (tests/test_torch_prefill_attention.py holds the planner
+// to it).
 constexpr int kBudget = 232448;  // shared memory a block may use
 constexpr int kSlack = 1024;     // the base aligned up to 1024 bytes
 constexpr int kRows = 64;        // query rows a consumer warpgroup
-constexpr int kConsumers = 2;
-constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kConsumers = 2;    // consumer warpgroups of PR 15's regime
 constexpr int kStagesMax = 6;    // ring stages at most
 constexpr int kRawMax = 4;       // raw stages at most
 constexpr int kRawBytes = 16384;  // raw rows a raw stage at most
+// the regimes: PR 15's, a block an item; persistent, a block an SM that
+// walks items, for a bf16 cache of at most kPersistentTiles slot tiles at a
+// head dim in [kPersistentMinHd, kPersistentMaxHd] (the Contriever
+// encoder's 12 x 64 over at most 512 keys)
+constexpr int kTiles = 0;
+constexpr int kPersistent = 1;
+constexpr int kPersistentTiles = 4;
+constexpr int kPersistentMinHd = 64;
+constexpr int kPersistentMaxHd = 128;
+constexpr int kPersistentStagesMax = 8;
+constexpr int kPersistentConsumers = 3;  // 192 query rows an item (FA3's at head dim 64)
 
-// registers a thread (setmaxnreg) of the consumers and of the producer: the
-// block holds 384 x 168, so 2 x consumer + producer <= 504. A producer that
-// widens keeps four 8-lane units in flight in 56.
-__host__ __device__ constexpr int consumer_regs(int kind) { return kind == attn::kBf16 ? 232 : 224; }
-__host__ __device__ constexpr int producer_regs(int kind) { return kind == attn::kBf16 ? 40 : 56; }
-static_assert(2 * consumer_regs(0) + producer_regs(0) <= 504 &&
-                  2 * consumer_regs(1) + producer_regs(1) <= 504,
-              "setmaxnreg moves registers within the block's 384 x 168");
+__host__ __device__ constexpr int consumers(int regime) {
+  return regime == kPersistent ? kPersistentConsumers : kConsumers;
+}
+// a block: the consumer warpgroups and one producer warpgroup
+__host__ __device__ constexpr int threads(int regime) { return 128 * (consumers(regime) + 1); }
+
+// registers a thread (setmaxnreg) of the consumers and of the producer: a
+// block of 384 holds 384 x 168, so 2 x consumer + producer <= 504; one of
+// 512 (persistent) 512 x 128, so 3 x consumer + producer <= 512. A producer
+// that widens keeps four 8-lane units in flight in 56.
+__host__ __device__ constexpr int consumer_regs(int kind, int regime) {
+  return regime == kPersistent ? 160 : kind == attn::kBf16 ? 232 : 224;
+}
+__host__ __device__ constexpr int producer_regs(int kind, int regime) {
+  return regime == kPersistent ? 32 : kind == attn::kBf16 ? 40 : 56;
+}
+static_assert(2 * consumer_regs(0, kTiles) + producer_regs(0, kTiles) <= 504 &&
+                  2 * consumer_regs(1, kTiles) + producer_regs(1, kTiles) <= 504 &&
+                  3 * consumer_regs(0, kPersistent) + producer_regs(0, kPersistent) <= 512,
+              "setmaxnreg moves registers within the block's file");
 
 __host__ __device__ constexpr int row_bytes(int kind, int hd) {
   return kind == attn::kBf16 ? hd * 2 : kind == attn::kF32 ? hd * 4 : kind == attn::kInt8 ? hd
@@ -163,32 +181,92 @@ __host__ __device__ constexpr int raw_scales(int kind, int hd) {
 __host__ __device__ constexpr int raw_stage_bytes(int kind, int hd) {
   return raw_slots(kind, hd) * (row_bytes(kind, hd) + 4) + raw_scales(kind, hd) * 4;
 }
-// Q, r ring stages (a bf16 tile and its keff), rd raw stages, the barriers
-__host__ __device__ constexpr int smem_bytes(int kind, int hd, int r, int rd) {
-  return kConsumers * kRows * hd * 2 + r * tile_slots(hd) * (hd * 2 + 4) +
-         rd * raw_stage_bytes(kind, hd) + 8 * (1 + 2 * (r + rd)) + kSlack;
+// Q buffers: the persistent regime loads the next item's Q into the second
+__host__ __device__ constexpr int q_buffers(int regime) { return regime == kPersistent ? 2 : 1; }
+// in the persistent regime each Q buffer has the item's facts beside it:
+// its tile count and its positions' qpos, ints (the producer's, so the
+// consumers wait on no device-memory load between items)
+constexpr int kMetaInts = 4 + kPersistentConsumers * kRows;
+__host__ __device__ constexpr int meta_bytes(int regime) {
+  return regime == kPersistent ? q_buffers(regime) * kMetaInts * 4 : 0;
 }
-__host__ __device__ constexpr bool fits(int kind, int hd, int r, int rd) {
-  return smem_bytes(kind, hd, r, rd) <= kBudget;
+// Q's buffers, r ring stages (a bf16 tile and its keff), rd raw stages, the
+// items' facts, the barriers (Q's full, and with two buffers their empty;
+// the ring's and the raw ring's full and empty)
+__host__ __device__ constexpr int smem_bytes(int kind, int hd, int r, int rd, int regime) {
+  return q_buffers(regime) * consumers(regime) * kRows * hd * 2 +
+         r * tile_slots(hd) * (hd * 2 + 4) + rd * raw_stage_bytes(kind, hd) + meta_bytes(regime) +
+         8 * ((regime == kPersistent ? 2 * q_buffers(regime) : 1) + 2 * (r + rd)) + kSlack;
 }
-// bf16: the most stages that fit, up to 6; beside a raw ring: 4 where three
-// raw stages still fit, else 3
-__host__ __device__ constexpr int ring_stages(int kind, int hd) {
+__host__ __device__ constexpr bool fits(int kind, int hd, int r, int rd, int regime) {
+  return smem_bytes(kind, hd, r, rd, regime) <= kBudget;
+}
+// the regime of a call: from the cache's kind, the head dim and the slots
+__host__ __device__ constexpr int regime(int kind, int hd, int s) {
+  return kind == attn::kBf16 && hd >= kPersistentMinHd && hd <= kPersistentMaxHd &&
+                 (s + tile_slots(hd) - 1) / tile_slots(hd) <= kPersistentTiles
+             ? kPersistent
+             : kTiles;
+}
+// bf16: the most stages that fit, up to 6 (persistent: up to 8, beside two
+// Q buffers); beside a raw ring: 4 where three raw stages still fit, else 3
+__host__ __device__ constexpr int ring_stages(int kind, int hd, int regime) {
   if (kind == attn::kBf16) {
-    int r = kStagesMax;
-    while (r > 2 && !fits(kind, hd, r, 0)) --r;
+    int r = regime == kPersistent ? kPersistentStagesMax : kStagesMax;
+    while (r > 2 && !fits(kind, hd, r, 0, regime)) --r;
     return r;
   }
-  return fits(kind, hd, 4, 3) ? 4 : fits(kind, hd, 3, 3) ? 3 : 2;
+  return fits(kind, hd, 4, 3, kTiles) ? 4 : fits(kind, hd, 3, 3, kTiles) ? 3 : 2;
 }
 __host__ __device__ constexpr int raw_stages(int kind, int hd) {
   if (kind == attn::kBf16) return 0;
   int rd = kRawMax;
-  while (rd > 1 && !fits(kind, hd, ring_stages(kind, hd), rd)) --rd;
+  while (rd > 1 && !fits(kind, hd, ring_stages(kind, hd, kTiles), rd, kTiles)) --rd;
   return rd;
+}
+// blocks of a launch over `items` work items on `sms` SMs
+__host__ __device__ constexpr int grid(int regime, int items, int sms) {
+  return regime == kPersistent && sms < items ? sms : items;
 }
 
 }  // namespace pattn
+
+namespace pattn {
+
+struct Args {  // the attention reads Q, K and V by TMA (Maps); the prep pass reads v
+  const unsigned char* v;   // cache layer; slots of a (b, kv head) contiguous
+  const float* k_scale;
+  const float* v_scale;
+  const int* qpos;          // [B, T]
+  const int* kpos;          // [B, S]
+  const unsigned char* valid;  // [B, S]
+  int* keff;                // [B, ntiles * tile]: kpos of a valid slot, else INT_MAX
+  int* tmin;                // [B, ntiles]: a tile's least keff
+  float* vpart;             // [nchunks, B * KV, hd]; persistent: need[B] (ints)
+  float* vsum;              // [B * KV, hd]
+  void* out;                // [B, T, KV * G * hd] f32, or bf16 with out_bf16
+  long long kv_b, kv_h;     // byte strides of the cache's batch and kv-head dims
+  long long sc_b, sc_r;     // element strides of the scales' batch and row dims
+  int kvh, g, t, s, hd, grp;
+  int ntiles, nchunks;      // tiles, prep chunks
+  int npos, qtiles, bkv;    // positions a consumer, query tiles of consumers x npos, B * KV
+  int out_bf16;             // store the output rounded to bf16 (else f32)
+  float scale;              // 1 / sqrt(hd), rounded to f32
+};
+
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+// the three launches for one cache kind; plan: tile, stages, raw_slots,
+// raw_stages, smem (checked against the kernel's own layout), then the
+// regime and the grid (checked by the entry)
+cudaError_t launch_bf16(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
+cudaError_t launch_f32(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
+cudaError_t launch_int8(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
+cudaError_t launch_int4(const Args& a, const Maps& m, const int* plan, cudaStream_t stream);
+
+}  // namespace pattn (launches)
 
 namespace {
 
@@ -198,34 +276,67 @@ using pattn::Args;
 constexpr int kPrepSlots = 256;  // slots a prep block
 constexpr int kPrepThreads = 256;
 
-template <int KIND, int HD>
-struct L {  // the layout of one instantiation
+template <int KIND, int HD, bool P = false>
+struct L {  // the layout of one instantiation; P: the persistent regime
   static constexpr int kSw = HD >= 64 ? 128 : 64;  // swizzle span: bytes of a tile row's chunk
   static constexpr int kChunks = HD * 2 / kSw;      // chunks of kSw bytes a bf16 row
   static constexpr int kCw = kSw / 16;              // 16-byte pieces a chunk row
   static constexpr int kN = pattn::tile_slots(HD);
   static constexpr int kRowBytes = pattn::row_bytes(KIND, HD);
   static constexpr int kTile = kN * HD * 2;
-  static constexpr int kR = pattn::ring_stages(KIND, HD);
+  static constexpr int kRegime = P ? pattn::kPersistent : pattn::kTiles;
+  static constexpr int kC = pattn::consumers(kRegime);  // consumer warpgroups
+  static constexpr int kThreads = pattn::threads(kRegime);
+  static constexpr int kQB = pattn::q_buffers(kRegime);
+  static constexpr int kQBars = kQB > 1 ? 2 * kQB : 1;  // Q's full (and empty) barriers
+  static constexpr int kQBytes = kC * pattn::kRows * HD * 2;  // a Q buffer
+  static constexpr int kR = pattn::ring_stages(KIND, HD, kRegime);
   static constexpr int kRD = pattn::raw_stages(KIND, HD);
   static constexpr int kRS = pattn::raw_slots(KIND, HD);
   static constexpr int kPP = KIND == attn::kBf16 ? 1 : kN / kRS;  // raw stages a tile
   static constexpr int kScales = pattn::raw_scales(KIND, HD);
-  static constexpr int kBytes = pattn::smem_bytes(KIND, HD, kR, kRD);
+  static constexpr int kBytes = pattn::smem_bytes(KIND, HD, kR, kRD, kRegime);
   // byte offsets from the 1024-aligned base
-  static constexpr int Q_OFF = 0;  // [consumer][chunk][64 rows][kSw]
-  static constexpr int RING_OFF = pattn::kConsumers * pattn::kRows * HD * 2;  // [stage][chunk][kN][kSw]
+  static constexpr int Q_OFF = 0;  // [buffer][consumer][chunk][64 rows][kSw]
+  static constexpr int RING_OFF = kQB * kQBytes;  // [stage][chunk][kN][kSw]
   static constexpr int RAW_OFF = RING_OFF + kR * kTile;             // [stage][kRS][row]
   static constexpr int RSC_OFF = RAW_OFF + kRD * kRS * kRowBytes;   // [stage][kRS][groups] f32
   static constexpr int RKE_OFF = RSC_OFF + kRD * kScales * 4;       // [stage][kRS] int32
   static constexpr int KEFF_OFF = RKE_OFF + kRD * kRS * 4;          // [stage][kN] int32
-  static constexpr int BAR_OFF = KEFF_OFF + kR * kN * 4;
+  static constexpr int META_OFF = KEFF_OFF + kR * kN * 4;  // [buffer][kMetaInts]: n, -, -, -, qpos
+  static constexpr int BAR_OFF = META_OFF + pattn::meta_bytes(kRegime);
   static_assert(kN % 8 == 0 && kN <= 256 && HD <= 256, "wgmma widths");
   static_assert(RAW_OFF % 1024 == 0 && (kRS * kRowBytes) % 128 == 0, "TMA destinations");
   static_assert(BAR_OFF % 8 == 0, "barriers");
   static_assert(KIND == attn::kBf16 || (kRD >= 1 && kN % (kRS > 0 ? kRS : 1) == 0), "raw ring");
+  static_assert(!P || (KIND == attn::kBf16 && HD >= pattn::kPersistentMinHd &&
+                       HD <= pattn::kPersistentMaxHd),
+                "the persistent regime takes a bf16 cache at its head dims");
   static_assert(kBytes <= pattn::kBudget, "shared memory");
 };
+
+// keff and tmin of the tiles of slot chunk `chunk` of batch row b, a warp a
+// tile: each slot's keff, the tile's least
+template <int KIND, int HD>
+__device__ __forceinline__ void prep_tiles(const Args& a, int b, int chunk) {
+  constexpr int kN = L<KIND, HD>::kN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = chunk * kPrepSlots;
+  const int tile0 = s0 / kN, tile1 = min((s0 + kPrepSlots) / kN, a.ntiles);
+  for (int tile = tile0 + warp; tile < tile1; tile += kPrepThreads / 32) {
+    int least = INT_MAX;
+    for (int i = lane; i < kN; i += 32) {
+      const int slot = tile * kN + i;
+      int ke = INT_MAX;
+      if (slot < a.s && __ldg(a.valid + (long long)b * a.s + slot))
+        ke = __ldg(a.kpos + (long long)b * a.s + slot);
+      a.keff[(long long)b * a.ntiles * kN + slot] = ke;
+      least = min(least, ke);
+    }
+    least = __reduce_min_sync(0xffffffffu, least);
+    if (lane == 0) a.tmin[(long long)b * a.ntiles + tile] = least;
+  }
+}
 
 // Prep. Grid (nchunks, B * KV), kPrepThreads threads. Partial sums of V
 // (dequantized to bf16, summed in f32) over the chunk's slots; kv head 0's
@@ -297,23 +408,7 @@ __global__ void __launch_bounds__(kPrepThreads) prefill_prep(Args a) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) o[e] = sum[e];
   }
-  if (h == 0) {  // a warp a tile: each slot's keff, the tile's least
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int tile0 = s0 / kN, tile1 = min((s0 + kPrepSlots) / kN, a.ntiles);
-    for (int tile = tile0 + warp; tile < tile1; tile += kPrepThreads / 32) {
-      int least = INT_MAX;
-      for (int i = lane; i < kN; i += 32) {
-        const int slot = tile * kN + i;
-        int ke = INT_MAX;
-        if (slot < a.s && __ldg(a.valid + (long long)b * a.s + slot))
-          ke = __ldg(a.kpos + (long long)b * a.s + slot);
-        a.keff[(long long)b * a.ntiles * kN + slot] = ke;
-        least = min(least, ke);
-      }
-      least = __reduce_min_sync(0xffffffffu, least);
-      if (lane == 0) a.tmin[(long long)b * a.ntiles + tile] = least;
-    }
-  }
+  if (h == 0) prep_tiles<KIND, HD>(a, b, blockIdx.x);
 }
 
 // Finish: vsum[bk, d] = the chunks' partial sums in order.
@@ -322,6 +417,56 @@ __global__ void __launch_bounds__(256) prefill_vsum(Args a, int total) {
   if (i >= total) return;
   float sum = 0.0f;
   for (int j = 0; j < a.nchunks; ++j) sum += a.vpart[(long long)j * total + i];
+  a.vsum[i] = sum;
+}
+
+// The persistent regime's prep and finish (a bf16 cache). Only a row that
+// attends nothing reads the V sums, and at the encoder's shapes such rows
+// are rare (all-padding docs), so V is summed only for the batch rows that
+// hold one. Prep: grid (nchunks, B): keff and tmin of the chunk's tiles;
+// chunk 0's block also writes need[b], whether the least qpos of row b lies
+// under the least kpos of its valid slots (then some row attends nothing),
+// into the V partials' scratch, which this regime does not use otherwise.
+template <int KIND, int HD>
+__global__ void __launch_bounds__(kPrepThreads) prefill_prep_rows(Args a) {
+  const int b = blockIdx.y;
+  prep_tiles<KIND, HD>(a, b, blockIdx.x);
+  if (blockIdx.x != 0) return;
+  __shared__ int least[2][kPrepThreads / 32];  // a warp's: valid kpos, qpos
+  int kmin = INT_MAX, qmin = INT_MAX;
+  for (int i = threadIdx.x; i < a.s; i += kPrepThreads)
+    if (__ldg(a.valid + (long long)b * a.s + i))
+      kmin = min(kmin, __ldg(a.kpos + (long long)b * a.s + i));
+  for (int i = threadIdx.x; i < a.t; i += kPrepThreads)
+    qmin = min(qmin, __ldg(a.qpos + (long long)b * a.t + i));
+  kmin = __reduce_min_sync(0xffffffffu, kmin);
+  qmin = __reduce_min_sync(0xffffffffu, qmin);
+  if ((threadIdx.x & 31) == 0) {
+    least[0][threadIdx.x >> 5] = kmin;
+    least[1][threadIdx.x >> 5] = qmin;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kPrepThreads / 32; ++w) {
+      kmin = min(kmin, least[0][w]);
+      qmin = min(qmin, least[1][w]);
+    }
+    reinterpret_cast<int*>(a.vpart)[b] = qmin < kmin;
+  }
+}
+
+// Finish: vsum[bk, d] = V[b, kv head, s, d] summed over all S slots in slot
+// order (f32), where need[b]; else 0 (read by no row).
+template <int HD>
+__global__ void __launch_bounds__(256) prefill_vsum_rows(Args a, int total) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  const int bk = i / HD, d = i - bk * HD, b = bk / a.kvh, h = bk - b * a.kvh;
+  float sum = 0.0f;
+  if (reinterpret_cast<const int*>(a.vpart)[b]) {
+    const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(a.v + b * a.kv_b + h * a.kv_h);
+    for (int slot = 0; slot < a.s; ++slot) sum += __bfloat162float(v[(long long)slot * HD + d]);
+  }
   a.vsum[i] = sum;
 }
 
@@ -524,37 +669,53 @@ __device__ __forceinline__ void online_stats(const float (&s)[N / 2], float c2, 
   m1 = n1;
 }
 
-// The attention. One-dimensional grid of query tiles x (batch row, kv head),
-// the tiles with the most positions first; kThreads threads: consumer
-// warpgroups 0 and 1 (warps 0-7), the producer warpgroup (warps 8-11).
-template <int KIND, int HD>
-__global__ void __launch_bounds__(pattn::kThreads, 1)
+// One work item: a query tile of 2 npos positions of one (batch row, kv
+// head), the tiles it visits and how many (the same answers in every warp).
+struct Item {
+  int bk, b, h, t0;
+  int n;  // K tiles visited, each sweep
+  TileScan scan;
+};
+
+// The attention. Work items (batch row, kv head, query tile). PR 15's
+// regime (P false) launches a block an item, the query tiles with the most
+// positions first; the persistent regime (P true) launches min(SMs, items)
+// blocks that walk the items blockIdx.x, + gridDim.x, ..., a (batch row, kv
+// head)'s query tiles side by side, so that blocks in flight share its K
+// and V in L2. T::kThreads threads: the consumer warpgroups (two of 64
+// query rows taking turns, three in the persistent regime, without turns),
+// then the producer warpgroup. The ring's steps run on across items, and
+// with two Q buffers the producer loads the next item's Q and first tiles
+// while the consumers finish the current one.
+template <int KIND, int HD, bool P>
+__global__ void __launch_bounds__(L<KIND, HD, P>::kThreads, 1)
 prefill_attn(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, Args a) {
-  using T = L<KIND, HD>;
-  constexpr int kN = T::kN, kSw = T::kSw, kR = T::kR;
+  using T = L<KIND, HD, P>;
+  constexpr int kN = T::kN, kSw = T::kSw, kR = T::kR, kQB = T::kQB;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t base = hop::smem_u32(smem);
-  const uint32_t qbar = base + T::BAR_OFF;
-  const uint32_t full = qbar + 8, empty = full + 8 * kR;
+  const uint32_t qfull = base + T::BAR_OFF, qempty = qfull + 8 * kQB;  // qempty: kQB > 1
+  const uint32_t full = qfull + 8 * T::kQBars, empty = full + 8 * kR;
   const uint32_t rfull = empty + 8 * kR, rempty = rfull + 8 * T::kRD;
   const int* keff_st = reinterpret_cast<const int*>(smem + T::KEFF_OFF);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qt = a.qtiles - 1 - static_cast<int>(blockIdx.x) / a.bkv;
-  const int bk = static_cast<int>(blockIdx.x) % a.bkv, b = bk / a.kvh, h = bk - b * a.kvh;
-  const int t0 = qt * pattn::kConsumers * a.npos;
-  const int np = min(pattn::kConsumers * a.npos, a.t - t0);  // positions of this block
-  const int* qp_row = a.qpos + (long long)b * a.t + t0;
+  const int items = a.qtiles * a.bkv;
 
   if (threadIdx.x == 0) {
-    hop::mbar_init(qbar, 1);
+    for (int i = 0; i < kQB; ++i) {
+      // the TMA's arrival; with two buffers also the producer's once it has
+      // written the item's facts
+      hop::mbar_init(qfull + 8 * i, kQB > 1 ? 2 : 1);
+      if (kQB > 1) hop::mbar_init(qempty + 8 * i, 4 * T::kC);  // the consumers' warps
+    }
     // bf16: the TMA's arrival; else the producer's 128 threads after widening
     const uint32_t fill = KIND == attn::kBf16 ? 1 : 128;
     for (int i = 0; i < kR; ++i) {
       hop::mbar_init(full + 8 * i, fill);
-      hop::mbar_init(empty + 8 * i, 8);  // the consumers' 8 warps
+      hop::mbar_init(empty + 8 * i, 4 * T::kC);  // the consumers' warps
     }
     for (int i = 0; i < T::kRD; ++i) {
       hop::mbar_init(rfull + 8 * i, T::kScales > 0 ? 129 : 1);  // TMA + each thread's cp.async
@@ -564,49 +725,107 @@ prefill_attn(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   }
   __syncthreads();
 
-  int qmax = INT_MIN;
-  for (int i = lane; i < np; i += 32) qmax = max(qmax, __ldg(qp_row + i));
-  qmax = __reduce_max_sync(0xffffffffu, qmax);
-  TileScan scan{a.tmin + (long long)b * a.ntiles, a.ntiles, qmax, lane, -32, 0u};
-  const int n = scan.count();  // tiles visited, each sweep
-  const int* keff_row = a.keff + (long long)b * a.ntiles * kN;
-
-  if (warp >= 4 * pattn::kConsumers) {  // ---- producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(pattn::producer_regs(KIND)));
-    const int ptid = threadIdx.x - 128 * pattn::kConsumers;
-    if (ptid == 0) {  // Q: each consumer's 64 / G positions x G heads, zeros past T
-      hop::mbar_expect_tx(qbar, pattn::kConsumers * T::kChunks * kSw * a.g * a.npos);
-      for (int c = 0; c < pattn::kConsumers; ++c)
-        for (int ch = 0; ch < T::kChunks; ++ch)
-          hop::tma_load_4d(base + T::Q_OFF + (c * T::kChunks + ch) * pattn::kRows * kSw, &qmap,
-                           qbar, ch * (kSw / 2), h * a.g, t0 + c * a.npos, b);
+  // item it's coordinates
+  auto coords = [&](int it) {
+    Item I;
+    int qt;
+    if constexpr (P) {
+      I.bk = it / a.qtiles;
+      qt = it - I.bk * a.qtiles;
+    } else {
+      qt = a.qtiles - 1 - it / a.bkv;
+      I.bk = it % a.bkv;
     }
+    I.b = I.bk / a.kvh;
+    I.h = I.bk - I.b * a.kvh;
+    I.t0 = qt * T::kC * a.npos;
+    return I;
+  };
+  // its positions and the tiles it visits, worked out by every lane of a
+  // warp; with kQB > 1 written beside Q buffer qb for the consumers
+  auto item_at = [&](int it, int* meta) {
+    Item I = coords(it);
+    const int np = min(T::kC * a.npos, a.t - I.t0);  // positions of the item
+    const int* qp_row = a.qpos + (long long)I.b * a.t + I.t0;
+    int qmax = INT_MIN;
+    for (int i = lane; i < np; i += 32) {
+      const int qp = __ldg(qp_row + i);
+      if (meta) meta[4 + i] = qp;
+      qmax = max(qmax, qp);
+    }
+    qmax = __reduce_max_sync(0xffffffffu, qmax);
+    I.scan = TileScan{a.tmin + (long long)I.b * a.ntiles, a.ntiles, qmax, lane, -32, 0u};
+    I.n = I.scan.count();
+    if (meta && lane == 0) meta[0] = I.n;
+    return I;
+  };
+  int* const meta_base = reinterpret_cast<int*>(smem + T::META_OFF);
+  auto keff_row = [&](const Item& I) { return a.keff + (long long)I.b * a.ntiles * kN; };
+
+  if (warp >= 4 * T::kC) {  // ---- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
+                 ::"n"(pattn::producer_regs(KIND, T::kRegime)));
+    const int ptid = threadIdx.x - 128 * T::kC;
+    // Q of the block's u-th item into buffer u % kQB, by one thread: each
+    // consumer's 64 / G positions x G heads, zeros past T
+    auto load_q = [&](const Item& I, int u) {
+      const int qb = u % kQB;
+      hop::mbar_expect_tx(qfull + 8 * qb, T::kC * T::kChunks * kSw * a.g * a.npos);
+      for (int c = 0; c < T::kC; ++c)
+        for (int ch = 0; ch < T::kChunks; ++ch)
+          hop::tma_load_4d(base + T::Q_OFF + qb * T::kQBytes +
+                               (c * T::kChunks + ch) * pattn::kRows * kSw,
+                           &qmap, qfull + 8 * qb, ch * (kSw / 2), I.h * a.g, I.t0 + c * a.npos,
+                           I.b);
+    };
     if constexpr (KIND == attn::kBf16) {  // one warp: its first lane issues the loads
       if (ptid < 32) {
-        // ring step g: tile j of K (with its keff) or V
-        auto load = [&](const CUtensorMap* map, int g, int j, bool with_keff) {
-          const int st = g % kR;
-          hop::mbar_wait(empty + 8 * st, ((g / kR) & 1) ^ 1);
-          if (lane == 0) {
-            hop::mbar_expect_tx(full + 8 * st, T::kTile + (with_keff ? kN * 4 : 0));
-            for (int ch = 0; ch < T::kChunks; ++ch)
-              hop::tma_load_4d(base + T::RING_OFF + st * T::kTile + ch * kN * kSw, map,
-                               full + 8 * st, ch * (kSw / 2), j * kN, h, b);
-            if (with_keff)
-              hop::bulk_load(base + T::KEFF_OFF + st * kN * 4, keff_row + j * kN, kN * 4,
-                             full + 8 * st);
+        int g = 0, u = 0;
+        for (int it = blockIdx.x; it < items; it += gridDim.x, ++u) {
+          int* meta = nullptr;
+          if (kQB > 1) {  // the buffer's previous item is done: Q in flight while
+            // the item's facts are worked out and written, then their arrival
+            hop::mbar_wait(qempty + 8 * (u % kQB), ((u / kQB) & 1) ^ 1);
+            meta = meta_base + (u % kQB) * pattn::kMetaInts;
+            if (lane == 0) load_q(coords(it), u);
           }
-        };
-        int g = 0;
-        for (int sw = 0; sw < 2; ++sw) {
-          scan.start();
-          for (int j = scan.next(); j < a.ntiles; j = scan.next()) {
-            load(&kmap, g++, j, true);
-            if (sw) load(&vmap, g++, j, false);
+          Item I = item_at(it, meta);
+          const int* kr = keff_row(I);
+          __syncwarp();  // the facts written before the arrival that publishes them
+          if (lane == 0) {
+            if (kQB > 1)
+              hop::mbar_arrive(qfull + 8 * (u % kQB));
+            else
+              load_q(I, u);
+          }
+          // ring step g: tile j of K (with its keff) or V
+          auto load = [&](const CUtensorMap* map, int g, int j, bool with_keff) {
+            const int st = g % kR;
+            hop::mbar_wait(empty + 8 * st, ((g / kR) & 1) ^ 1);
+            if (lane == 0) {
+              hop::mbar_expect_tx(full + 8 * st, T::kTile + (with_keff ? kN * 4 : 0));
+              for (int ch = 0; ch < T::kChunks; ++ch)
+                hop::tma_load_4d(base + T::RING_OFF + st * T::kTile + ch * kN * kSw, map,
+                                 full + 8 * st, ch * (kSw / 2), j * kN, I.h, I.b);
+              if (with_keff)
+                hop::bulk_load(base + T::KEFF_OFF + st * kN * 4, kr + j * kN, kN * 4,
+                               full + 8 * st);
+            }
+          };
+          for (int sw = 0; sw < 2; ++sw) {
+            I.scan.start();
+            for (int j = I.scan.next(); j < a.ntiles; j = I.scan.next()) {
+              load(&kmap, g++, j, true);
+              if (sw) load(&vmap, g++, j, false);
+            }
           }
         }
       }
-    } else {  // all 128 threads: raw stages in by TMA and cp.async, widened to bf16
+    } else {  // all 128 threads, one item: raw stages in by TMA and cp.async, widened to bf16
+      Item I = item_at(blockIdx.x, nullptr);
+      const int n = I.n, b = I.b, h = I.h;
+      const int* kr = keff_row(I);
+      if (ptid == 0) load_q(I, 0);
       constexpr int kRD = T::kRD, kRS = T::kRS, kPP = T::kPP;
       const int total = 3 * n * kPP;
       const float* ksc = nullptr;  // the (b, kv head)'s first scale row
@@ -623,12 +842,12 @@ prefill_attn(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         const Step id = step_at(p / kPP, n);
         const int sub = p % kPP;
         if (id.sw != iss_sw) {
-          scan.start();
+          I.scan.start();
           iss_sw = id.sw;
           iss_i = -1;
         }
         if (id.i != iss_i) {
-          iss_j = scan.next();
+          iss_j = I.scan.next();
           iss_i = id.i;
         }
         const int slot = p % kRD, s0 = iss_j * kN + sub * kRS;
@@ -639,7 +858,7 @@ prefill_attn(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
           hop::tma_load_4d(base + T::RAW_OFF + slot * kRS * T::kRowBytes, id.v ? &vmap : &kmap,
                            full, 0, s0, h, b);
           if (!id.v)
-            hop::bulk_load(base + T::RKE_OFF + slot * kRS * 4, keff_row + s0, kRS * 4, full);
+            hop::bulk_load(base + T::RKE_OFF + slot * kRS * 4, kr + s0, kRS * 4, full);
         }
         if constexpr (T::kScales > 0) {  // [slot][group] in shared memory
           constexpr int kG = T::kScales / kRS;
@@ -703,35 +922,29 @@ prefill_attn(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       }
     }
   } else {  // ---- consumer warpgroups: 64 query rows each
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(pattn::consumer_regs(KIND)));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;"
+                 ::"n"(pattn::consumer_regs(KIND, T::kRegime)));
     const int c = warp >> 2, wq = warp & 3, ctid = threadIdx.x & 127, t4 = lane & 3;
     const int nrows = a.g * a.npos;  // rows of this consumer's tile (64 when G divides 64)
-    const int tc = t0 + c * a.npos;
     const int r0 = 16 * wq + (lane >> 2), r1 = r0 + 8;
-    const bool ok0 = r0 < nrows && tc + r0 / a.g < a.t;
-    const bool ok1 = r1 < nrows && tc + r1 / a.g < a.t;
-    const int qp0 = ok0 ? __ldg(a.qpos + (long long)b * a.t + tc + r0 / a.g) : INT_MIN;
-    const int qp1 = ok1 ? __ldg(a.qpos + (long long)b * a.t + tc + r1 / a.g) : INT_MIN;
-    const uint32_t q_tile = base + T::Q_OFF + c * T::kChunks * pattn::kRows * kSw;
+    auto q_tile_at = [&](int qb) {
+      return base + T::Q_OFF + qb * T::kQBytes + c * T::kChunks * pattn::kRows * kSw;
+    };
     if (nrows < pattn::kRows) {  // rows past the tile's: zeros (the TMA box writes nrows)
-      for (int e = ctid; e < (pattn::kRows - nrows) * (HD / 8); e += 128) {
-        const int r = nrows + e / (HD / 8), cc = e % (HD / 8);
-        *reinterpret_cast<uint4*>(smem + (q_tile - base) + (cc / T::kCw) * pattn::kRows * kSw +
-                                  hop::swz_row<kSw>(r, cc % T::kCw)) = make_uint4(0, 0, 0, 0);
-      }
+      for (int qb = 0; qb < kQB; ++qb)
+        for (int e = ctid; e < (pattn::kRows - nrows) * (HD / 8); e += 128) {
+          const int r = nrows + e / (HD / 8), cc = e % (HD / 8);
+          *reinterpret_cast<uint4*>(smem + (q_tile_at(qb) - base) +
+                                    (cc / T::kCw) * pattn::kRows * kSw +
+                                    hop::swz_row<kSw>(r, cc % T::kCw)) = make_uint4(0, 0, 0, 0);
+        }
       hop::fence_proxy_async();
       hop::bar_sync(1 + c, 128);
     }
-    hop::mbar_wait(qbar, 0);
     auto release = [&](uint32_t empty) {  // this warp has read the stage
       __syncwarp();
       if (lane == 0) hop::mbar_arrive(empty);
     };
-
-    // the least qpos of this warp's rows (a row past the tile's masks
-    // nothing: its output is not stored)
-    int wqmin = min(ok0 ? qp0 : INT_MAX, ok1 ? qp1 : INT_MAX);
-    wqmin = __reduce_min_sync(0xffffffffu, wqmin);
     // scores are kept raw (q.k); the scale goes into c2 = scale x log2(e),
     // and the row max of the raw scores times scale is the max of the
     // scaled ones (a positive factor, rounding monotone)
@@ -739,127 +952,193 @@ prefill_attn(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     // turns: a warpgroup issues each of its products between turn_begin and
     // turn_end, the two warpgroups in alternation (named barriers 3 and 4),
     // so one's softmax runs while the other's products do
-    auto turn_begin = [&]() { hop::bar_sync(3 + c, 256); };
-    auto turn_end = [&]() { hop::bar_arrive(4 - c, 256); };
-    if (c == 1) hop::bar_arrive(3, 256);  // warpgroup 0 goes first
+    // (the persistent regime's three warpgroups take no turns)
+    auto turn_begin = [&]() {
+      if constexpr (!P) hop::bar_sync(3 + c, 256);
+    };
+    auto turn_end = [&]() {
+      if constexpr (!P) hop::bar_arrive(4 - c, 256);
+    };
+    if (!P && c == 1) hop::bar_arrive(3, 256);  // warpgroup 0 goes first
     auto wait_full = [&](int g) { hop::mbar_wait(full + 8 * (g % kR), (g / kR) & 1); };
     auto tile_at = [&](int g) { return base + T::RING_OFF + (g % kR) * T::kTile; };
-    // ring step g's raw scores into s, masked; the stage released
-    auto scores = [&](float (&s)[kN / 2], int g) {
-      wait_full(g);
-      turn_begin();
-      issue_scores<KIND, HD>(s, q_tile, tile_at(g));
-      turn_end();
-      hop::wgmma_wait<0>();
-      mask_scores<kN>(s, keff_st + (g % kR) * kN, t4, lane, qp0, qp1, wqmin);
-      release(empty + 8 * (g % kR));
-    };
 
-    // sweep 1: the online max and sum of each row
-    float sc[kN / 2];
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-    for (int g = 0; g < n; ++g) {
-      scores(sc, g);
-      online_stats<kN>(sc, c2, m0, m1, l0, l1);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    // sweep 2's p = 2^(x c2 - m c2) x (1 / l), x the raw score: within
-    // ~1e-6 of itself of exp(x scale - m scale) / l, inside
-    // rounding_tolerance's 1e-5
-    const float mc0 = m0 * c2, mc1 = m1 * c2, rl0 = 1.0f / l0, rl1 = 1.0f / l1;
-
-    // sweep 2: p = bf16(exp(s - m) / l), O += P V; tile i's K at ring step
-    // n + 2 i, its V at n + 2 i + 1
-    float o[HD / 2];
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const int gv = n + 2 * i + 1;
-      scores(sc, gv - 1);
-      // the A fragments of P, slots [16 ks, 16 ks + 16): pa[ks][e] holds the
-      // pair of accumulator entries 8 ks + 2 e, + 1 (row r0 for even e, r1 odd)
-      uint32_t pa[kN / 16][4];
-#pragma unroll
-      for (int ks = 0; ks < kN / 16; ++ks)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float mc = e & 1 ? mc1 : mc0, rl = e & 1 ? rl1 : rl0;
-          pa[ks][e] = attn::pack_bf16(ex2(fmaf(sc[8 * ks + 2 * e], c2, -mc)) * rl,
-                                      ex2(fmaf(sc[8 * ks + 2 * e + 1], c2, -mc)) * rl);
+    int g0 = 0, u = 0;  // the item's first ring step, its ordinal in the block
+    for (int it = blockIdx.x; it < items; it += gridDim.x, ++u) {
+      const int qb = u % kQB;
+      const uint32_t q_tile = q_tile_at(qb);
+      // the item: from the producer's facts beside Q (two buffers), else
+      // worked out here
+      Item I;
+      if constexpr (kQB > 1) {
+        I = coords(it);
+        hop::mbar_wait(qfull + 8 * qb, (u / kQB) & 1);
+        I.n = meta_base[qb * pattn::kMetaInts];
+      } else {
+        I = item_at(it, nullptr);
+      }
+      const int n = I.n, tc = I.t0 + c * a.npos;
+      if (P && tc >= a.t) {  // the item ends before this warpgroup's rows: its
+        // stages are only waited for and released (the last item of a row
+        // at T past 2 x 64 positions, every item at a query batch's T 40)
+        for (int g = g0; g < g0 + 3 * n; ++g) {
+          wait_full(g);
+          release(empty + 8 * (g % kR));
         }
-      wait_full(gv);
-      turn_begin();
-      hop::wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kN / 16; ++ks)  // V MN-major: 16 slot rows a k-step
-        hop::wgmma_bf16_rs_tb(hop::Int<HD>{}, o, pa[ks],
-                              hop::desc_sw<kSw>(tile_at(gv) + ks * 16 * kSw, kN * kSw), 1);
-      hop::wgmma_commit();
-      turn_end();
-      hop::wgmma_wait<0>();
-      release(empty + 8 * (gv % kR));
-    }
-    if (c == 0) hop::bar_sync(3, 256);  // warpgroup 1's last arrival
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) fence_acc(o[i]);
+        release(qempty + 8 * qb);
+        g0 += 3 * n;
+        continue;
+      }
+      const bool ok0 = r0 < nrows && tc + r0 / a.g < a.t;
+      const bool ok1 = r1 < nrows && tc + r1 / a.g < a.t;
+      auto qpos_of = [&](int r) {
+        if constexpr (kQB > 1) return meta_base[qb * pattn::kMetaInts + 4 + c * a.npos + r / a.g];
+        return __ldg(a.qpos + (long long)I.b * a.t + tc + r / a.g);
+      };
+      const int qp0 = ok0 ? qpos_of(r0) : INT_MIN;
+      const int qp1 = ok1 ? qpos_of(r1) : INT_MIN;
+      // the least qpos of this warp's rows (a row past the tile's masks
+      // nothing: its output is not stored)
+      int wqmin = min(ok0 ? qp0 : INT_MAX, ok1 ? qp1 : INT_MAX);
+      wqmin = __reduce_min_sync(0xffffffffu, wqmin);
+      if constexpr (kQB == 1) hop::mbar_wait(qfull + 8 * qb, (u / kQB) & 1);
+      // ring step g's raw scores into s, masked; the stage released
+      auto scores = [&](float (&s)[kN / 2], int g) {
+        wait_full(g);
+        turn_begin();
+        issue_scores<KIND, HD>(s, q_tile, tile_at(g));
+        turn_end();
+        hop::wgmma_wait<0>();
+        mask_scores<kN>(s, keff_st + (g % kR) * kN, t4, lane, qp0, qp1, wqmin);
+        release(empty + 8 * (g % kR));
+      };
 
-    // rows with no attendable slot: bf16(1/S) times V summed over all slots
-    const float w = attn::round_bf16(1.0f / static_cast<float>(a.s));
-    const float* vs = a.vsum + (long long)bk * HD;
-    const int heads = a.kvh * a.g;
+      // sweep 1: the online max and sum of each row
+      float sc[kN / 2];
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+      for (int i = 0; i < n; ++i) {
+        scores(sc, g0 + i);
+        online_stats<kN>(sc, c2, m0, m1, l0, l1);
+      }
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = half ? r1 : r0;
-      if (!(half ? ok1 : ok0)) continue;
-      const bool dead = (half ? m1 : m0) <= kMasked;
-      const long long at = (((long long)b * a.t + tc + r / a.g) * heads + h * a.g + r % a.g) * HD;
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      // sweep 2's p = 2^(x c2 - m c2) x (1 / l), x the raw score: within
+      // ~1e-6 of itself of exp(x scale - m scale) / l, inside
+      // rounding_tolerance's 1e-5
+      const float mc0 = m0 * c2, mc1 = m1 * c2, rl0 = 1.0f / l0, rl1 = 1.0f / l1;
+
+      // sweep 2: p = bf16(exp(s - m) / l), O += P V; tile i's K at ring step
+      // g0 + n + 2 i, its V at g0 + n + 2 i + 1
+      float o[HD / 2];
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const int col = 8 * j + 2 * t4;
-        float2 y = make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
-        if (dead) y = make_float2(w * vs[col], w * vs[col + 1]);
-        if (a.out_bf16)  // the caller's cast of the f32 output, done here
-          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) + at + col) =
-              attn::pack_bf16(y.x, y.y);
-        else
-          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + col) = y;
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+      for (int i = 0; i < n; ++i) {
+        const int gv = g0 + n + 2 * i + 1;
+        scores(sc, gv - 1);
+        // the A fragments of P, slots [16 ks, 16 ks + 16): pa[ks][e] holds the
+        // pair of accumulator entries 8 ks + 2 e, + 1 (row r0 for even e, r1 odd)
+        uint32_t pa[kN / 16][4];
+#pragma unroll
+        for (int ks = 0; ks < kN / 16; ++ks)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float mc = e & 1 ? mc1 : mc0, rl = e & 1 ? rl1 : rl0;
+            pa[ks][e] = attn::pack_bf16(ex2(fmaf(sc[8 * ks + 2 * e], c2, -mc)) * rl,
+                                        ex2(fmaf(sc[8 * ks + 2 * e + 1], c2, -mc)) * rl);
+          }
+        wait_full(gv);
+        turn_begin();
+        hop::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kN / 16; ++ks)  // V MN-major: 16 slot rows a k-step
+          hop::wgmma_bf16_rs_tb(hop::Int<HD>{}, o, pa[ks],
+                                hop::desc_sw<kSw>(tile_at(gv) + ks * 16 * kSw, kN * kSw), 1);
+        hop::wgmma_commit();
+        turn_end();
+        hop::wgmma_wait<0>();
+        release(empty + 8 * (gv % kR));
+      }
+      if (kQB > 1) release(qempty + 8 * qb);  // the item's Q is read
+      g0 += 3 * n;
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) fence_acc(o[i]);
+
+      // rows with no attendable slot: bf16(1/S) times V summed over all slots
+      const float w = attn::round_bf16(1.0f / static_cast<float>(a.s));
+      const float* vs = a.vsum + (long long)I.bk * HD;
+      const int heads = a.kvh * a.g;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (!(half ? ok1 : ok0)) continue;
+        const bool dead = (half ? m1 : m0) <= kMasked;
+        const long long at =
+            (((long long)I.b * a.t + tc + r / a.g) * heads + I.h * a.g + r % a.g) * HD;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const int col = 8 * j + 2 * t4;
+          float2 y = make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+          if (dead) y = make_float2(w * vs[col], w * vs[col + 1]);
+          if (a.out_bf16)  // the caller's cast of the f32 output, done here
+            *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) + at + col) =
+                attn::pack_bf16(y.x, y.y);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + col) = y;
+        }
       }
     }
+    if (!P && c == 0) hop::bar_sync(3, 256);  // warpgroup 1's last arrival
   }
 }
 
-template <int KIND, int HD>
+template <int KIND, int HD, bool P>
 cudaError_t launch(const Args& a, const pattn::Maps& m, const int* plan, cudaStream_t stream) {
-  using T = L<KIND, HD>;
+  using T = L<KIND, HD, P>;
   if (plan[0] != T::kN || plan[1] != T::kR || plan[2] != T::kRS || plan[3] != T::kRD ||
-      plan[4] != T::kBytes)
+      plan[4] != T::kBytes || plan[5] != T::kRegime)
     return cudaErrorInvalidValue;  // the Python plan disagrees with this layout
-  prefill_prep<KIND, HD><<<dim3(a.nchunks, a.bkv), kPrepThreads, 0, stream>>>(a);
+  const int total = a.bkv * HD;
+  if constexpr (P) {
+    prefill_prep_rows<KIND, HD><<<dim3(a.nchunks, a.bkv / a.kvh), kPrepThreads, 0, stream>>>(a);
+  } else {
+    prefill_prep<KIND, HD><<<dim3(a.nchunks, a.bkv), kPrepThreads, 0, stream>>>(a);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int total = a.bkv * HD;
-  prefill_vsum<<<(total + 255) / 256, 256, 0, stream>>>(a, total);
+  if constexpr (P) {
+    prefill_vsum_rows<HD><<<(total + 255) / 256, 256, 0, stream>>>(a, total);
+  } else {
+    prefill_vsum<<<(total + 255) / 256, 256, 0, stream>>>(a, total);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = cudaFuncSetAttribute(prefill_attn<KIND, HD>,
+  if ((err = cudaFuncSetAttribute(prefill_attn<KIND, HD, P>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes)) !=
       cudaSuccess)
     return err;
-  prefill_attn<KIND, HD><<<a.qtiles * a.bkv, pattn::kThreads, T::kBytes, stream>>>(m.q, m.k,
-                                                                                   m.v, a);
+  prefill_attn<KIND, HD, P><<<plan[6], T::kThreads, T::kBytes, stream>>>(m.q, m.k, m.v, a);
   return cudaGetLastError();
+}
+
+// the regime's instantiation: persistent only for a bf16 cache at its head dims
+template <int KIND, int HD>
+cudaError_t launch_regime(const Args& a, const pattn::Maps& m, const int* plan,
+                          cudaStream_t stream) {
+  if constexpr (KIND == attn::kBf16 && HD >= pattn::kPersistentMinHd &&
+                HD <= pattn::kPersistentMaxHd)
+    if (plan[5] == pattn::kPersistent) return launch<KIND, HD, true>(a, m, plan, stream);
+  return launch<KIND, HD, false>(a, m, plan, stream);
 }
 
 template <int KIND>
 cudaError_t dispatch(const Args& a, const pattn::Maps& m, const int* plan, cudaStream_t stream) {
   switch (a.hd) {
-    case 32: return launch<KIND, 32>(a, m, plan, stream);
-    case 64: return launch<KIND, 64>(a, m, plan, stream);
-    case 128: return launch<KIND, 128>(a, m, plan, stream);
-    case 256: return launch<KIND, 256>(a, m, plan, stream);
+    case 32: return launch_regime<KIND, 32>(a, m, plan, stream);
+    case 64: return launch_regime<KIND, 64>(a, m, plan, stream);
+    case 128: return launch_regime<KIND, 128>(a, m, plan, stream);
+    case 256: return launch_regime<KIND, 256>(a, m, plan, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -927,16 +1206,17 @@ bool cache_map(CUtensorMap* map, const void* ptr, int kind, int b, int kvh, int 
 // ntiles * tile], tmin int32 [B, ntiles], vpart f32 [nchunks, B*KV, hd],
 // vsum f32 [B*KV, hd], with ntiles = ceil(S / tile), nchunks = ceil(S /
 // 256). out: [B, T, KV*G*hd] f32, or bf16 with out_bf16 1 (rounded to
-// nearest even). tile .. smem: the plan
-// (ops/attention.py::plan_prefill_attention), checked against the kernel's.
+// nearest even). tile .. grid: the plan
+// (ops/attention.py::plan_prefill_attention), checked against the kernel's
+// layout, pattn::regime and pattn::grid on the current device's SM count.
 extern "C" int prefill_attention(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale, const void* qpos,
                                  const void* kpos, const void* valid, void* keff, void* tmin,
                                  void* vpart, void* vsum, void* out, int kind, int b, int kvh,
                                  int g, int t, int s, int hd, int grp, long long kv_b,
                                  long long kv_h, long long sc_b, long long sc_r, int tile,
-                                 int stages, int raw_slots, int raw_stages, int smem,
-                                 int out_bf16, float scale, void* stream) {
+                                 int stages, int raw_slots, int raw_stages, int smem, int regime,
+                                 int grid, int out_bf16, float scale, void* stream) {
   if (g < 1 || g > pattn::kRows || t < 1 || s < 1 || b < 1 || kvh < 1 || tile < 8 ||
       (kind == attn::kInt4 && grp != 32) || kv_b % 16 || kv_h % 16 || out_bf16 < 0 ||
       out_bf16 > 1)
@@ -967,10 +1247,16 @@ extern "C" int prefill_attention(const void* q, const void* k, const void* v,
   a.ntiles = (s + tile - 1) / tile;
   a.nchunks = (s + kPrepSlots - 1) / kPrepSlots;
   a.npos = pattn::kRows / g;
-  a.qtiles = (t + pattn::kConsumers * a.npos - 1) / (pattn::kConsumers * a.npos);
+  const int kc = pattn::consumers(regime);  // checked against pattn::regime below
+  a.qtiles = (t + kc * a.npos - 1) / (kc * a.npos);
   a.bkv = b * kvh;
   a.scale = scale;
   if (static_cast<long long>(a.qtiles) * a.bkv > INT_MAX || a.bkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      regime != pattn::regime(kind, hd, s) || grid != pattn::grid(regime, a.qtiles * a.bkv, sms))
     return static_cast<int>(cudaErrorInvalidValue);
   const int sw = hd >= 64 ? 128 : 64;
   pattn::Maps m;
@@ -987,7 +1273,7 @@ extern "C" int prefill_attention(const void* q, const void* k, const void* v,
       !cache_map(&m.k, k, kind, b, kvh, s, hd, kv_b, kv_h, sw, tile, raw_slots) ||
       !cache_map(&m.v, v, kind, b, kvh, s, hd, kv_b, kv_h, sw, tile, raw_slots))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int plan[5] = {tile, stages, raw_slots, raw_stages, smem};
+  const int plan[7] = {tile, stages, raw_slots, raw_stages, smem, regime, grid};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (kind) {

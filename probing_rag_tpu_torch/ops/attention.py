@@ -352,10 +352,18 @@ _SMEM_BUDGET = 232_448  # shared memory a block may use (227 KB)
 _SMEM_SLACK = 1024  # the dynamic base aligned up to 1024 bytes
 _CONSUMER_ROWS = 64  # query rows a consumer warpgroup: wgmma's M
 _CONSUMERS = 2
+_PERSISTENT_CONSUMERS = 3  # 192 query rows an item
 # setmaxnreg, consumer and producer: 2 x consumer + producer <= 3 x 168; a
-# producer that widens a raw ring gets 56
+# producer that widens a raw ring gets 56; the persistent regime's 512
+# threads: 3 x 160 + 32 <= 4 x 128
 _REGS = {0: (232, 40), 1: (224, 56), 2: (224, 56), 3: (224, 56)}
+_PERSISTENT_REGS = (160, 32)
 _MAX_STAGES = 6
+_PERSISTENT_MAX_STAGES = 8
+# the persistent regime: a bf16 cache of at most this many slot tiles at a
+# head dim in the range (pattn::kPersistentTiles, kPersistentMinHd / MaxHd)
+PERSISTENT_MAX_TILES = 4
+PERSISTENT_HEAD_DIMS = (64, 128)
 _RAW_MAX_STAGES = 4
 _RAW_MAX_BYTES = 16_384  # raw rows a raw stage at most
 _ROW_BYTES = {0: lambda hd: hd * 2, 1: lambda hd: hd * 4, 2: lambda hd: hd, 3: lambda hd: hd // 2}
@@ -372,8 +380,14 @@ class PrefillPlan:
     them; for a cache that is not bf16, a raw ring of ``raw_stages`` stages
     of ``raw_slots`` slots that the producer widens into the ring;
     ``smem`` bytes of dynamic shared memory a block, with 1024 of alignment
-    slack. ``positions`` a block: ``consumers x (rows // groups)``."""
+    slack. ``positions`` a work item: ``consumers x (rows // groups)``.
+    ``regime`` "tiles" (PR 15's: a block a work item, ``q_buffers`` 1) or
+    "persistent" (a block an SM walking the items, two Q buffers); ``grid``
+    the blocks of the launch."""
 
+    regime: str
+    grid: int
+    q_buffers: int
     tile: int
     rows: int
     consumers: int
@@ -387,49 +401,86 @@ class PrefillPlan:
     smem: int
 
 
-def _prefill_smem(kind: int, hd: int, tile: int, raw: int, r: int, rd: int) -> int:
-    """Bytes of the block's layout: Q, ``r`` ring stages (a bf16 tile and
-    its keff), ``rd`` raw stages (rows, scales, keff), the mbarriers, the
-    slack."""
+def _prefill_smem(kind: int, hd: int, tile: int, raw: int, r: int, rd: int,
+                  qb: int = 1) -> int:
+    """Bytes of the block's layout: ``qb`` Q buffers, ``r`` ring stages (a
+    bf16 tile and its keff), ``rd`` raw stages (rows, scales, keff), with
+    two Q buffers each item's facts (its tile count and positions), the
+    mbarriers (Q's full, and with two buffers their empty; the rings' full
+    and empty), the slack."""
     rb = _ROW_BYTES[kind](hd)
     scales = raw if kind == 2 else hd // 32 * raw if kind == 3 else 0
     raw_stage = raw * (rb + 4) + scales * 4
-    return (_CONSUMERS * _CONSUMER_ROWS * hd * 2 + r * tile * (hd * 2 + 4) + rd * raw_stage
-            + 8 * (1 + 2 * (r + rd)) + _SMEM_SLACK)
+    consumers = _PERSISTENT_CONSUMERS if qb > 1 else _CONSUMERS  # two buffers: persistent
+    meta = qb * (4 + _PERSISTENT_CONSUMERS * _CONSUMER_ROWS) * 4 if qb > 1 else 0  # items' facts
+    return (qb * consumers * _CONSUMER_ROWS * hd * 2 + r * tile * (hd * 2 + 4) + rd * raw_stage
+            + meta + 8 * ((2 * qb if qb > 1 else 1) + 2 * (r + rd)) + _SMEM_SLACK)
 
 
-def plan_prefill_attention(kind: torch.dtype, head_dim: int, groups: int) -> PrefillPlan:
-    """The geometry of ``prefill_attention.cu`` for a cache of dtype ``kind``
-    (bf16, f32, int8, or uint8 for int4) at ``head_dim`` with ``groups``
-    query heads a kv head; the C entry checks it against the kernel's own.
-    Tiles of 64 slots at head dim 256 (the score tile's 32 registers, its
-    bf16 fragments' 16 and the output's 128 fit the consumers' 224), 128
-    below. A bf16 cache: the most ring stages that fit, up to 6. Beside a
-    raw ring (at most 16 KB of raw rows a raw stage): 4 ring stages where
-    three raw stages still fit, else 3; then as many raw stages as fit, up
-    to 4."""
+def prefill_regime(kind: torch.dtype, head_dim: int, slots: int) -> str:
+    """``prefill_attention.cu``'s regime for ``slots`` slots of a ``kind``
+    cache at ``head_dim`` (``pattn::regime``): "persistent" for a bf16
+    cache of at most ``PERSISTENT_MAX_TILES`` slot tiles at a head dim in
+    ``PERSISTENT_HEAD_DIMS`` (the Contriever encoder's 12 x 64 over at
+    most 512 keys), else "tiles" (PR 15's; Gemma-2B's 256, Mistral-7B's
+    128 over its 1,024-slot prompts, the tiny configs' 32)."""
+    tile = 64 if head_dim >= 256 else 128
+    lo, hi = PERSISTENT_HEAD_DIMS
+    persistent = (kind == torch.bfloat16 and lo <= head_dim <= hi
+                  and -(-slots // tile) <= PERSISTENT_MAX_TILES)
+    return "persistent" if persistent else "tiles"
+
+
+def plan_prefill_attention(kind: torch.dtype, head_dim: int, groups: int, slots: int,
+                           t: int = 1, bkv: int = 1, sms: int = 1) -> PrefillPlan:
+    """The geometry of ``prefill_attention.cu`` for ``slots`` slots of a
+    cache of dtype ``kind`` (bf16, f32, int8, or uint8 for int4) at
+    ``head_dim`` with ``groups`` query heads a kv head, and its grid for
+    ``t`` positions of ``bkv`` (batch row, kv head) pairs on ``sms`` SMs;
+    the C entry checks it against the kernel's own. Tiles of 64 slots at
+    head dim 256 (the score tile's 32 registers, its bf16 fragments' 16 and
+    the output's 128 fit the consumers' 224), 128 below. The regime is
+    :func:`prefill_regime`'s. PR 15's: a bf16 cache the most ring stages
+    that fit, up to 6; beside a raw ring (at most 16 KB of raw rows a raw
+    stage) 4 ring stages where three raw stages still fit, else 3, then as
+    many raw stages as fit, up to 4; a block an item of two consumer
+    warpgroups (384 threads). Persistent: three consumer warpgroups (192
+    query rows an item, 512 threads), two Q buffers and the most ring
+    stages that fit beside them, up to 8 (8 at head dim 64, 3 at 128);
+    ``min(sms, items)`` blocks."""
     if kind not in _KINDS or head_dim not in PREFILL_HEAD_DIMS:
         raise ValueError(f"no prefill plan for a {kind} cache at head_dim {head_dim}")
     if not 1 <= groups <= _CONSUMER_ROWS:
         raise ValueError(f"no prefill plan for {groups} query heads a kv head")
+    if min(slots, t, bkv, sms) < 1:
+        raise ValueError(f"no prefill plan for {slots} slots, {t} positions, {bkv} (row, kv "
+                         f"head) pairs on {sms} SMs")
     k = _KINDS[kind]
+    regime = prefill_regime(kind, head_dim, slots)
+    qb = 2 if regime == "persistent" else 1
     tile = 64 if head_dim >= 256 else 128
     rb = _ROW_BYTES[k](head_dim)
     raw = 0 if k == 0 else tile if tile * rb <= _RAW_MAX_BYTES else _RAW_MAX_BYTES // rb
 
     def fits(r, rd):
-        return _prefill_smem(k, head_dim, tile, raw, r, rd) <= _SMEM_BUDGET
+        return _prefill_smem(k, head_dim, tile, raw, r, rd, qb) <= _SMEM_BUDGET
 
     if k == 0:
-        r, rd = next((r for r in range(_MAX_STAGES, 2, -1) if fits(r, 0)), 2), 0
+        top = _PERSISTENT_MAX_STAGES if regime == "persistent" else _MAX_STAGES
+        r, rd = next((r for r in range(top, 2, -1) if fits(r, 0)), 2), 0
     else:
         r = 4 if fits(4, 3) else 3 if fits(3, 3) else 2
         rd = next((rd for rd in range(_RAW_MAX_STAGES, 1, -1) if fits(r, rd)), 1)
-    return PrefillPlan(tile=tile, rows=_CONSUMER_ROWS, consumers=_CONSUMERS,
-                       positions=_CONSUMERS * (_CONSUMER_ROWS // groups),
-                       threads=128 * (_CONSUMERS + 1), consumer_regs=_REGS[k][0],
-                       producer_regs=_REGS[k][1], stages=r, raw_slots=raw, raw_stages=rd,
-                       smem=_prefill_smem(k, head_dim, tile, raw, r, rd))
+    consumers = _PERSISTENT_CONSUMERS if regime == "persistent" else _CONSUMERS
+    regs = _PERSISTENT_REGS if regime == "persistent" else _REGS[k]
+    positions = consumers * (_CONSUMER_ROWS // groups)
+    items = -(-t // positions) * bkv
+    return PrefillPlan(regime=regime, grid=min(items, sms) if regime == "persistent" else items,
+                       q_buffers=qb, tile=tile, rows=_CONSUMER_ROWS, consumers=consumers,
+                       positions=positions, threads=128 * (consumers + 1),
+                       consumer_regs=regs[0], producer_regs=regs[1], stages=r,
+                       raw_slots=raw, raw_stages=rd,
+                       smem=_prefill_smem(k, head_dim, tile, raw, r, rd, qb))
 
 
 # the plan of the last prefill launched on the card (read by chip_smoke.py)
@@ -530,7 +581,7 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: t
     valid = (torch.ones((b, s), dtype=torch.bool, device=dev) if valid is None
              else valid.contiguous())
     global last_prefill_plan
-    plan = plan_prefill_attention(k.dtype, hd, groups)
+    plan = plan_prefill_attention(k.dtype, hd, groups, s, t, b * kv, kernels.sm_count(dev))
     ntiles = -(-s // plan.tile)
     nchunks = -(-s // PREFILL_CHUNK)
     keff = torch.empty((b, ntiles * plan.tile), dtype=torch.int32, device=dev)
@@ -549,7 +600,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: t
                 valid.data_ptr(), keff.data_ptr(), tmin.data_ptr(), vpart.data_ptr(),
                 vsum.data_ptr(), out.data_ptr(), _KINDS[k.dtype], b, kv, groups, t, s, hd,
                 kv4_group(hd), kv_b, kv_h, sc_b, sc_r, plan.tile, plan.stages, plan.raw_slots,
-                plan.raw_stages, plan.smem, int(out_dtype == torch.bfloat16), scale,
+                plan.raw_stages, plan.smem, int(plan.regime == "persistent"), plan.grid,
+                int(out_dtype == torch.bfloat16), scale,
                 kernels.stream_ptr(dev),
             ),
             "prefill_attention",

@@ -15,7 +15,9 @@ the intermediates in registers:
   attention output and of the MLP output, the residual add and ``_ln``.
 - :func:`bias_gelu` (``kernels/csrc/bias_gelu.cu``): ``gelu(bf16(h + b))``,
   exact GELU in JAX's erfc form, in place (JAX ``:132``): XLA's fusion of
-  the bias add and the GELU into the first MLP product.
+  the bias add and the GELU into the first MLP product. The kernel looks
+  each result up in :func:`gelu_table`, the 65,536 exact results, which
+  ``gelu_table_build`` computes once a device at first use.
 - :func:`qkv_heads` (``kernels/csrc/qkv_heads.cu``): the q, k and v bias
   adds on one product of the concatenated ``wq | wk | wv``, q as ``[B, T,
   H, hd]`` and k and v as ``[B, H, T, hd]``, the contiguous slot rows
@@ -172,11 +174,22 @@ LN_VEC = 4
 LN_WARPS = 4
 LN_WIDTH = 768  # Contriever's D, the one row a configuration runs on the card
 LN_PER = LN_WIDTH // (32 * LN_VEC)
-# bias_gelu.cu and qkv_heads.cu: a 16-byte vector of 8 bf16 values a
-# thread, in blocks of VEC_THREADS
+# qkv_heads.cu: a 16-byte vector of 8 bf16 values a thread, in blocks of
+# VEC_THREADS
 VEC = 8
 VEC_THREADS = 128
 MAX_INDEX = 2**31 - 1  # the kernels' thread indices in 32-bit ints
+# bias_gelu.cu (namespace bgelu): GELU_BLOCKS_PER_SM resident blocks of
+# GELU_THREADS an SM, GELU_UNROLL vectors of 8 a thread a step; the window
+# of the table each block keeps in shared memory: the patterns whose
+# magnitude bits lie in [GELU_WIN_LO, GELU_WIN_LO + GELU_WIN_LEN), of each
+# sign: |x| in [2^-16, 2^8)
+GELU_THREADS = 512
+GELU_BLOCKS_PER_SM = 2
+GELU_UNROLL = 2
+GELU_WIN_LO = 0x3780  # the bf16 bits of 2^-16
+GELU_WIN_LEN = 24 * 128  # 24 binades of 128 patterns
+GELU_TABLE = 65536  # one entry a bf16 pattern
 
 
 class LnPlan(NamedTuple):
@@ -189,6 +202,15 @@ class VecPlan(NamedTuple):
     vec: int  # bf16 values a thread
     threads: int  # a block
     blocks: int
+
+
+class GeluPlan(NamedTuple):
+    vec: int  # bf16 values a vector
+    threads: int  # a block
+    blocks: int  # resident: at most GELU_BLOCKS_PER_SM an SM
+    unroll: int  # vectors a thread a step
+    win_lo: int  # the window's least magnitude bits
+    win_len: int  # its patterns of each sign
 
 
 def plan_layer_norm(rows: int, d: int) -> LnPlan:
@@ -212,13 +234,31 @@ def _vec_plan(units: int, what: str) -> VecPlan:
     return VecPlan(VEC, VEC_THREADS, blocks)
 
 
-def plan_bias_gelu(rows: int, f: int) -> VecPlan:
-    """``bias_gelu.cu``'s launch over ``rows`` rows of ``f`` bf16 values: a
-    vector of 8 a thread, neighbouring threads on neighbouring vectors,
-    ``VEC_THREADS`` a block, as many blocks as the vectors need."""
-    if rows < 1 or f < VEC or f % VEC:
+def plan_bias_gelu(rows: int, f: int, sms: int) -> GeluPlan:
+    """``bias_gelu.cu``'s launch over ``rows`` rows of ``f`` bf16 values on
+    a card of ``sms`` SMs: blocks of ``GELU_THREADS`` that each fill the
+    table's window once and then walk vectors of 8, ``GELU_UNROLL`` a
+    thread a step, the next step's loads in flight; as many blocks as give
+    each thread one step, at most ``GELU_BLOCKS_PER_SM`` an SM (the index
+    build's 512 x 376 rows on 132 SMs: 264 blocks of ~273 steps; a query
+    batch's 8 x 40: 120 blocks of one)."""
+    if rows < 1 or f < VEC or f % VEC or sms < 1:
         raise ValueError(f"bias_gelu kernel takes rows of a multiple of {VEC}, got {f}")
-    return _vec_plan(rows * (f // VEC), "bias_gelu")
+    vecs = rows * (f // VEC)
+    step = GELU_THREADS * GELU_UNROLL
+    blocks = min(-(-vecs // step), sms * GELU_BLOCKS_PER_SM)
+    if vecs + blocks * step > MAX_INDEX:
+        raise ValueError(f"bias_gelu kernel indexes its vectors in 32-bit ints: {vecs} vectors "
+                         f"need more")
+    return GeluPlan(VEC, GELU_THREADS, blocks, GELU_UNROLL, GELU_WIN_LO, GELU_WIN_LEN)
+
+
+def gelu_window_misses(x: torch.Tensor) -> int:
+    """How many of the bf16 values ``x`` (the GELU's input, ``bf16(h +
+    b)``) lie outside ``bias_gelu.cu``'s window, so that the kernel reads
+    their result from the device table."""
+    mag = x.contiguous().view(torch.int16).int() & 0x7FFF
+    return int(((mag < GELU_WIN_LO) | (mag >= GELU_WIN_LO + GELU_WIN_LEN)).sum())
 
 
 def plan_qkv_heads(b: int, t: int, h: int, hd: int) -> VecPlan:
@@ -247,6 +287,8 @@ def kernels_take(d: int, n_heads: int, d_ff: int) -> bool:
 
 # the last launches' plans (chip_smoke.py prints them)
 last_plan = {"layer_norm": None, "bias_gelu": None, "qkv_heads": None}
+# bias_gelu.cu's tables, one a device, built at first use (gelu_table)
+GELU_TABLES: dict = {}
 
 
 # ------------------------------------------------------------------- checks
@@ -347,25 +389,47 @@ def add_layer_norm(resid: torch.Tensor, delta: Optional[torch.Tensor],
     return resid, xin
 
 
+def gelu_table(device: torch.device) -> torch.Tensor:
+    """``bias_gelu.cu``'s table on the CUDA ``device``: [65,536] bf16, entry
+    i the exact GELU (the plain version's arithmetic, on the card's
+    libdevice) of the bf16 value whose bits are i, rounded to bf16. Built
+    by the kernel ``gelu_table_build`` in one launch (counted as
+    ``gelu_table``) at first use on the device, then kept in
+    ``GELU_TABLES``; a failed build raises."""
+    key = torch.device(device.type, device.index if device.index is not None
+                       else torch.cuda.current_device())
+    table = GELU_TABLES.get(key)
+    if table is None:
+        table = torch.empty(GELU_TABLE, dtype=torch.bfloat16, device=key)
+        with torch.cuda.device(key):
+            kernels.check(kernels.library().gelu_table(table.data_ptr(),
+                                                       kernels.stream_ptr(key)), "gelu_table")
+        kernels.LAUNCHES["gelu_table"] += 1
+        GELU_TABLES[key] = table
+    return table
+
+
 def bias_gelu(h: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``gelu(bf16(h + bias))`` for the first MLP product ``h`` [.., F] and
     its ``bias`` [F], bf16: exact GELU in JAX's form ``0.5 x erfc(-x
     sqrt(1/2))`` in f32, rounded to bf16, expected bit-equal to the plain
     version on the card (within :func:`gelu_tolerance` where a libm
-    differs). On the card the kernel writes the result IN PLACE into
-    ``h``'s buffer (the product's output, a temporary) and returns it; the
-    plain version returns a new tensor. CPU tensors take
+    differs): the kernel forms ``bf16(h + bias)`` and reads its result
+    from :func:`gelu_table`. On the card the kernel writes the result IN
+    PLACE into ``h``'s buffer (the product's output, a temporary) and
+    returns it; the plain version returns a new tensor. CPU tensors take
     :func:`bias_gelu_plain`."""
     rows, f = _check_gelu(h, bias, _BF16)
     if not _on_cuda("bias_gelu", h, bias):
         return bias_gelu_plain(h, bias)
     _aligned("bias_gelu", h, bias)
-    plan = last_plan["bias_gelu"] = plan_bias_gelu(rows, f)
+    table = gelu_table(h.device)
+    plan = last_plan["bias_gelu"] = plan_bias_gelu(rows, f, kernels.sm_count(h.device))
     lib = kernels.library()
     with torch.cuda.device(h.device):
         kernels.check(
-            lib.bias_gelu(h.data_ptr(), bias.data_ptr(), rows, f, plan.vec, plan.threads,
-                          plan.blocks, kernels.stream_ptr(h.device)),
+            lib.bias_gelu(h.data_ptr(), bias.data_ptr(), table.data_ptr(), rows, f, *plan,
+                          kernels.stream_ptr(h.device)),
             "bias_gelu",
         )
     kernels.LAUNCHES["bias_gelu"] += 1

@@ -20,10 +20,15 @@ plain versions), against the JAX encoder they replace
 - the whole encoder at d 128, 2 heads of 64, 2 layers, d_ff 256 (admitted
   to ``KERNEL_WIDTHS`` for the test: on the card only Contriever's width
   runs the kernels) in f32 and bf16, with the bf16 route's calls counted.
-- the planners at the index build's, T 512's and a query batch's shapes,
-  held to the C entries' own rules (compiled with g++), and the widths
-  each refuses; qkv_heads.cu's indexing and layer_norm.cu's order of sums
-  carried out in numpy.
+- the planners at the index build's, T 512's and a query batch's shapes
+  (and ``plan_bias_gelu`` at edge shapes and SM counts), held to the C
+  entries' own rules (compiled with g++), and the widths each refuses;
+  qkv_heads.cu's indexing, layer_norm.cu's order of sums and bias_gelu.cu's
+  walk carried out in numpy.
+- ``bias_gelu.cu``'s table of the 65,536 exact results, its shared-memory
+  window and its lookup, emulated: bit-equal to ``bias_gelu_plain`` on
+  every bf16 input, +-0, +-inf, NaN (as NaN), subnormals and the window's
+  edges.
 - the CLI's dense encoder: Contriever's width under ``--checkpoint``.
 
 Tolerances: f32 at rtol / atol 1e-5 (1e-6 for the attention), as the same
@@ -464,6 +469,125 @@ def test_gelu_tolerance_admits_the_plain_version_and_sees_faults():
     assert (tanh - ref).abs().gt(tol).any() and (skipped - ref).abs().gt(tol).any()
 
 
+# --------------------------------------------------------- the GELU table
+
+
+def all_patterns() -> torch.Tensor:
+    """The 65,536 bf16 values, entry i the one whose bits are i."""
+    return torch.arange(ek.GELU_TABLE, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+
+
+def bits(x: torch.Tensor) -> np.ndarray:
+    return x.contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+@pytest.fixture(scope="module")
+def gelu_table_bits():
+    """``gelu_table_build`` emulated: the plain version over every bf16
+    pattern, with bias -0.0 (bf16(h + -0.0) = h for every h)."""
+    x = all_patterns()
+    table = ek.bias_gelu_plain(x, torch.full((ek.GELU_TABLE,), -0.0, dtype=torch.bfloat16))
+    return bits(table)
+
+
+def window_of(table: np.ndarray) -> np.ndarray:
+    """The block's window as ``bias_gelu_pass`` fills it: [sign][GELU_WIN_LEN]
+    entries from GELU_WIN_LO of each sign's half of the table."""
+    lo, n = ek.GELU_WIN_LO, ek.GELU_WIN_LEN
+    return np.concatenate([table[lo:lo + n], table[0x8000 + lo:0x8000 + lo + n]])
+
+
+def gelu_lookup(h: torch.Tensor, bias: torch.Tensor, table: np.ndarray):
+    """``bias_gelu_pass``'s arithmetic: x = bf16(f32 h + f32 b), then its
+    pattern's entry from the window where its magnitude bits lie in it,
+    else from the table. Returns (the result's bits, which read the
+    window)."""
+    x = (h.float() + bias.float()).to(torch.bfloat16)
+    u = bits(x).astype(np.uint32)
+    off = ((u & 0x7FFF) - np.uint32(ek.GELU_WIN_LO)).astype(np.uint32)  # wraps, as in C
+    hit = off < ek.GELU_WIN_LEN
+    win = window_of(table)
+    at = np.where(hit, (u >> 15) * ek.GELU_WIN_LEN + off, 0)
+    return np.where(hit, win[at], table[u]), hit
+
+
+def special_inputs() -> torch.Tensor:
+    """+-0, +-inf, NaNs, subnormals, and the patterns either side of the
+    window's edges, of both signs, as bf16."""
+    lo, hi = ek.GELU_WIN_LO, ek.GELU_WIN_LO + ek.GELU_WIN_LEN
+    mags = [0, 0x7F80, 0x7FC0, 0x7F81, 0x7FFF, 1, 2, 0x40, 0x7F, 0x80, lo - 1, lo, lo + 1,
+            hi - 1, hi, hi + 1, 0x7F7F]
+    u = np.array(mags + [m | 0x8000 for m in mags], np.uint16)
+    return torch.from_numpy(u.view(np.int16).copy()).view(torch.bfloat16)
+
+
+def assert_bits_equal(got: np.ndarray, ref: torch.Tensor, what: str) -> None:
+    """``got`` bit-equal to ``ref`` (bf16), NaNs compared as NaN."""
+    r = bits(ref)
+    nan_g = np.isnan((got.astype(np.uint32) << 16).view(np.float32))
+    nan_r = torch.isnan(ref.float()).numpy()
+    np.testing.assert_array_equal(nan_g, nan_r, err_msg=f"{what}: NaNs differ")
+    np.testing.assert_array_equal(got[~nan_r], r[~nan_r], err_msg=what)
+
+
+def test_gelu_table_lookup_is_bit_equal_on_every_input(gelu_table_bits):
+    """The table, the window and the lookup, as ``bias_gelu.cu`` builds and
+    reads them, bit-equal to ``bias_gelu_plain`` on all 65,536 inputs, on
+    the specials (+-0, +-inf, NaN as NaN, subnormals, the window's edges)
+    with and without a bias, and on random h + b at three scales, where
+    the window serves all but a few elements and the specials reach both
+    the window and the table."""
+    bf = torch.bfloat16
+    x = all_patterns()
+    zero = torch.full((ek.GELU_TABLE,), -0.0, dtype=bf)
+    got, hit = gelu_lookup(x, zero, gelu_table_bits)
+    assert_bits_equal(got, ek.bias_gelu_plain(x, zero), "all patterns")
+    assert hit.sum() == 2 * ek.GELU_WIN_LEN
+    sp = special_inputs()
+    for b in (-0.0, 0.0, 1.5, -3.0, 2.0 ** -20):
+        bias = torch.full(sp.shape, b, dtype=bf)
+        got, hit = gelu_lookup(sp, bias, gelu_table_bits)
+        assert_bits_equal(got, ek.bias_gelu_plain(sp, bias), f"specials, bias {b}")
+        if b == 0.0:
+            assert hit.any() and not hit.all()
+    rng = np.random.default_rng(23)
+    for scale in (2.0, 1e-3, 60.0):
+        h = bf16_np(scale * rng.standard_normal((64, 512)))
+        bias = bf16_np(0.5 * rng.standard_normal(512))
+        got, hit = gelu_lookup(h, bias, gelu_table_bits)
+        assert_bits_equal(got.reshape(h.shape), ek.bias_gelu_plain(h, bias), f"scale {scale}")
+        assert ek.gelu_window_misses((h + bias)) == int((~hit).sum())
+        if scale == 2.0:
+            assert hit.mean() > 0.999
+
+
+@pytest.mark.parametrize("rows,f,sms", [(3, 24, 2), (40, 16, 1), (7, 3072, 3), (1, 8, 132)])
+def test_bias_gelu_walk_takes_every_vector_once(rows, f, sms):
+    """``bias_gelu_pass``'s walk carried out over the plan's grid: every
+    vector is looked up and stored once, by the thread that loaded it,
+    and the column kept by adds is the vector's ``i mod (f / 8)``."""
+    plan = ek.plan_bias_gelu(rows, f, sms)
+    vecs, row_vecs = rows * f // 8, f // 8
+    stride = plan.blocks * plan.threads * plan.unroll
+    step_col = stride % row_vecs
+    seen = np.zeros(vecs, np.int64)
+    for blk in range(plan.blocks):
+        for tid in range(plan.threads):
+            i0 = blk * plan.threads * plan.unroll + tid
+            col = [(i0 + u * plan.threads) % row_vecs for u in range(plan.unroll)]
+            while i0 < vecs:
+                for u in range(plan.unroll):
+                    i = i0 + u * plan.threads
+                    if i < vecs:
+                        assert col[u] == i % row_vecs
+                        seen[i] += 1
+                    col[u] += step_col
+                    if col[u] >= row_vecs:
+                        col[u] -= row_vecs
+                i0 += stride
+    assert (seen == 1).all()
+
+
 # --------------------------------------------------------- the planners
 
 
@@ -481,15 +605,17 @@ extern "C" int ln_accepts(long long rows, int d, int a, int b, int c) {
 }
 """),
     "bgelu": ("bias_gelu.cu", """
-extern "C" int gelu_plan(long long rows, int f, int* out) {
+extern "C" int gelu_plan(long long rows, int f, int sms, int* out) {
   bgelu::Plan p;
-  if (!bgelu::plan(rows, f, &p)) return 0;
+  if (!bgelu::plan(rows, f, sms, &p)) return 0;
   out[0] = p.vec; out[1] = p.threads; out[2] = p.blocks;
+  out[3] = p.unroll; out[4] = p.win_lo; out[5] = p.win_len;
   return 1;
 }
-extern "C" int gelu_accepts(long long rows, int f, int a, int b, int c) {
+extern "C" int gelu_accepts(long long rows, int f, int sms, int a, int b, int c, int d, int e,
+                            int g) {
   bgelu::Plan p;
-  return bgelu::accepts(rows, f, a, b, c, &p);
+  return bgelu::accepts(rows, f, sms, a, b, c, d, e, g, &p);
 }
 """),
     "qkvh": ("qkv_heads.cu", """
@@ -525,17 +651,32 @@ def rules(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     lib.ln_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.ln_accepts.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4
-    lib.gelu_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.gelu_accepts.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4
+    lib.gelu_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int)]
+    lib.gelu_accepts.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 8
     lib.qkv_plan.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.POINTER(ctypes.c_int)]
     lib.qkv_accepts.argtypes = [ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 5
     return lib
 
 
-def c_plan(fn, *args):
-    out = (ctypes.c_int * 3)()
+def c_plan(fn, *args, n=3):
+    out = (ctypes.c_int * n)()
     return tuple(out) if fn(*args, out) else None
+
+
+SMS = 132  # the H100's SMs
+
+
+def held_to_rule(plan, plan_fn, accepts, args):
+    """``plan`` is the C rule's own for ``args``, the entry takes it, and
+    refuses it with any one field changed."""
+    assert c_plan(plan_fn, *args, n=len(plan)) == tuple(plan)
+    assert accepts(*args, *plan)
+    for i in range(len(plan)):
+        other = list(plan)
+        other[i] += 1
+        assert not accepts(*args, *other), (plan, i)
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
@@ -543,42 +684,72 @@ def test_plans_are_the_entries_rules(shape, rules):
     """At the index build's, T 512's and a query batch's shapes, each
     planner's plan is its C entry's own and the entry takes it; every
     field changed, the entry refuses it. The build's geometry: D 768 a
-    warp of 6 vectors a lane, 4 rows a block; one thread a vector of 8."""
+    warp of 6 vectors a lane, 4 rows a block; the GELU 4 resident blocks
+    of 256 an SM (fewer where one step a thread covers the rows), the
+    window |x| in [2^-16, 2^8); q/k/v one thread a vector of 8."""
     b, t = SHAPES[shape]
     rows = b * t
-    cases = [
-        (ek.plan_layer_norm(rows, D), rules.ln_plan, rules.ln_accepts, (rows, D)),
-        (ek.plan_bias_gelu(rows, F), rules.gelu_plan, rules.gelu_accepts, (rows, F)),
-        (ek.plan_qkv_heads(b, t, H, HD), rules.qkv_plan, rules.qkv_accepts, (b, t, H, HD)),
-    ]
-    for plan, plan_fn, accepts, args in cases:
-        assert c_plan(plan_fn, *args) == tuple(plan)
-        assert accepts(*args, *plan)
-        for i in range(3):
-            other = list(plan)
-            other[i] += 1
-            assert not accepts(*args, *other), (plan, i)
+    held_to_rule(ek.plan_layer_norm(rows, D), rules.ln_plan, rules.ln_accepts, (rows, D))
+    held_to_rule(ek.plan_bias_gelu(rows, F, SMS), rules.gelu_plan, rules.gelu_accepts,
+                 (rows, F, SMS))
+    held_to_rule(ek.plan_qkv_heads(b, t, H, HD), rules.qkv_plan, rules.qkv_accepts,
+                 (b, t, H, HD))
     ln = ek.plan_layer_norm(rows, D)
     assert (ln.per, ln.warps, ln.blocks) == (6, 4, -(-rows // 4))
-    assert ek.plan_bias_gelu(rows, F).blocks * 128 * 8 >= rows * F
+    gelu = ek.plan_bias_gelu(rows, F, SMS)
+    vecs = rows * F // 8
+    step = ek.GELU_THREADS * ek.GELU_UNROLL  # vectors a block's step
+    assert gelu.blocks == min(ek.GELU_BLOCKS_PER_SM * SMS, -(-vecs // step))
+    assert (gelu.vec, gelu.threads, gelu.unroll) == (8, ek.GELU_THREADS, ek.GELU_UNROLL)
+    assert np.float32(2.0 ** -16).view(np.uint32) >> 16 == gelu.win_lo
+    assert np.float32(2.0 ** 8).view(np.uint32) >> 16 == gelu.win_lo + gelu.win_len
     assert ek.plan_qkv_heads(b, t, H, HD).blocks == -(-rows * (D // 8) // 128)
+
+
+# the most rows of 3072 whose vector indices (and a grid step past the
+# last) stay within 32 bits on 132 SMs
+LAST_ROWS = ((2**31 - 1) - 132 * ek.GELU_BLOCKS_PER_SM * ek.GELU_THREADS * ek.GELU_UNROLL) // 384
+# rows of 3072 whose vectors give every resident block of 132 SMs one step
+FULL_WAVE = 132 * ek.GELU_BLOCKS_PER_SM * ek.GELU_THREADS * ek.GELU_UNROLL // 384
+
+
+@pytest.mark.parametrize("rows,f,sms", [
+    (1, 8, 132),  # one vector
+    (64, 8, 132),  # one block's step
+    (65, 8, 132),  # one vector past it
+    (FULL_WAVE, 3072, 132),  # every resident block one step
+    (FULL_WAVE + 1, 3072, 132),  # one row more: the cap
+    (8 * 40, 3072, 1),  # one SM
+    (512 * 376, 3072, 114),  # another card's SM count
+    (LAST_ROWS, 3072, 132),  # the most rows within 32-bit vector indices
+])
+def test_bias_gelu_plan_at_edges(rows, f, sms, rules):
+    """At edge shapes and SM counts the planner's plan is the entry's own,
+    with at most ``GELU_BLOCKS_PER_SM`` blocks an SM and no block without a
+    vector."""
+    plan = ek.plan_bias_gelu(rows, f, sms)
+    held_to_rule(plan, rules.gelu_plan, rules.gelu_accepts, (rows, f, sms))
+    vecs = rows * f // 8
+    assert 1 <= plan.blocks <= sms * ek.GELU_BLOCKS_PER_SM
+    assert (plan.blocks - 1) * plan.threads * plan.unroll < vecs
 
 
 @pytest.mark.parametrize("kind,args", [
     ("ln", (16, 1028)), ("ln", (16, 6)), ("ln", (0, 768)), ("ln", (16, 512)),
-    ("gelu", (16, 3070)), ("gelu", (2**28, 3072)),
+    ("gelu", (16, 3070, 132)), ("gelu", (2**28, 3072, 132)), ("gelu", (16, 3072, 0)),
+    ("gelu", (LAST_ROWS + 1, 3072, 132)),
     ("qkv", (2, 10, 12, 12)), ("qkv", (8192, 4096, 12, 64)),
 ])
 def test_planners_refuse_what_the_entries_refuse(kind, args, rules):
     """A width the kernel does not take (the norm's row other than 768, a
     GELU row or head dim not of 8-wide vectors) or a grid past 32-bit
     thread indices: the planner raises and the entry has no plan."""
-    planner, fn = {"ln": (ek.plan_layer_norm, rules.ln_plan),
-                   "gelu": (ek.plan_bias_gelu, rules.gelu_plan),
-                   "qkv": (ek.plan_qkv_heads, rules.qkv_plan)}[kind]
+    planner, fn, n = {"ln": (ek.plan_layer_norm, rules.ln_plan, 3),
+                      "gelu": (ek.plan_bias_gelu, rules.gelu_plan, 6),
+                      "qkv": (ek.plan_qkv_heads, rules.qkv_plan, 3)}[kind]
     with pytest.raises(ValueError):
         planner(*args)
-    assert c_plan(fn, *args) is None
+    assert c_plan(fn, *args, n=n) is None
 
 
 @pytest.mark.parametrize("b,t,h,hd", [(3, 7, 2, 64), (2, 130, 12, 64), (1, 5, 3, 16)])

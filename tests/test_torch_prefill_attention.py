@@ -18,8 +18,15 @@ where ``chip_smoke.py`` phase 9 holds it to this plain version).
   within ``rounding_tolerance`` of the plain version, visiting every slot a
   row attends, at tile edges.
 - ``plan_prefill_attention`` for every cache kind and head dim the kernel
-  instantiates: its shared memory fits a block, its tile is whole wgmma N
-  steps, its registers fit the block.
+  instantiates, in each regime: its shared memory fits a block, its tile is
+  whole wgmma N steps, its registers fit the block.
+- The persistent regime (a bf16 cache of at most 4 tiles at head dim
+  64-128): its choice, layout and grid held to ``pattn``'s rule compiled
+  with g++ at the port's shapes (Gemma-2B's, Mistral-7B's, the capture's
+  and the tiny configs' keep PR 15's plan, ``PR15_PLANS``); its walk over
+  (batch row, kv head, query tile) items; its barriers carried out across
+  items (``simulate_rings``); its items of three 64-row tiles in
+  ``emulate_kernel`` at head dim 64 and 128.
 - ``prefill_kernel_takes`` and the wrapper's checks.
 
 Tolerances: f32 compute at 1e-5 (the same f32 math, sums in another order);
@@ -220,12 +227,13 @@ def emulate_kernel(q, k, v, qpos, kpos, valid, k_scale=None, v_scale=None):
     > qpos, an online max m and sum l of 2^(x c2 - m c2), c2 = f32(1 /
     sqrt(hd)) x log2(e). Sweep 2: the same scores, p = bf16(2^(x c2 - m c2)
     x (1 / l)), f32 sums of p v. A row whose max stays at or under -1e30
-    attends nothing: bf16(1 / S) times the V sum."""
+    attends nothing: bf16(1 / S) times the V sum. The persistent regime's
+    items (``plan.positions`` of 192 at G 1) take the same arithmetic."""
     dt = torch.bfloat16
     b, t, h, hd = q.shape
     kvh, s = k.shape[1], k.shape[2]
     g = h // kvh
-    plan = at.plan_prefill_attention(k.dtype, hd, g)
+    plan = at.plan_prefill_attention(k.dtype, hd, g, s)
     kd = at.dequant_kv(k, k_scale, dt).float()
     vd = at.dequant_kv(v, v_scale, dt).float()
     tile = plan.tile
@@ -294,19 +302,39 @@ def test_kernel_emulation_within_rounding_tolerance(t, h, kvh, cache, pad, kind)
     of the plain version; every slot any row of a block attends lies in a
     tile the block visits; rows with no attendable slot are the mean over
     all S slots (the plain softmax over -1e30), which no tile sweep covers."""
-    q, kv, smask = prefill_case(t, h, kvh, cache, seed=t, pad=pad)
+    check_emulation(t, h, kvh, cache, pad, kind, 32)
+
+
+@pytest.mark.parametrize("t,h,kvh,cache,pad,hd", [
+    (137, 2, 2, False, 13, 64),  # the encoder's G 1, T and S off the tiles
+    (300, 2, 2, True, 29, 64),  # G 1 on the cache path, three tiles
+    (129, 4, 2, True, 17, 128),  # G 2 at head dim 128
+])
+def test_persistent_emulation_within_rounding_tolerance(t, h, kvh, cache, pad, hd):
+    """The same in the persistent regime (a bf16 cache of at most 4 tiles at
+    head dim 64-128): items of three 64-row tiles."""
+    check_emulation(t, h, kvh, cache, pad, "bf16", hd)
+
+
+def check_emulation(t, h, kvh, cache, pad, kind, hd):
+    q, kv, smask = prefill_case(t, h, kvh, cache, seed=t, pad=pad, hd=hd)
     _, (k, v, ks, vs) = stored(kind, kv)
     qt = torch.from_numpy(q).to(torch.bfloat16)
     qpos, kpos, valid = torch_mask(smask)
+    regime = at.plan_prefill_attention(k.dtype, hd, h // kvh, k.shape[2]).regime
+    assert regime == ("persistent" if hd > 32 else "tiles")
     got, visited = emulate_kernel(qt, k, v, qpos, kpos, valid, ks, vs)
     ref = at.prefill_attention_plain(qt, k, v, qpos, kpos, valid, k_scale=ks, v_scale=vs)
     mask = at.structured_mask(qpos, kpos, valid)
     tol = at.rounding_tolerance(qt, k, v, mask, k_scale=ks, v_scale=vs)
     assert ((got - ref).abs() <= tol).all(), float((got - ref).abs().max())
     g = h // kvh
-    plan = at.plan_prefill_attention(k.dtype, q.shape[-1], g)
+    plan = at.plan_prefill_attention(k.dtype, q.shape[-1], g, k.shape[2])
     dead = ~mask[:, 0].any(dim=-1)  # [B, T]
     assert bool(dead[2].all()) and bool(dead.any())
+    for bi in range(dead.shape[0]):  # the prep's test of a batch row for such rows
+        kmin = int(kpos[bi][valid[bi]].min()) if bool(valid[bi].any()) else INT_MAX
+        assert bool(dead[bi].any()) == (int(qpos[bi].min()) < kmin)
     for (bi, hi, t0), tiles in visited.items():
         attended = mask[bi, 0, t0:t0 + plan.positions].any(dim=0).nonzero().flatten()
         assert set((attended // plan.tile).tolist()) <= set(tiles), (bi, hi, t0)
@@ -337,39 +365,277 @@ def test_kernel_emulation_skips_tiles_past_the_diagonal():
 
 SMEM_PER_BLOCK = 232_448  # 227 KB, the H100's shared memory a block may use
 WGMMA_N_STEP = 8
+SMS = 132  # the H100's SMs
 
 
 @pytest.mark.parametrize("hd", at.PREFILL_HEAD_DIMS)
 @pytest.mark.parametrize("kind", [torch.bfloat16, torch.float32, torch.int8, torch.uint8],
                          ids=["bf16", "f32", "int8", "int4"])
 def test_prefill_plan_fits_the_card(kind, hd):
-    """Every instantiation's plan: its shared memory (Q, the ring, the raw
-    ring, the barriers, the alignment slack) fits a block; its tile is whole
-    wgmma N steps and at most 256; its registers a role fit the block's 384
-    x 168 that setmaxnreg redistributes; a raw ring exists exactly for the
-    caches that are not bf16, in whole raw stages a tile."""
-    plan = at.plan_prefill_attention(kind, hd, 8)
-    assert plan.smem <= SMEM_PER_BLOCK
-    assert plan.tile % WGMMA_N_STEP == 0 and plan.tile <= 256
-    assert plan.threads == 128 * (plan.consumers + 1) == 384
-    assert plan.consumers * plan.consumer_regs + plan.producer_regs <= 3 * 168
-    assert plan.rows == 64 and plan.positions == plan.consumers * (64 // 8)
-    assert plan.stages >= 2
-    if kind == torch.bfloat16:
-        assert plan.raw_stages == plan.raw_slots == 0
-    else:
-        assert plan.raw_stages >= 2 and plan.raw_slots > 0 and plan.tile % plan.raw_slots == 0
-    # one more ring stage would not fit, or the ring is at its cap
-    bigger = at._prefill_smem(at._KINDS[kind], hd, plan.tile, plan.raw_slots, plan.stages + 1,
-                              plan.raw_stages)
-    assert bigger > SMEM_PER_BLOCK or plan.stages == (6 if kind == torch.bfloat16 else 4)
+    """Every instantiation's plan, in each regime it runs (a long cache and
+    one of 512 slots): its shared memory (Q's buffers, the ring, the raw
+    ring, the barriers, the alignment slack) fits a block; its tile is
+    whole wgmma N steps and at most 256; its registers a role fit the
+    block's 384 x 168 that setmaxnreg redistributes; a raw ring exists
+    exactly for the caches that are not bf16, in whole raw stages a tile;
+    two Q buffers exactly in the persistent regime."""
+    for slots in (4096, 512):
+        plan = at.plan_prefill_attention(kind, hd, 8, slots)
+        assert plan.smem <= SMEM_PER_BLOCK
+        assert plan.tile % WGMMA_N_STEP == 0 and plan.tile <= 256
+        persistent = plan.regime == "persistent"
+        assert plan.consumers == (3 if persistent else 2)
+        assert plan.threads == 128 * (plan.consumers + 1) == (512 if persistent else 384)
+        # the launch bound's registers a thread (65,536 over the threads, in
+        # steps of 8: 168 at 384, 128 at 512), which setmaxnreg moves between roles
+        per_thread = 65536 // plan.threads // 8 * 8
+        assert (plan.consumers * plan.consumer_regs + plan.producer_regs
+                <= (plan.consumers + 1) * per_thread)
+        assert plan.rows == 64 and plan.positions == plan.consumers * (64 // 8)
+        assert plan.stages >= 2
+        assert plan.q_buffers == (2 if persistent else 1)
+        if kind == torch.bfloat16:
+            assert plan.raw_stages == plan.raw_slots == 0
+        else:
+            assert plan.raw_stages >= 2 and plan.raw_slots > 0 and plan.tile % plan.raw_slots == 0
+        # one more ring stage would not fit, or the ring is at its cap
+        bigger = at._prefill_smem(at._KINDS[kind], hd, plan.tile, plan.raw_slots,
+                                  plan.stages + 1, plan.raw_stages, plan.q_buffers)
+        cap = 8 if persistent else 6 if kind == torch.bfloat16 else 4
+        assert bigger > SMEM_PER_BLOCK or plan.stages == cap
 
 
 def test_prefill_plan_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
-        at.plan_prefill_attention(torch.bfloat16, 96, 8)
+        at.plan_prefill_attention(torch.bfloat16, 96, 8, 512)
     with pytest.raises(ValueError):
-        at.plan_prefill_attention(torch.bfloat16, 128, 65)
+        at.plan_prefill_attention(torch.bfloat16, 128, 65, 512)
+    with pytest.raises(ValueError):
+        at.plan_prefill_attention(torch.bfloat16, 64, 1, 0)
+
+
+# PR 15's plans (tile, stages, raw_slots, raw_stages, smem) at G 8, as its
+# planner gave them: every call outside the persistent regime keeps them
+PR15_PLANS = {
+    ("bf16", 32): (128, 6, 0, 0, 61544), ("bf16", 64): (128, 6, 0, 0, 118888),
+    ("bf16", 128): (128, 5, 0, 0, 200280), ("bf16", 256): (64, 5, 0, 0, 231768),
+    ("f32", 32): (128, 4, 128, 4, 111752), ("f32", 64): (128, 4, 64, 4, 151688),
+    ("f32", 128): (128, 4, 32, 3, 216568), ("f32", 256): (64, 3, 16, 4, 231544),
+    ("int8", 32): (128, 4, 128, 4, 64648), ("int8", 64): (128, 4, 128, 4, 121992),
+    ("int8", 128): (128, 4, 128, 3, 219256), ("int8", 256): (64, 3, 64, 3, 216424),
+    ("int4", 32): (128, 4, 128, 4, 56456), ("int4", 64): (128, 4, 128, 4, 107656),
+    ("int4", 128): (128, 4, 128, 4, 210056), ("int4", 256): (64, 4, 64, 3, 230264),
+}
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8, "int4": torch.uint8}
+# (kind, hd, G, slots, T, B x KV, regime) of the calls the port makes
+REGIME_SHAPES = {
+    "gemma prefill bf16": ("bf16", 256, 8, 3862, 3712, 8, "tiles"),
+    "gemma prefill int8": ("int8", 256, 8, 3862, 3712, 8, "tiles"),
+    "gemma prefill int4": ("int4", 256, 8, 3862, 3712, 8, "tiles"),
+    "capture": ("bf16", 256, 8, 1536, 1536, 8, "tiles"),
+    "gemma short prompt": ("bf16", 256, 8, 300, 140, 8, "tiles"),
+    "mistral-7b int8": ("int8", 128, 4, 1174, 1024, 64, "tiles"),
+    "mistral-7b bf16": ("bf16", 128, 4, 1174, 1024, 64, "tiles"),
+    "mistral-7b short f32 cache": ("f32", 128, 4, 200, 40, 64, "tiles"),
+    "tiny": ("bf16", 32, 2, 140, 137, 3, "tiles"),
+    "tiny int4": ("int4", 32, 2, 170, 161, 3, "tiles"),
+    "encoder build": ("bf16", 64, 1, 376, 376, 512 * 12, "persistent"),
+    "encoder T 512": ("bf16", 64, 1, 512, 512, 512 * 12, "persistent"),
+    "encoder T 513": ("bf16", 64, 1, 513, 513, 512 * 12, "tiles"),
+    "encoder query": ("bf16", 64, 1, 40, 40, 8 * 12, "persistent"),
+    "encoder one doc": ("bf16", 64, 1, 9, 9, 12, "persistent"),
+    "encoder int8 cache": ("int8", 64, 1, 376, 376, 12, "tiles"),
+    "hd 128 short": ("bf16", 128, 4, 300, 200, 16, "persistent"),
+}
+
+PATTN_SHIM = """
+extern "C" int pattn_plan(int kind, int hd, int s, int* out) {
+  const int regime = pattn::regime(kind, hd, s);
+  const int r = pattn::ring_stages(kind, hd, regime), rd = pattn::raw_stages(kind, hd);
+  out[0] = regime; out[1] = pattn::tile_slots(hd); out[2] = r;
+  out[3] = pattn::raw_slots(kind, hd); out[4] = rd; out[5] = pattn::q_buffers(regime);
+  out[6] = pattn::smem_bytes(kind, hd, r, rd, regime);
+  out[7] = pattn::consumers(regime); out[8] = pattn::threads(regime);
+  out[9] = pattn::consumer_regs(kind, regime); out[10] = pattn::producer_regs(kind, regime);
+  return 1;
+}
+extern "C" int pattn_grid(int regime, int items, int sms) {
+  return pattn::grid(regime, items, sms);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def pattn_rule(tmp_path_factory):
+    """``prefill_attention.cu``'s plan rule (namespace pattn, host code),
+    compiled with g++ from the source the card builds."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    src = (Path(at.__file__).resolve().parents[1] / "kernels" / "csrc"
+           / "prefill_attention.cu").read_text()
+    body = src[src.index("namespace pattn {"):src.index("}  // namespace pattn\n")] + "}\n"
+    head = ("#define __host__\n#define __device__\n"
+            "namespace attn { enum Kind { kBf16 = 0, kF32 = 1, kInt8 = 2, kInt4 = 3 }; }\n")
+    d = tmp_path_factory.mktemp("pattn_rule")
+    cpp, so = d / "pattn.cpp", d / "pattn.so"
+    cpp.write_text(head + body + PATTN_SHIM)
+    subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC", str(cpp), "-o", str(so)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.pattn_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.pattn_grid.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+@pytest.mark.parametrize("shape", list(REGIME_SHAPES))
+def test_prefill_regime_and_layout_are_the_entry_rule(shape, pattn_rule):
+    """At the port's calls, ``plan_prefill_attention``'s regime, layout and
+    grid are ``pattn``'s rule (the C entry's check, the kernel's layout):
+    Gemma-2B's prefills and capture, Mistral-7B's, the tiny configs' and
+    the encoder's over more than 512 keys or a cache that is not bf16 keep
+    PR 15's plan and a block an item; the encoder's build, T 512, query and
+    a one-doc batch, and head dim 128 over a short bf16 cache, run
+    persistent, min(SMs, items) blocks of three consumer warpgroups."""
+    import ctypes
+
+    kind, hd, g, s, t, bkv, regime = REGIME_SHAPES[shape]
+    plan = at.plan_prefill_attention(DTYPES[kind], hd, g, s, t, bkv, SMS)
+    out = (ctypes.c_int * 11)()
+    pattn_rule.pattn_plan(at._KINDS[DTYPES[kind]], hd, s, out)
+    assert plan.regime == regime == ("persistent" if out[0] == 1 else "tiles")
+    assert (plan.tile, plan.stages, plan.raw_slots, plan.raw_stages, plan.q_buffers, plan.smem,
+            plan.consumers, plan.threads, plan.consumer_regs,
+            plan.producer_regs) == tuple(out[1:])
+    items = -(-t // plan.positions) * bkv
+    assert plan.grid == pattn_rule.pattn_grid(out[0], items, SMS)
+    assert plan.grid == (min(items, SMS) if regime == "persistent" else items)
+    if regime == "tiles":
+        g8 = at.plan_prefill_attention(DTYPES[kind], hd, 8, s)
+        assert (g8.tile, g8.stages, g8.raw_slots, g8.raw_stages, g8.smem) == PR15_PLANS[(kind, hd)]
+    else:
+        assert plan.smem <= SMEM_PER_BLOCK and plan.q_buffers == 2
+
+
+def persistent_walk(plan, qtiles: int, bkv: int):
+    """``prefill_attn``'s persistent walk: block j takes items j, j + grid,
+    ..., item it the (bk, qt) = divmod(it, qtiles). Returns each block's
+    list of (bk, qt)."""
+    items = qtiles * bkv
+    return [[divmod(it, qtiles) for it in range(j, items, plan.grid)] for j in range(plan.grid)]
+
+
+@pytest.mark.parametrize("b,t", [(1, 40), (8, 40), (11, 40), (11, 193), (16, 376), (512, 376),
+                                 (30, 512)])
+def test_persistent_walk_visits_every_item_once(b, t):
+    """Below, at and above the SM count (12 items at one doc, 96 at a
+    query batch, 132 at 11 docs, 264 at 11 docs of two query tiles, 384 at
+    16 docs of 376, 12,288 at the build's 512): every (batch row, kv head,
+    query tile) is visited exactly
+    once, each block takes its share (the counts differ by at most one),
+    and the items in flight at once (one a block) hold a (batch row, kv
+    head)'s query tiles side by side, so its K and V are read from device
+    memory once."""
+    kv = 12
+    plan = at.plan_prefill_attention(torch.bfloat16, 64, 1, t, t, b * kv, SMS)
+    assert plan.regime == "persistent"
+    qtiles = -(-t // plan.positions)
+    walks = persistent_walk(plan, qtiles, b * kv)
+    seen = [it for w in walks for it in w]
+    assert sorted(seen) == [(bk, qt) for bk in range(b * kv) for qt in range(qtiles)]
+    counts = [len(w) for w in walks]
+    assert plan.grid == min(SMS, qtiles * b * kv) and min(counts) >= 1
+    assert max(counts) - min(counts) <= 1
+    first = [w[0] for w in walks]  # the first wave
+    bks = sorted({bk for bk, _ in first})
+    assert all(sum(1 for bk2, _ in first if bk2 == bk) == qtiles for bk in bks[:-1])
+
+
+def simulate_rings(ns, stages: int, q_buffers: int):
+    """The persistent regime's barriers carried out for one block whose
+    items visit ``ns`` tiles each: the producer (Q into buffer u % 2 after
+    its empty barrier, then each item's ring steps, sweep 1's K tiles and
+    sweep 2's K and V) and the consumers (Q's full barrier, then each ring
+    step's full barrier, releasing the stage; Q released after sweep 2),
+    each waiting on the parity the kernel computes. A wait passes where the
+    barrier's completed phases have the other parity (mbarrier's
+    try_wait.parity), and every passing wait must see exactly the phase it
+    means (never one ahead or behind). Returns the order in which ring
+    steps were filled and read."""
+    full, empty = [0] * stages, [0] * stages  # completed phases
+    qfull, qempty = [0] * q_buffers, [0] * q_buffers
+
+    def can(count, parity, use):
+        ok = (count & 1) != parity
+        if ok:
+            assert count == use + 1 if parity == use & 1 else count == use, (count, use)
+        return ok
+
+    prod = []  # ("q", u) or ("k"/"v", g)
+    for u, n in enumerate(ns):
+        prod.append(("q", u))
+        prod += [("k", None)] * n + [("k", None), ("v", None)] * n
+    cons = []
+    for u, n in enumerate(ns):
+        cons.append(("q", u))
+        cons += [("step", None)] * (3 * n)
+        cons.append(("qdone", u))
+    pi = ci = pg = cg = 0
+    filled, read = [], []
+    while pi < len(prod) or ci < len(cons):
+        moved = False
+        if pi < len(prod):
+            what, u = prod[pi]
+            if what == "q":
+                qb = u % q_buffers
+                if q_buffers == 1 or can(qempty[qb], ((u // q_buffers) & 1) ^ 1, u // q_buffers):
+                    qfull[qb] += 1
+                    pi += 1
+                    moved = True
+            else:
+                st = pg % stages
+                if can(empty[st], ((pg // stages) & 1) ^ 1, pg // stages):
+                    full[st] += 1
+                    filled.append(pg)
+                    pg += 1
+                    pi += 1
+                    moved = True
+        if ci < len(cons):
+            what, u = cons[ci]
+            if what == "q":
+                qb = u % q_buffers
+                if can(qfull[qb], (u // q_buffers) & 1, u // q_buffers):
+                    ci += 1
+                    moved = True
+            elif what == "step":
+                st = cg % stages
+                if can(full[st], (cg // stages) & 1, cg // stages):
+                    empty[st] += 1
+                    read.append(cg)
+                    cg += 1
+                    ci += 1
+                    moved = True
+            else:
+                if q_buffers > 1:
+                    qempty[u % q_buffers] += 1
+                ci += 1
+                moved = True
+        assert moved, f"deadlock at producer {pi}, consumers {ci}"
+    return filled, read
+
+
+@pytest.mark.parametrize("ns", [[3] * 140, [1, 3, 0, 2, 3, 0, 0, 1], [4] * 5, [0] * 4, [1],
+                                [2, 0, 2, 0, 3]])
+@pytest.mark.parametrize("stages", [8, 4])
+def test_persistent_rings_run_across_items(ns, stages):
+    """The ring's steps and phases and the two Q buffers run on across a
+    block's items without a deadlock or a wait that sees another phase
+    than its own, at the encoder's ring (8 stages at head dim 64) and head
+    dim 128's (4), for items of 0-4 tiles; every step is filled and read
+    once, in order."""
+    filled, read = simulate_rings(ns, stages, 2)
+    assert filled == read == list(range(3 * sum(ns)))
 
 
 # ------------------------------------------------------------ what the kernel takes
