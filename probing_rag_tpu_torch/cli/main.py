@@ -41,6 +41,11 @@ one). The dense encoder has weights drawn from one fixed seed, the same in
 ``index-build`` and ``rag-run``, so that documents and queries are
 embedded by one encoder: Contriever's width (768) under ``--checkpoint``,
 as in the JAX CLI, else the tiny encoder (32).
+
+``index-build`` and ``rag-run`` end by logging at INFO where their time
+went: each span of the recorder (``utils/profiling.py``) with its total
+and self seconds, its count and its summed counts, then the graph
+captures and hits and the kernel launches.
 """
 
 from __future__ import annotations
@@ -154,6 +159,22 @@ def _checked_stack(probers, template, cfg, tc):
     return probers
 
 
+def _log_report() -> None:
+    """Logs the recorder's report and the program's counters at INFO."""
+    from probing_rag_tpu_torch import kernels
+    from probing_rag_tpu_torch.models.graphs import CAPTURES
+    from probing_rag_tpu_torch.utils.logging import get_logger
+    from probing_rag_tpu_torch.utils.profiling import RECORDER
+
+    log = get_logger(__name__)
+    for name, r in RECORDER.report().items():
+        log.info("span %s: %d in %.4f s (self %.4f s) %s", name, r["count"], r["total_s"],
+                 r["self_s"], r["counts"])
+    log.info("graph captures %d (%.3f s), hits %d; kernel launches %s", CAPTURES["count"],
+             CAPTURES["seconds"], CAPTURES["hits"],
+             {k: v for k, v in kernels.LAUNCHES.items() if v})
+
+
 def _dense_encoder(args):
     """The dense encoder with weights from ``ENCODER_SEED`` (drawn on the
     CPU, so every device gets the same weights) and the byte tokenizer:
@@ -203,6 +224,7 @@ def cmd_index_build(args):
         BM25Index.build(texts, BM25Config()).save(out / "bm25")
         print(f"built sparse index over {len(texts)} docs in {time.time() - t0:.1f}s")
     print(f"index written to {out}")
+    _log_report()
 
 
 def _load_questions(args):
@@ -291,6 +313,7 @@ def cmd_rag_run(args):
     path = save_run(record, Path(args.results_dir), fname)
     em, f1 = record.em_f1()
     print(f"acc={record.accuracy:.4f} em={em} f1={f1} time={elapsed:.1f}s -> {path}")
+    _log_report()
 
 
 def cmd_dataset_make(args):

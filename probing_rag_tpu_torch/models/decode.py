@@ -52,6 +52,7 @@ from probing_rag_tpu_torch.models.gemma import (
 )
 from probing_rag_tpu_torch.models.graphs import GRAPHS, Loop, StaticState, tree_key
 from probing_rag_tpu_torch.models.sampling import SamplingConfig, select_token
+from probing_rag_tpu_torch.utils.profiling import RECORDER
 
 # host checks of "every row finished": one every this many steps
 CHECK_EVERY = 4
@@ -338,17 +339,21 @@ def decode_greedy(
                             max_new_tokens=max_new_tokens, eos_id=eos_id, sampling=sampling,
                             kv_dtype=_kv_dtype(cfg, kv_int8, kv_int4), device=dev, eager=eager,
                             tp=tp)
-        _, g1, finished0, counts = _prefill_impl(
-            params, prompt_tokens, prompt_valid, stops, loop.state.kv,
-            cfg=cfg, max_new_tokens=max_new_tokens, eos_id=eos_id, sampling=sampling,
-            generator=generator, tp=tp,
-        )
-        return _decode_loop_impl(
-            params, loop, g1, finished0, counts, prompt_valid, stops,
-            cfg=cfg, capture=capture, max_new_tokens=max_new_tokens,
-            eos_id=eos_id, sampling=sampling, generator=generator, check_every=check_every,
-            tp=tp,
-        )
+        with RECORDER.span("lm.prefill", device=dev):
+            _, g1, finished0, counts = _prefill_impl(
+                params, prompt_tokens, prompt_valid, stops, loop.state.kv,
+                cfg=cfg, max_new_tokens=max_new_tokens, eos_id=eos_id, sampling=sampling,
+                generator=generator, tp=tp,
+            )
+        with RECORDER.span("lm.decode", device=dev) as span:
+            out = _decode_loop_impl(
+                params, loop, g1, finished0, counts, prompt_valid, stops,
+                cfg=cfg, capture=capture, max_new_tokens=max_new_tokens,
+                eos_id=eos_id, sampling=sampling, generator=generator, check_every=check_every,
+                tp=tp,
+            )
+            span.count(steps=loop.steps, checks=loop.checks, row_steps=b * loop.steps)
+        return out
 
 
 def generate(
@@ -376,7 +381,14 @@ def generate(
     seeded with ``seed``; ``spec`` runs ``speculative.decode_speculative``
     (greedy only). ``tp``: the tensor-parallel group, ``params`` this
     rank's slices; speculation does not run under TP. Returns (full_texts,
-    DecodeResult) where ``full_texts[i]`` is prompt + generation."""
+    DecodeResult) where ``full_texts[i]`` is prompt + generation.
+
+    Spans: ``lm.prepare`` (tokenize, pad, copy in), the decode's
+    ``lm.prefill`` and ``lm.decode``, ``lm.readback`` and
+    ``lm.detokenize``. Once the readback has synchronised, the prefill's
+    span gets the batch's ``rows``, ``slots`` (rows x padded length) and
+    ``valid`` prompt tokens, and the decode's its ``live`` row-steps (the
+    pooled steps of every row, before its stop)."""
     if spec is not None and tp is not None:
         raise ValueError("speculative decode does not run under tensor parallelism")
     if spec is not None and sampling.do_sample:
@@ -390,14 +402,15 @@ def generate(
             else StopTables.disabled(tokenizer.vocab_size)
         )
     dev = params["final_norm"].device
-    prompt_ids = [tokenizer.encode(p, add_bos=True) for p in prompts]
-    tokens, valid = _pad_batch(prompt_ids, tokenizer.pad_id)
-    stops = tuple(
-        torch.from_numpy(a).to(dev)
-        for a in (stop_tables.contains_dbl_nl, stop_tables.ends_nl, stop_tables.starts_nl)
-    )
-    tokens_t = torch.from_numpy(tokens).long().to(dev)
-    valid_t = torch.from_numpy(valid).to(dev)
+    with RECORDER.span("lm.prepare"):
+        prompt_ids = [tokenizer.encode(p, add_bos=True) for p in prompts]
+        tokens, valid = _pad_batch(prompt_ids, tokenizer.pad_id)
+        stops = tuple(
+            torch.from_numpy(a).to(dev)
+            for a in (stop_tables.contains_dbl_nl, stop_tables.ends_nl, stop_tables.starts_nl)
+        )
+        tokens_t = torch.from_numpy(tokens).long().to(dev)
+        valid_t = torch.from_numpy(valid).to(dev)
     common = dict(cfg=cfg, capture=capture, max_new_tokens=max_new_tokens,
                   eos_id=tokenizer.eos_id, kv_int8=kv_int8, kv_int4=kv_int4, eager=eager,
                   check_every=check_every)
@@ -415,18 +428,21 @@ def generate(
             params, tokens_t, valid_t, stops, sampling=sampling, generator=generator, tp=tp,
             **common,
         )
-    gen = gen.to(torch.int32).cpu().numpy()
-    gen_valid = gen_valid.cpu().numpy()
-    n_gen = n_gen.cpu().numpy()
-    texts = []
-    for i, prompt in enumerate(prompts):
-        ids = gen[i, : n_gen[i]][gen_valid[i, : n_gen[i]]]
-        texts.append(prompt + tokenizer.decode([int(x) for x in ids]))
-    result = DecodeResult(
-        tokens=gen,
-        token_valid=gen_valid,
-        pooled_captures=pooled.cpu().numpy(),
-        n_pooled=n_pooled.cpu().numpy(),
-        n_generated=n_gen,
-    )
+    with RECORDER.span("lm.readback"):
+        result = DecodeResult(
+            tokens=gen.to(torch.int32).cpu().numpy(),
+            token_valid=gen_valid.cpu().numpy(),
+            pooled_captures=pooled.cpu().numpy(),
+            n_pooled=n_pooled.cpu().numpy(),
+            n_generated=n_gen.cpu().numpy(),
+        )
+    RECORDER.last("lm.prefill").count(rows=tokens.shape[0], slots=tokens.size,
+                                      valid=int(valid.sum()))
+    RECORDER.last("lm.decode").count(live=int(result.n_pooled.sum()))
+    with RECORDER.span("lm.detokenize"):
+        texts = []
+        for i, prompt in enumerate(prompts):
+            n = result.n_generated[i]
+            ids = result.tokens[i, :n][result.token_valid[i, :n]]
+            texts.append(prompt + tokenizer.decode([int(x) for x in ids]))
     return texts, result

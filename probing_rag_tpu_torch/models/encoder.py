@@ -40,6 +40,7 @@ from probing_rag_tpu_torch.ops.attention import prefill_attention, prefill_atten
 from probing_rag_tpu_torch.ops.encoder import (add_layer_norm, add_layer_norm_plain, bias_gelu,
                                                bias_gelu_plain, kernels_take, qkv_heads,
                                                qkv_heads_plain)
+from probing_rag_tpu_torch.utils.profiling import RECORDER
 
 Params = Dict[str, Any]
 
@@ -167,21 +168,32 @@ def text_encoder(
     ``_dense_encoder`` closure: token ids cut to ``max_positions`` and
     clamped to ``vocab_size - 1``, right-padded to the batch's longest.
     The tree the forward reads is made here, once (:func:`prepare_params`):
-    the caller may drop ``params``."""
+    the caller may drop ``params``.
+
+    A call is an ``encoder.batch`` span over ``encoder.tokenize``,
+    ``encoder.pad``, ``encoder.copy_in``, ``encoder.forward`` (timed on
+    the card too, with the batch's ``slots``, rows x longest, and its
+    ``valid`` tokens) and ``encoder.readback``."""
     params = prepare_params(params, cfg)
+    device = torch.device(device)
 
     def encode(texts: Sequence[str]) -> np.ndarray:
-        ids = [tokenizer.encode(t)[: cfg.max_positions] for t in texts]
-        ml = max(max((len(i) for i in ids), default=1), 1)
-        arr = np.zeros((len(ids), ml), np.int64)
-        msk = np.zeros((len(ids), ml), bool)
-        for i, row in enumerate(ids):
-            arr[i, : len(row)] = np.minimum(row, cfg.vocab_size - 1)
-            msk[i, : len(row)] = True
-        with torch.no_grad():
-            out = encoder_forward(
-                params, torch.from_numpy(arr).to(device), torch.from_numpy(msk).to(device), cfg
-            )
-        return out.cpu().numpy()
+        with RECORDER.span("encoder.batch", rows=len(texts)):
+            with RECORDER.span("encoder.tokenize"):
+                ids = [tokenizer.encode(t)[: cfg.max_positions] for t in texts]
+            with RECORDER.span("encoder.pad"):
+                ml = max(max((len(i) for i in ids), default=1), 1)
+                arr = np.zeros((len(ids), ml), np.int64)
+                msk = np.zeros((len(ids), ml), bool)
+                for i, row in enumerate(ids):
+                    arr[i, : len(row)] = np.minimum(row, cfg.vocab_size - 1)
+                    msk[i, : len(row)] = True
+            with RECORDER.span("encoder.copy_in"):
+                tokens, mask = torch.from_numpy(arr).to(device), torch.from_numpy(msk).to(device)
+            with RECORDER.span("encoder.forward", device=device, slots=arr.size,
+                               valid=sum(len(i) for i in ids)), torch.no_grad():
+                out = encoder_forward(params, tokens, mask, cfg)
+            with RECORDER.span("encoder.readback"):
+                return out.cpu().numpy()
 
     return encode

@@ -18,7 +18,7 @@ replay. :class:`GraphCache` keeps a few captured steps with their buffers,
 keyed by everything that shapes them, least recently used first out.
 ``CAPTURES`` counts the captures of the process and their wall seconds
 (the warm-up step and the capture, synchronised), so that a caller can
-tell what a cache miss cost.
+tell what a cache miss cost, and the hits of :class:`GraphCache`.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ import torch
 
 from probing_rag_tpu_torch import kernels
 
-# captures made (each a GraphCache miss or a new loop) and their seconds
-CAPTURES: Dict[str, float] = {"count": 0, "seconds": 0.0}
+# captures made (each a GraphCache miss or a new loop), their seconds, and
+# the GraphCache hits
+CAPTURES: Dict[str, float] = {"count": 0, "seconds": 0.0, "hits": 0}
 
 
 class StepGraph:
@@ -95,6 +96,7 @@ class GraphCache:
     def get(self, key: Hashable, make: Callable[[], object]):
         if key in self._entries:
             self._entries.move_to_end(key)
+            CAPTURES["hits"] += 1
             return self._entries[key]
         while len(self._entries) >= self.size:
             self._entries.popitem(last=False)

@@ -50,6 +50,7 @@ from probing_rag_tpu_torch.models.gemma import (
     init_kv_cache,
 )
 from probing_rag_tpu_torch.models.graphs import GRAPHS, Loop, StaticState, tree_key
+from probing_rag_tpu_torch.utils.profiling import RECORDER
 
 
 @dataclass(frozen=True)
@@ -274,13 +275,14 @@ def decode_speculative(
             [prompt_valid, torch.zeros((b, st.slot_valid.shape[1] - t), dtype=torch.bool,
                                        device=dev)], dim=-1)
         rope_prompt = torch.clamp(torch.cumsum(prompt_valid.long(), dim=-1) - 1, min=0)
-        logits, _, _ = forward(
-            params, prompt_tokens, cfg, capture=CaptureSpec(),
-            kv_cache=dict(st.kv, pos=torch.zeros((), dtype=torch.int64, device=dev)),
-            positions=rope_prompt, attn_valid=slot_valid0, logits_last_only=True,
-        )
-        g1 = torch.argmax(logits[:, -1], dim=-1)
-        finished0 = _is_stop(g1, prompt_tokens[:, -1], *stops, eos_id)
+        with RECORDER.span("lm.prefill", device=dev):
+            logits, _, _ = forward(
+                params, prompt_tokens, cfg, capture=CaptureSpec(),
+                kv_cache=dict(st.kv, pos=torch.zeros((), dtype=torch.int64, device=dev)),
+                positions=rope_prompt, attn_valid=slot_valid0, logits_last_only=True,
+            )
+            g1 = torch.argmax(logits[:, -1], dim=-1)
+            finished0 = _is_stop(g1, prompt_tokens[:, -1], *stops, eos_id)
         st.load(prompt_tokens, prompt_valid, stops, oracle, g1, finished0, eos_id)
 
         def round_(_gen):
@@ -288,9 +290,11 @@ def decode_speculative(
                         eos_id=eos_id, k=k, drafter=drafter)
 
         # every active round commits a token and g1 is committed: at most
-        # max_new - 1 active rounds
-        loop.run(round_, lambda: st.finished | (st.n_committed >= max_new_tokens),
-                 max_new_tokens - 1, check_every)
+        # max_new - 1 active rounds. A round verifies blk positions a row
+        with RECORDER.span("lm.decode", device=dev) as span:
+            loop.run(round_, lambda: st.finished | (st.n_committed >= max_new_tokens),
+                     max_new_tokens - 1, check_every)
+            span.count(steps=loop.steps, checks=loop.checks, row_steps=b * blk * loop.steps)
         n_committed = st.n_committed.to(torch.int32)
         valid = torch.arange(max_new_tokens, device=dev)[None, :] < st.n_committed[:, None]
         stats = {"rounds": int(st.rounds)}

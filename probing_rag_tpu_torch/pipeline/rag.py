@@ -35,6 +35,7 @@ from probing_rag_tpu_torch.models.gemma import CaptureSpec, GemmaConfig
 from probing_rag_tpu_torch.models.speculative import SpecConfig
 from probing_rag_tpu_torch.prober.gate import gate_decision
 from probing_rag_tpu_torch.utils.logging import get_logger
+from probing_rag_tpu_torch.utils.profiling import RECORDER
 
 logger = get_logger(__name__)
 
@@ -93,7 +94,9 @@ class AdaptiveRAGPipeline:
 
     # ------------------------------------------------------------ helpers
     def _generate(self, prompt_texts: Sequence[str], with_capture: bool):
-        """Batched generation padded to the configured batch size."""
+        """Batched generation padded to the configured batch size. Each
+        batch is an ``lm.generate`` span that counts its pad rows, whose
+        live steps it takes out of its ``lm.decode`` span's."""
         n = len(prompt_texts)
         bs = self.rag.batch_size
         texts_out: List[str] = []
@@ -101,13 +104,17 @@ class AdaptiveRAGPipeline:
         capture = self.capture if with_capture else CaptureSpec()
         for start in range(0, n, bs):
             chunk = list(prompt_texts[start : start + bs])
-            padded = chunk + [chunk[-1]] * (bs - len(chunk))
-            texts, result = generate(
-                self.lm_params, self.cfg, self.tokenizer, padded,
-                max_new_tokens=self.rag.max_new_tokens,
-                capture=capture, stop_tables=self.stop_tables,
-                kv_int8=self.rag.kv_int8, kv_int4=self.rag.kv_int4, spec=self.spec,
-            )
+            pad = bs - len(chunk)
+            padded = chunk + [chunk[-1]] * pad
+            with RECORDER.span("lm.generate", rows=bs, pad_rows=pad):
+                texts, result = generate(
+                    self.lm_params, self.cfg, self.tokenizer, padded,
+                    max_new_tokens=self.rag.max_new_tokens,
+                    capture=capture, stop_tables=self.stop_tables,
+                    kv_int8=self.rag.kv_int8, kv_int4=self.rag.kv_int4, spec=self.spec,
+                )
+                if pad:
+                    RECORDER.last("lm.decode").count(live=-int(result.n_pooled[len(chunk):].sum()))
             texts_out.extend(texts[: len(chunk)])
             if with_capture:
                 pooled_out.append(result.pooled_captures[:, : len(chunk), :])
@@ -116,34 +123,36 @@ class AdaptiveRAGPipeline:
 
     def _gate(self, pooled: np.ndarray):
         dev = self.prober_stack["fc1"]["w"].device
-        with torch.inference_mode():
+        with RECORDER.span("rag.gate", rows=pooled.shape[1]), torch.inference_mode():
             retrieve, scores = gate_decision(
                 self.prober_stack, torch.from_numpy(pooled).to(dev),
                 threshold=self.rag.threshold, ablation=self.rag.ablation,
             )
-        return retrieve.cpu().numpy(), scores.cpu().numpy()
+            return retrieve.cpu().numpy(), scores.cpu().numpy()
 
     def retrieval_prompts(
         self, questions: Sequence[str], search_queries: Sequence[str]
     ) -> List[str]:
         """Search the top-k passages for each of ``search_queries`` and
         render the regeneration prompt of the matching question over them."""
-        result = self.retriever.search(list(search_queries), k=self.rag.top_k)
-        out = []
-        for q, row in zip(questions, result.doc_indices):
-            passages = self.docstore.texts([int(d) for d in row if d >= 0])
-            out.append(prompts.retr_qa_cot2(q, prompts.format_evidences(passages)))
-        return out
+        with RECORDER.span("rag.retrieve", queries=len(search_queries)):
+            result = self.retriever.search(list(search_queries), k=self.rag.top_k)
+            out = []
+            for q, row in zip(questions, result.doc_indices):
+                passages = self.docstore.texts([int(d) for d in row if d >= 0])
+                out.append(prompts.retr_qa_cot2(q, prompts.format_evidences(passages)))
+            return out
 
     # -------------------------------------------------------------- modes
     def run(self, questions: Sequence[str]) -> RAGResult:
         method = self.rag.retr_method
-        if method == "none":
-            return self._run_none(questions)
-        if method == "simple":
-            return self._run_simple(questions)
-        if method == "probing":
-            return self._run_probing(questions)
+        with RECORDER.span("rag.run", questions=len(questions)):
+            if method == "none":
+                return self._run_none(questions)
+            if method == "simple":
+                return self._run_simple(questions)
+            if method == "probing":
+                return self._run_probing(questions)
         raise ValueError(f"unknown retr_method {method!r}")
 
     def _run_none(self, questions: Sequence[str]) -> RAGResult:

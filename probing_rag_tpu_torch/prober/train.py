@@ -30,6 +30,7 @@ import torch
 
 from probing_rag_tpu_torch.models.gemma import CaptureSpec, GemmaConfig, forward
 from probing_rag_tpu_torch.prober.model import improved_probe_forward, init_improved_probe
+from probing_rag_tpu_torch.utils.profiling import RECORDER
 
 
 # ------------------------------------------------------------------- loss
@@ -250,19 +251,25 @@ def tensorize_examples(
     is_cot: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Left-pad tokenized text+pred to ``max_len`` and compute ``pred_len``
-    = the number of generation tokens. Returns (tokens, labels, pred_lens)."""
+    = the number of generation tokens. Returns (tokens, labels, pred_lens).
+    A ``train.tensorize`` span counts the ``slots`` (rows x ``max_len``)
+    and the ``valid`` tokens."""
     b = len(examples)
-    tokens = np.full((b, max_len), tokenizer.pad_id, dtype=np.int32)
-    labels = np.zeros((b,), np.int32)
-    pred_lens = np.zeros((b,), np.int32)
-    for i, ex in enumerate(examples):
-        joined = f"{ex.text}\n{ex.pred}" if is_cot else f"{ex.text} {ex.pred}"
-        ids_full = tokenizer.encode(joined, add_bos=True)
-        ids_text = tokenizer.encode(ex.text, add_bos=True)
-        ids_full = ids_full[-max_len:]
-        tokens[i, max_len - len(ids_full):] = ids_full
-        labels[i] = ex.label
-        pred_lens[i] = max(len(ids_full) - len(ids_text), 1)
+    with RECORDER.span("train.tensorize", slots=b * max_len) as span:
+        tokens = np.full((b, max_len), tokenizer.pad_id, dtype=np.int32)
+        labels = np.zeros((b,), np.int32)
+        pred_lens = np.zeros((b,), np.int32)
+        valid = 0
+        for i, ex in enumerate(examples):
+            joined = f"{ex.text}\n{ex.pred}" if is_cot else f"{ex.text} {ex.pred}"
+            ids_full = tokenizer.encode(joined, add_bos=True)
+            ids_text = tokenizer.encode(ex.text, add_bos=True)
+            ids_full = ids_full[-max_len:]
+            tokens[i, max_len - len(ids_full):] = ids_full
+            labels[i] = ex.label
+            pred_lens[i] = max(len(ids_full) - len(ids_text), 1)
+            valid += len(ids_full)
+        span.count(valid=valid)
     return tokens, labels, pred_lens
 
 

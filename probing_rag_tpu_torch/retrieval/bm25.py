@@ -46,6 +46,7 @@ from probing_rag_tpu_torch.retrieval.bm25_index import (
     bitonic_tables,
     build_bitonic_store,
 )
+from probing_rag_tpu_torch.utils.profiling import RECORDER
 
 # bound on one chunk's [rows, pad] tile (device memory, not results)
 MAX_TILE_ELEMS = 1 << 26
@@ -588,8 +589,10 @@ class BM25Engine:
                                 lambda pad: max(1, MAX_TILE_ELEMS // pad))
 
     def search(self, queries: Sequence[str], k: int = 5) -> BM25SearchResult:
-        term_ids = [self.index.encode_query(self.analyzer(q)) for q in queries]
-        return self.search_term_ids(term_ids, k=k)
+        with RECORDER.span("retrieval.search", queries=len(queries)):
+            with RECORDER.span("retrieval.analyze"):
+                term_ids = [self.index.encode_query(self.analyzer(q)) for q in queries]
+            return self.search_term_ids(term_ids, k=k)
 
     def retrieve(self, query: str, k: int = 5) -> List[int]:
         """Top-k doc row indices for one query (the exp_rag.py:426 call shape)."""

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from probing_rag_tpu_torch.ops.dense import dense_topk, dense_topk_rerank, prepare_dense_store
+from probing_rag_tpu_torch.utils.profiling import RECORDER
 
 
 @dataclass
@@ -44,11 +45,12 @@ class DenseIndex:
         batch_size: int = 512,  # make_indexer.py:446-455 encodes in 512s
         metric: str = "l2",
     ) -> "DenseIndex":
-        chunks = [
-            np.asarray(encode_fn(texts[start : start + batch_size]))
-            for start in range(0, len(texts), batch_size)
-        ]
-        return cls(np.concatenate(chunks, axis=0), metric)
+        with RECORDER.span("index.build", passages=len(texts)):
+            chunks = [
+                np.asarray(encode_fn(texts[start : start + batch_size]))
+                for start in range(0, len(texts), batch_size)
+            ]
+            return cls(np.concatenate(chunks, axis=0), metric)
 
     def save(self, path: Path) -> None:
         path = Path(path)

@@ -11,8 +11,8 @@ package where it has a counterpart:
 - ``init_quantized_lm_params`` bit-equal to ``quantize_lm_params(
   init_params)`` from one seed (int8, grouped and rank-1 int4), with JAX's
   errors for bad ``bits`` and ``int4_scheme``;
-- ``utils/profiling.py`` (``PhaseTimer.report``, ``profile_to``) and
-  ``wandb_log_adapter`` without wandb."""
+- ``utils/profiling.py``'s report in the shape of JAX's
+  ``PhaseTimer.report``, and ``wandb_log_adapter`` without wandb."""
 
 import dataclasses
 import json
@@ -308,27 +308,26 @@ def test_init_quantized_errors_match_jax(kw):
 
 
 def test_phase_timer_report():
-    timer, jtimer = profiling.PhaseTimer(), jprofiling.PhaseTimer()
-    for t in (timer, jtimer):
-        for name, n in (("search", 3), ("decode", 1)):
-            for _ in range(n):
-                with t.phase(name, sync=torch.zeros(2) if t is timer else None):
-                    pass
-    report = timer.report()
-    assert list(report) == ["search", "decode"]
+    """The recorder's report holds JAX's ``PhaseTimer`` report (names in
+    first-use order; ``total_s``, ``count``, ``mean_s`` rounded to 4
+    places), with each name's self seconds and summed counts beside it."""
+    rec, jtimer = profiling.Recorder(), jprofiling.PhaseTimer()
+    for name, n in (("search", 3), ("decode", 1)):
+        for _ in range(n):
+            with rec.span(name, rows=2):
+                pass
+            with jtimer.phase(name):
+                pass
+    report, jreport = rec.report(), jtimer.report()
+    assert list(report) == list(jreport) == ["search", "decode"]
     assert {k: v["count"] for k, v in report.items()} == {"search": 3, "decode": 1}
     for k, v in report.items():
-        assert v["mean_s"] == round(timer.totals[k] / timer.counts[k], 4)
-        assert v["total_s"] == round(timer.totals[k], 4) >= 0.0
-    assert {k: set(v) for k, v in report.items()} == {k: set(v) for k, v in jtimer.report().items()}
-
-
-def test_profile_to_writes_a_trace(tmp_path):
-    with profiling.profile_to(str(tmp_path / "trace")):
-        with profiling.trace_annotation("search"):
-            torch.ones(8).sum()
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any(e.get("name") == "search" for e in trace["traceEvents"])
+        total = sum(s.seconds for s in rec.ring if s.name == k)
+        assert v["total_s"] == round(total, 4) >= 0.0
+        assert v["mean_s"] == round(total / v["count"], 4)
+        assert v["self_s"] == v["total_s"] and v["counts"] == {"rows": 2 * v["count"]}
+        assert set(v) - set(jreport[k]) == {"self_s", "counts"}
+        assert all(type(v[f]) is type(jreport[k][f]) for f in jreport[k])
 
 
 def test_wandb_adapter_without_wandb():
