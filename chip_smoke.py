@@ -286,7 +286,9 @@ power limit; the last line is the result as one JSON object.
 ``python3 chip_smoke.py --matmul`` runs phases 1, 2 and phase 8's
 matmul_int8 and matmul_int4 cases alone; ``--attention`` phases 1, 2 and phase 9's
 decode and prefill attention cases; ``--block`` phases 1, 2 and 9a; ``--encoder``
-phases 1, 2, 7a and phase 7's index build; ``--train`` runs phases 1, 2 and phase 10, and
+phases 1, 2, 7a and phase 7's index build; ``--dense`` phases 1, 2 and 7 (the index
+build and the flat and IVF probing loops over it, with phase 5's model); ``--train``
+runs phases 1, 2 and phase 10, and
 ``--baselines`` phases 1, 2 and 11, ``--parallel`` phases 1, 2 and 12
 (each with the phase-4 index and phase 5's model).
 """
@@ -1742,10 +1744,10 @@ class TimedEncoder:
         self.encode = encode
         self.seconds = 0.0
 
-    def __call__(self, texts):
+    def __call__(self, texts, **kw):
         sync()
         t0 = time.time()
-        out = self.encode(texts)
+        out = self.encode(texts, **kw)
         self.seconds += time.time() - t0
         return out
 
@@ -6047,6 +6049,8 @@ def main() -> int:
                     help="only phases 1, 2 and 9a (the block's elementwise kernels)")
     ap.add_argument("--encoder", action="store_true",
                     help="only phases 1, 2, 7a and phase 7's index build (the encoder's kernels)")
+    ap.add_argument("--dense", action="store_true",
+                    help="only phases 1, 2 and phase 7 (the dense index build and probing loops)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6076,6 +6080,11 @@ def main() -> int:
         with Phase("7 dense index build"):
             dense_index_build(docs_tokens)
         print(json.dumps(results))
+        return 0
+    if args.dense:
+        _, docs_tokens, _, _ = build_zipf_index()
+        with Phase("7 dense main path"):
+            phase_dense_main_path(docs_tokens, gemma_2b_lm(docs_tokens))
         return 0
     if args.block:
         with Phase("9a block kernels"):

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -163,37 +163,59 @@ def encoder_forward(
 
 def text_encoder(
     params: Params, cfg: EncoderConfig, tokenizer, device="cuda"
-) -> Callable[[Sequence[str]], np.ndarray]:
-    """``texts -> [B, D] f32`` numpy embeddings, as the JAX CLI's
-    ``_dense_encoder`` closure: token ids cut to ``max_positions`` and
-    clamped to ``vocab_size - 1``, right-padded to the batch's longest.
-    The tree the forward reads is made here, once (:func:`prepare_params`):
-    the caller may drop ``params``.
+) -> Callable[..., np.ndarray]:
+    """``encode(texts, batch_size=None) -> [len(texts), D] f32`` numpy
+    embeddings in the order of ``texts``, as the JAX CLI's ``_dense_encoder``
+    closure: token ids cut to ``max_positions`` and clamped to
+    ``vocab_size - 1``, each batch right-padded to its longest. The tree the
+    forward reads is made here, once (:func:`prepare_params`): the caller may
+    drop ``params``.
 
-    A call is an ``encoder.batch`` span over ``encoder.tokenize``,
-    ``encoder.pad``, ``encoder.copy_in``, ``encoder.forward`` (timed on
-    the card too, with the batch's ``slots``, rows x longest, and its
-    ``valid`` tokens) and ``encoder.readback``."""
+    ``encode`` tokenizes its texts once, orders them by token count, longest
+    first (a window too large for the card fails at its first batch) and
+    equal counts in their order, runs a forward on each slice of
+    ``batch_size`` (all of them with ``batch_size`` None: one forward for a
+    query batch) in that order, and writes each embedding back at its
+    text's place: few padded slots, and the reference's own behaviour
+    (``SentenceTransformer.encode`` sorts its input by length and restores
+    the order). A row's embedding does not depend on the other rows of its
+    batch, but for the order in which the products sum.
+
+    A call is an ``encoder.batch`` span (its ``rows``) over one
+    ``encoder.tokenize`` and, a forward each, ``encoder.pad``,
+    ``encoder.copy_in``, ``encoder.forward`` (timed on the card too, with
+    the batch's ``slots``, rows x longest, and its ``valid`` tokens) and
+    ``encoder.readback``; the ordering and the write back are the
+    ``encoder.batch`` span's own time."""
     params = prepare_params(params, cfg)
     device = torch.device(device)
 
-    def encode(texts: Sequence[str]) -> np.ndarray:
+    def forward(ids) -> np.ndarray:
+        with RECORDER.span("encoder.pad"):
+            ml = max(max((len(i) for i in ids), default=1), 1)
+            arr = np.zeros((len(ids), ml), np.int64)
+            msk = np.zeros((len(ids), ml), bool)
+            for i, row in enumerate(ids):
+                arr[i, : len(row)] = np.minimum(row, cfg.vocab_size - 1)
+                msk[i, : len(row)] = True
+        with RECORDER.span("encoder.copy_in"):
+            tokens, mask = torch.from_numpy(arr).to(device), torch.from_numpy(msk).to(device)
+        with RECORDER.span("encoder.forward", device=device, slots=arr.size,
+                           valid=sum(len(i) for i in ids)), torch.no_grad():
+            out = encoder_forward(params, tokens, mask, cfg)
+        with RECORDER.span("encoder.readback"):
+            return out.cpu().numpy()
+
+    def encode(texts: Sequence[str], batch_size: Optional[int] = None) -> np.ndarray:
         with RECORDER.span("encoder.batch", rows=len(texts)):
             with RECORDER.span("encoder.tokenize"):
                 ids = [tokenizer.encode(t)[: cfg.max_positions] for t in texts]
-            with RECORDER.span("encoder.pad"):
-                ml = max(max((len(i) for i in ids), default=1), 1)
-                arr = np.zeros((len(ids), ml), np.int64)
-                msk = np.zeros((len(ids), ml), bool)
-                for i, row in enumerate(ids):
-                    arr[i, : len(row)] = np.minimum(row, cfg.vocab_size - 1)
-                    msk[i, : len(row)] = True
-            with RECORDER.span("encoder.copy_in"):
-                tokens, mask = torch.from_numpy(arr).to(device), torch.from_numpy(msk).to(device)
-            with RECORDER.span("encoder.forward", device=device, slots=arr.size,
-                               valid=sum(len(i) for i in ids)), torch.no_grad():
-                out = encoder_forward(params, tokens, mask, cfg)
-            with RECORDER.span("encoder.readback"):
-                return out.cpu().numpy()
+            bs = batch_size or max(len(ids), 1)
+            order = np.argsort([-len(i) for i in ids], kind="stable")
+            ids = [ids[r] for r in order.tolist()]
+            out = np.empty((len(ids), cfg.d_model), np.float32)
+            for start in range(0, len(ids), bs):
+                out[order[start : start + bs]] = forward(ids[start : start + bs])
+            return out
 
     return encode

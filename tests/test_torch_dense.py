@@ -24,7 +24,7 @@ from probing_rag_tpu_torch.ops.dense import (
     dense_topk_rerank,
     prepare_dense_store,
 )
-from probing_rag_tpu_torch.retrieval.dense import DenseEngine, DenseIndex
+from probing_rag_tpu_torch.retrieval.dense import WINDOW_BATCHES, DenseEngine, DenseIndex
 
 torch.set_num_threads(1)
 
@@ -172,15 +172,24 @@ def test_dense_engine_matches_jax_across_files(tmp_path, metric, dt):
 
 
 def test_dense_index_build_encodes_in_batches():
+    """The build hands the encoder windows of WINDOW_BATCHES batches in
+    passage order, with the batch size, and stores what comes back in
+    that order."""
     calls = []
 
-    def encode(texts):
-        calls.append(len(texts))
-        return np.full((len(texts), 4), len(calls), np.float32)
+    def encode(texts, batch_size=None):
+        calls.append((len(texts), batch_size))
+        return np.stack([[float(t), len(calls)] for t in texts]).astype(np.float32)
 
-    ix = DenseIndex.build([str(i) for i in range(1100)], encode)
-    assert calls == [512, 512, 76] and ix.embeddings.shape == (1100, 4) and ix.metric == "l2"
-    np.testing.assert_array_equal(ix.embeddings[1024:, 0], 3.0)
+    texts = [str(i) for i in range(1100)]
+    ix = DenseIndex.build(texts, encode)
+    assert calls == [(1100, 512)] and ix.embeddings.shape == (1100, 2) and ix.metric == "l2"
+    calls.clear()
+    window = WINDOW_BATCHES * 32
+    ix = DenseIndex.build(texts, encode, batch_size=32)
+    assert calls == [(window, 32), (window, 32), (1100 - 2 * window, 32)]
+    np.testing.assert_array_equal(ix.embeddings[:, 0], np.arange(1100))
+    np.testing.assert_array_equal(ix.embeddings[2 * window:, 1], 3.0)
 
 
 def test_dense_topk_rejects_bad_arguments():

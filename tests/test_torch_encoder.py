@@ -101,3 +101,70 @@ def test_text_encoder_truncates(params):
     ref = te.encoder_forward(p, torch.from_numpy(ids[None]).long(), torch.ones((1, len(ids)), dtype=torch.bool), cfg)
     np.testing.assert_allclose(got[:1], ref.numpy(), rtol=1e-6, atol=1e-6)
     assert got.shape == (2, cfg.d_model)
+
+
+def tiny_f32_encoder(params):
+    from probing_rag_tpu_torch.models.tokenizer import ByteTokenizer
+
+    cfg = dataclasses.replace(te.EncoderConfig.tiny(), compute_dtype=torch.float32)
+    return te.text_encoder(encoder_params_from_jax(params, cfg, device="cpu"), cfg,
+                           ByteTokenizer(259), device="cpu"), ByteTokenizer(259)
+
+
+def recorded_forwards(monkeypatch):
+    """Each forward's token rows, as ``text_encoder`` hands them over."""
+    seen = []
+    forward = te.encoder_forward
+
+    def record(p, tokens, mask, cfg):
+        seen.append([row[m].tolist() for row, m in zip(tokens, mask)])
+        return forward(p, tokens, mask, cfg)
+
+    monkeypatch.setattr(te, "encoder_forward", record)
+    return seen
+
+
+def test_index_build_stores_sorted_batches_in_passage_order(params):
+    """A build over four batches of passages in shuffled lengths: each row
+    of the index is its passage encoded alone, and the JAX package's index
+    of the same passages (its batches cut in passage order), at f32."""
+    from probing_rag_tpu.retrieval import dense as jdense
+    from probing_rag_tpu_torch.retrieval.dense import DenseIndex
+    from test_torch_pipeline import jax_encoder
+
+    encode, _ = tiny_f32_encoder(params)
+    lengths = np.random.default_rng(1).permutation(np.arange(2, 46, 4))
+    texts = [chr(97 + i) * int(n) for i, n in enumerate(lengths)]
+    ix = DenseIndex.build(texts, encode, batch_size=3)
+    alone = np.concatenate([encode([t]) for t in texts])
+    assert ix.embeddings.shape == (len(texts), 32)
+    np.testing.assert_allclose(ix.embeddings, alone, rtol=1e-6, atol=1e-6)
+    jcfg = dataclasses.replace(je.EncoderConfig.tiny(), compute_dtype=jnp.float32)
+    jix = jdense.DenseIndex.build(texts, jax_encoder(params, jcfg), batch_size=3)
+    np.testing.assert_allclose(ix.embeddings, jix.embeddings, rtol=1e-5, atol=1e-5)
+
+
+def test_text_encoder_sort_is_stable(params, monkeypatch):
+    """Longest first, and passages of equal length in the caller's order."""
+    encode, tok = tiny_f32_encoder(params)
+    seen = recorded_forwards(monkeypatch)
+    texts = ["ab", "wxyz", "cd", "q", "ef", "mnop", "gh", "r", "ij"]
+    encode(texts, batch_size=4)
+    want = [tok.encode(t) for t in ["wxyz", "mnop", "ab", "cd", "ef", "gh", "ij", "q", "r"]]
+    assert seen == [want[:4], want[4:8], want[8:]]
+
+
+@pytest.mark.parametrize("batch_size", [None, 3, 8])
+def test_text_encoder_query_batch_is_one_forward_in_caller_order(params, monkeypatch,
+                                                                 batch_size):
+    """At most ``batch_size`` texts (or none given), as query encoding runs
+    them: one forward over all of them, and each embedding at its text's
+    place, equal to that text encoded alone."""
+    encode, tok = tiny_f32_encoder(params)
+    texts = ["a", "a longer query", "mid"]
+    alone = np.concatenate([encode([t]) for t in texts])
+    seen = recorded_forwards(monkeypatch)
+    got = encode(texts, batch_size=batch_size)
+    assert len(seen) == 1 and sorted(seen[0]) == sorted(tok.encode(t) for t in texts)
+    assert got.shape == (3, 32)
+    np.testing.assert_allclose(got, alone, rtol=1e-6, atol=1e-6)

@@ -10,6 +10,7 @@ import dataclasses
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,7 @@ from probing_rag_tpu_torch.pipeline import rag as trag
 from probing_rag_tpu_torch.prober.train import ProberExample, tensorize_examples
 from probing_rag_tpu_torch.retrieval.bm25 import BM25Engine
 from probing_rag_tpu_torch.retrieval.bm25_index import BM25Config, BM25Index
-from probing_rag_tpu_torch.retrieval.dense import DenseIndex
+from probing_rag_tpu_torch.retrieval.dense import WINDOW_BATCHES, DenseIndex
 from probing_rag_tpu_torch.utils.profiling import RECORDER, Recorder
 
 torch.set_num_threads(1)
@@ -213,27 +214,78 @@ def test_pipeline_counts_pad_rows_and_takes_out_their_steps(lm, monkeypatch):
     assert dec.counts["live"] == int(results[0].n_pooled[:5].sum())
 
 
-def test_text_encoder_counts_slots_and_valid_tokens():
+def tiny_text_encoder(tok=None):
     cfg = dataclasses.replace(te.EncoderConfig.tiny(), compute_dtype=torch.float32)
     params = te.init_encoder_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    tok = ByteTokenizer(259)
-    encode = te.text_encoder(params, cfg, tok, "cpu")
+    tok = tok or ByteTokenizer(259)
+    return te.text_encoder(params, cfg, tok, "cpu"), tok
+
+
+def sorted_slices(texts, tok, batch_size):
+    """The batches text_encoder cuts: longest first, ties in caller order."""
+    ranked = sorted(texts, key=lambda t: -len(tok.encode(t)))
+    return [ranked[s:s + batch_size] for s in range(0, len(ranked), batch_size)]
+
+
+def test_text_encoder_counts_slots_and_valid_tokens():
+    encode, tok = tiny_text_encoder()
     texts = ["short", "a somewhat longer passage", "mid length", "x", "yy", "zzz"]
     t0 = time.perf_counter_ns()
     DenseIndex.build(texts, encode, batch_size=4)
     mine = spans_since(t0)
     build = only(mine, "index.build")
     assert build.counts == {"passages": 6} and build.parent is None
-    batches = [s for s in mine if s.name == "encoder.batch"]
+    batch = only(mine, "encoder.batch")
     forwards = [s for s in mine if s.name == "encoder.forward"]
-    assert [b.counts["rows"] for b in batches] == [4, 2]
-    assert all(b.parent == build.id for b in batches)
-    for b, f, part in zip(batches, forwards, (texts[:4], texts[4:])):
+    assert batch.counts["rows"] == 6 and batch.parent == build.id
+    assert len(forwards) == 2 and all(f.parent == batch.id for f in forwards)
+    for f, part in zip(forwards, sorted_slices(texts, tok, 4)):
         lens = [len(tok.encode(t)) for t in part]
         assert f.counts == {"slots": len(part) * max(lens), "valid": sum(lens)}
-        kids = [s.name for s in mine if s.parent == b.id]
-        assert kids == ["encoder.tokenize", "encoder.pad", "encoder.copy_in", "encoder.forward",
-                        "encoder.readback"]
+    kids = [s.name for s in mine if s.parent == batch.id]
+    assert kids == ["encoder.tokenize"] + 2 * ["encoder.pad", "encoder.copy_in",
+                                               "encoder.forward", "encoder.readback"]
+
+
+def test_text_encoder_slots_follow_the_sorted_slices():
+    """Each forward's slots are its slice's rows x longest, slices cut
+    from the window sorted by length: fewer than caller-order batches."""
+    encode, tok = tiny_text_encoder()
+    rng = np.random.default_rng(5)
+    texts = ["w" * int(n) for n in rng.integers(1, 40, size=23)]
+    t0 = time.perf_counter_ns()
+    encode(texts, batch_size=5)
+    forwards = [s for s in spans_since(t0) if s.name == "encoder.forward"]
+    slices = sorted_slices(texts, tok, 5)
+    assert [f.counts["slots"] for f in forwards] == [
+        len(p) * max(len(tok.encode(t)) for t in p) for p in slices]
+    assert sum(f.counts["valid"] for f in forwards) == sum(len(tok.encode(t)) for t in texts)
+    unsorted = sum(len(texts[s:s + 5]) * max(len(tok.encode(t)) for t in texts[s:s + 5])
+                   for s in range(0, len(texts), 5))
+    assert sum(f.counts["slots"] for f in forwards) < unsorted
+
+
+def test_index_build_tokenizes_one_window_at_a_time():
+    """A build over three windows: every passage tokenized once, inside the
+    tokenize span of its window (at most WINDOW_BATCHES x batch_size of
+    them), and the embeddings in passage order across windows."""
+    encode, tok = tiny_text_encoder()
+    stamps = []
+
+    class Stamped:
+        def encode(self, text):
+            stamps.append(time.perf_counter_ns())
+            return tok.encode(text)
+
+    stamped, _ = tiny_text_encoder(Stamped())
+    rng = np.random.default_rng(9)
+    texts = ["v" * int(n) for n in rng.integers(1, 30, size=2 * WINDOW_BATCHES * 2 + 7)]
+    t0 = time.perf_counter_ns()
+    ix = DenseIndex.build(texts, stamped, batch_size=2)
+    spans = [s for s in spans_since(t0) if s.name == "encoder.tokenize"]
+    per_span = [sum(s.start_ns <= t <= s.end_ns for t in stamps) for s in spans]
+    assert per_span == [2 * WINDOW_BATCHES, 2 * WINDOW_BATCHES, 7] and len(stamps) == len(texts)
+    np.testing.assert_allclose(ix.embeddings, encode(texts), rtol=1e-6, atol=1e-6)
 
 
 def test_bm25_search_span_and_its_analyzer():
